@@ -1,0 +1,81 @@
+"""Build and bind the port's CUDA kernels (kernels/csrc/*.cu).
+
+``nvcc`` compiles each source into a shared library with a plain C
+interface, for ``sm_90a`` only, into the gitignored ``build/`` directory
+(content-keyed, _buildcache); ``ctypes`` binds it.  Nothing builds at
+import: the first CUDA launch builds, so CPU-only machines never need
+``nvcc``.  Each C entry point returns ``cudaGetLastError()`` after its
+launch; :func:`check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+from .._buildcache import cached_build
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C signatures: every pointer and the stream as void*, sizes as int
+_SIGNATURES = {
+    "pair_v3": {
+        "ggt_pair_counts_v3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+        "ggt_exception_patch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "ggt_blocks_tail": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def _command(src: Path):
+    def cmd(out: Path) -> list[str]:
+        return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                "-Xcompiler", "-fPIC",
+                "-o", str(out), str(src)]
+    return cmd
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/{name}.cu`` (cached) and return the library path;
+    ``nvcc``'s register and spill report is beside it with ``.log``."""
+    src = _CSRC / f"{name}.cu"
+    try:
+        return cached_build(name, [src], _command(src))
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed on {src}:\n{e.stdout}{e.stderr}") \
+            from e
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The bound library of ``csrc/{name}.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            cdll = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                f = getattr(cdll, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = cdll
+        return _libs[name]
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
