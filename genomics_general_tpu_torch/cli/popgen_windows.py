@@ -1,17 +1,21 @@
-"""popgenWindows on the GPU: sliding-window pi / dxy / Fst.
+"""popgenWindows on the GPU: sliding-window pi / dxy / Fst (+ Tajima panel,
+per-individual het & distances, H1/H12/H2).
 
 The port of genomics_general_tpu/cli/popgen_windows.py, with the same flags
 and output bytes.  CLI mirrors popgenWindows.py (flags :170-210, CSV
 assembly :319-354, per-window wrapper :28-75).  The pipeline replaces the
 reference's process pool with the streaming engine: prefetch-threaded chunk
-parse -> incremental window plan -> fused pair-count + pop-block CUDA
+parse -> incremental window plan -> pair-count and allele-count CUDA
 kernels -> float64 host finalize -> ordered CSV.  Memory is O(flush batch),
 not O(genome).
 
-This slice of the port runs ``--analysis popDist popPairDist`` (with the
-``--fstMethod Hudson`` columns, host arithmetic on pi/dxy) in one process.
-The other analyses and options raise ``NotImplementedError`` naming the
-ROADMAP item that brings them (:func:`_check_slice`).
+Every ``--analysis`` and ``--fstMethod`` runs, in one process on one
+device.  Multi-process runs (``GGT_NUM_PROCS>1``) and the JAX package's
+unported wire options raise ``NotImplementedError`` naming the ROADMAP
+item that brings them (:func:`_check_slice`).
+
+Extension beyond the reference: ``--fstMethod WC`` adds Weir-Cockerham Fst
+columns (the reference only has 1 - pi_s/pi_t, genomics.py:987-993).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ..io import geno as geno_io
 from ..io import native
 from ..io import writers
 from ..device import get_device
+from ..kernels import counts as counts_k
 from ..kernels import pairdist as pair_k
 from ..stats import popgen
 from . import common
@@ -59,41 +64,30 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_SLICE_ANALYSES = ("popDist", "popPairDist")
-_NOT_PORTED = {
-    "indPairDist": "the tri and blocks_het epilogues",
-    "indHet": "the tri and blocks_het epilogues",
-    "popFreq": "kernels/counts.py",
-    "hapStats": "the general 4-state pair counts",
-}
-
-
-def _check_slice(args, analysis) -> None:
-    """Raise NotImplementedError for what this slice of the port does not
-    run yet, naming the ROADMAP queue-1 item that brings it."""
-    for a in analysis:
-        if a not in _SLICE_ANALYSES:
-            raise NotImplementedError(
-                f"--analysis {a} is not ported yet (ROADMAP queue 1: "
-                f"{_NOT_PORTED[a]})")
-    if args.fstMethod == "WC":
+def _check_slice() -> None:
+    """Raise NotImplementedError for the JAX package's wire options whose
+    kernels are not ported yet (multi-process runs raise in
+    parallel/multihost; the port has no device mesh: one process drives
+    one device)."""
+    if os.environ.get("GGT_WIRE") == "2":
         raise NotImplementedError(
-            "--fstMethod WC is not ported yet (ROADMAP queue 1: "
-            "kernels/counts.py)")
-    if os.environ.get("GGT_HOST_DIST_FINALIZE") == "1":
+            "GGT_WIRE=2 (the wire-v2 pair kernels) is not ported yet: "
+            "ROADMAP queue 2, rows 5 and 6")
+    if os.environ.get("GGT_PACKED_TRANSFER") == "0":
         raise NotImplementedError(
-            "GGT_HOST_DIST_FINALIZE=1 is not ported yet (ROADMAP queue 1: "
-            "the tri and blocks_het epilogues)")
+            "GGT_PACKED_TRANSFER=0 (the raw int8 upload and the general "
+            "4-state pair counts) is not ported yet: ROADMAP queue 2, "
+            "rows 6 and 7")
 
 
 def main(argv=None) -> int:
     from ..parallel import multihost
     multihost.maybe_initialize()
     args = build_parser().parse_args(argv)
+    _check_slice()
     get_device()                     # fail fast when the card is missing
     wind = common.resolve_window_args(args)
     analysis = args.analysis
-    _check_slice(args, analysis)
 
     extra = args.samples.split(",") if args.samples else []
     sd = common.sample_data_from_args(args, extra_inds=extra)
@@ -105,22 +99,44 @@ def main(argv=None) -> int:
         sd.ind_names = all_inds
         for ind in all_inds:
             sd.ploidy.setdefault(ind, 1 if args.genoFormat == "haplo" else 2)
-        if not sd.pop_names:
+        if any(a in analysis for a in ("popFreq", "popDist", "popPairDist", "hapStats")) \
+                and not sd.pop_names:
             sd.pop_names = ["all"]
             sd.pop_inds = {"all": all_inds}
     pop_names = sd.pop_names
+    all_inds = sd.ind_names
     min_sites = wind["minSites"]
 
     # ---- stats column list (popgenWindows.py:326-354)
     stats: list[str] = []
+    if "popFreq" in analysis:
+        for prefix in ("l_", "S_", "thetaPi_", "thetaW_", "TajD_"):
+            stats += [prefix + n for n in pop_names]
     if "popDist" in analysis:
         stats += ["pi_" + n for n in pop_names]
     if "popPairDist" in analysis:
         stats += ["dxy_" + x + "_" + y for x, y in itertools.combinations(pop_names, 2)]
         stats += ["Fst_" + x + "_" + y for x, y in itertools.combinations(pop_names, 2)]
+        if args.fstMethod == "WC":
+            stats += ["FstWC_" + x + "_" + y
+                      for x, y in itertools.combinations(pop_names, 2)]
         if args.fstMethod == "Hudson":
             stats += ["FstHud_" + x + "_" + y
                       for x, y in itertools.combinations(pop_names, 2)]
+    if "indPairDist" in analysis:
+        stats += ["_".join(["d", i, j])
+                  for i, j in itertools.combinations_with_replacement(sorted(all_inds), 2)]
+    if "indHet" in analysis:
+        stats += ["het_" + n for n in all_inds]
+    if "hapStats" in analysis:
+        for prefix in ("H1_", "H12_", "H2_"):
+            stats += [prefix + n for n in pop_names]
+    int_stats = {s for s in stats if s.startswith(("l_",))}
+
+    need_dist = any(a in analysis for a in
+                    ("popDist", "popPairDist", "indPairDist", "indHet", "hapStats"))
+    need_freq = "popFreq" in analysis
+    need_wc = need_dist and args.fstMethod == "WC" and "popPairDist" in analysis
     need_hud = args.fstMethod == "Hudson" and "popPairDist" in analysis
 
     # ---- runtime setup
@@ -145,34 +161,114 @@ def main(argv=None) -> int:
     if c_out is not None:
         out.flush()
 
-    # popDist/popPairDist use the fully-fused device path: pair counts AND
-    # the per-pop-block float64 reductions stay on the device, so only
-    # [W, 2, P, P] floats come back (kernels/pairdist.
-    # window_pair_block_stats_dispatch).  Every haplotype row is in exactly
-    # one group, the ungrouped rows in the "" group.
-    dist_groups_arr = np.array(
-        ["" if g is None else g for g in model.row_group])
-    dist_pops = [str(p) for p in np.unique(dist_groups_arr)]
-    dist_sizes = [int((dist_groups_arr == g).sum()) for g in dist_pops]
-    dist_mask = np.zeros((len(dist_pops), model.n_rows), dtype=np.float64)
-    for gi, g in enumerate(dist_pops):
-        dist_mask[gi, dist_groups_arr == g] = 1.0
+    # popDist/popPairDist/indPairDist/indHet runs use the fused device
+    # paths: pair counts AND the per-block float64 reductions stay on the
+    # device, so only [W, 2, P, P] floats (plus each individual's own-pair
+    # counts) come back (kernels/pairdist.window_pair_block_stats_dispatch,
+    # window_pair_ind_blocks_dispatch).  hapStats, popFreq and WC use the
+    # general path: the packed [W, H, H] counts (window_pair_counts_dispatch)
+    # and the per-site counts kernel.
+    fast_dist = ("popDist", "popPairDist", "indPairDist", "indHet")
+    use_blocks = (need_dist
+                  and not (need_freq or need_wc)
+                  and all(a in fast_dist for a in analysis)
+                  and os.environ.get("GGT_HOST_DIST_FINALIZE") != "1")
+    # per-individual block granularity ONLY when indPairDist needs the full
+    # [I, I] matrices; indHet alone rides the pop-blocks kernel (each
+    # individual's raw own-pair counts are fetched either way)
+    need_ind_blocks = use_blocks and "indPairDist" in analysis
+    need_het = use_blocks and "indHet" in analysis
+    blocks_ind = need_ind_blocks
+    if use_blocks:
+        dist_groups_arr = np.array(
+            ["" if g is None else g for g in model.row_group])
+        dist_pops = [str(p) for p in np.unique(dist_groups_arr)]
+        dist_sizes = [int((dist_groups_arr == g).sum()) for g in dist_pops]
+        # min_sites mutates the shared distance context only when the
+        # wrapper's popDist/popPairDist step runs first (popgenWindows.py:
+        # 51-64); individual-stat-only runs see the unmutated matrix
+        ms_gate = min_sites if ("popDist" in analysis
+                                or "popPairDist" in analysis) else 0
+        if need_ind_blocks or need_het:
+            ind_names_sorted = model.sample_names
+            n_i = len(ind_names_sorted)
+            het_rows = np.zeros((2, n_i), dtype=np.int32)
+            diploid = np.zeros(n_i, dtype=bool)
+            for k, rows in enumerate(model.sample_rows):
+                if rows.size == 2:
+                    diploid[k] = True
+                    het_rows[0, k], het_rows[1, k] = int(rows[0]), int(rows[1])
+        if blocks_ind:
+            ind_mask = np.zeros((n_i, model.n_rows), dtype=np.float64)
+            # every row belongs to exactly one individual (HaplotypeModel
+            # builds the rows from the individuals, --samples and
+            # --haploid included), as the per-block kernel requires
+            for k, rows in enumerate(model.sample_rows):
+                ind_mask[k, rows] = 1.0
+            # individual -> pop aggregation one-hot [P, I]
+            ind_group = np.array(
+                ["" if model.row_group[int(r[0])] is None
+                 else model.row_group[int(r[0])]
+                 for r in model.sample_rows])
+            pop_agg = np.zeros((len(dist_pops), n_i), dtype=np.float64)
+            for gi, g in enumerate(dist_pops):
+                pop_agg[gi, ind_group == g] = 1.0
+        else:
+            dist_mask = np.zeros((len(dist_pops), model.n_rows),
+                                 dtype=np.float64)
+            for gi, g in enumerate(dist_pops):
+                dist_mask[gi, dist_groups_arr == g] = 1.0
+
+    # popFreq: one combined mask over the row groups (incl. ungrouped rows)
+    if need_freq or need_wc:
+        groups_arr = np.array(["" if g is None else g for g in model.row_group])
+        freq_groups = list(np.unique(groups_arr))
+        fmask = np.zeros((len(freq_groups), model.n_rows), dtype=np.float32)
+        fsizes = {}
+        for gi, g in enumerate(freq_groups):
+            rows = np.flatnonzero(groups_arr == g)
+            fmask[gi, rows] = 1.0
+            fsizes[g] = rows.size
 
     rt = args.roundTo
 
     def dispatch(batch):
-        """Pack the flush span into one wire buffer and launch all device
-        work asynchronously; results are fetched in finalize() — one batch
-        later, so batch k's host finalize overlaps batch k+1's wire+compute."""
+        """Pack the flush span and launch all device work asynchronously;
+        results are fetched in finalize() — one batch later, so batch k's
+        host finalize overlaps batch k+1's wire+compute.  Where the JAX
+        package shares one span upload between the pair and count kernels,
+        the port ships each its own wire (wire v3 for the pair counts, the
+        2-bit span wire for the site counts): one upload each."""
         plan = batch.plan
         span = batch.alleles[:, :batch.needed_end]
+        handles = {}
         with timer.stage("kernel"):
-            handle = pair_k.window_pair_block_stats_dispatch(
-                span, plan.first.astype(np.int32),
-                plan.n_sites.astype(np.int32), dist_mask, min_sites)
-        return batch, handle
+            if use_blocks and blocks_ind:
+                handles["indblocks"] = pair_k.window_pair_ind_blocks_dispatch(
+                    span, plan.first.astype(np.int32),
+                    plan.n_sites.astype(np.int32), ind_mask, het_rows,
+                    ms_gate)
+            elif use_blocks and need_het:
+                # pop-level blocks + per-individual own-pair raw counts in
+                # one fetch; no [W, I, I] matrices come back
+                handles["pophet"] = pair_k.window_pair_ind_blocks_dispatch(
+                    span, plan.first.astype(np.int32),
+                    plan.n_sites.astype(np.int32), dist_mask, het_rows,
+                    ms_gate)
+            elif use_blocks:
+                handles["pairblocks"] = pair_k.window_pair_block_stats_dispatch(
+                    span, plan.first.astype(np.int32),
+                    plan.n_sites.astype(np.int32), dist_mask, min_sites)
+            elif need_dist:
+                handles["pair"] = pair_k.window_pair_counts_dispatch(
+                    span, plan.first.astype(np.int32),
+                    plan.n_sites.astype(np.int32))
+            if (need_freq or need_wc) and span.shape[1]:
+                handles["counts"] = counts_k.site_pop_counts_dispatch(
+                    span, fmask)
+        return batch, handles
 
-    def finalize(batch, handle):
+    def finalize(batch, handles):
         plan = batch.plan
         n_w = plan.n_windows
         sites = plan.n_sites
@@ -180,16 +276,99 @@ def main(argv=None) -> int:
         mid = plan.mid(batch.positions)
         values: dict[str, np.ndarray] = {}
 
-        with timer.stage("d2h"):
-            bsums, bcnts = handle.collect()
-        with timer.stage("finalize"):
-            values.update(popgen.group_dist_stats_from_blocks(
-                bsums, bcnts, dist_pops, dist_sizes,
-                do_pairs="popPairDist" in analysis,
-                min_data=args.minData))
+        if use_blocks and blocks_ind:
+            with timer.stage("d2h"):
+                isums, icnts, het_m, het_s = handles["indblocks"].collect()
+            with timer.stage("finalize"):
+                if "popDist" in analysis or "popPairDist" in analysis:
+                    psums = np.einsum("pi,wij,qj->wpq", pop_agg, isums,
+                                      pop_agg)
+                    pcnts = np.einsum("pi,wij,qj->wpq", pop_agg, icnts,
+                                      pop_agg)
+                    values.update(popgen.group_dist_stats_from_blocks(
+                        psums, pcnts, dist_pops, dist_sizes,
+                        do_pairs="popPairDist" in analysis,
+                        min_data=args.minData))
+                if "indPairDist" in analysis:
+                    pd = popgen.ind_pair_dists_from_blocks(
+                        isums, icnts, ind_names_sorted)
+                    for i, j in itertools.combinations_with_replacement(
+                            sorted(pd.keys()), 2):
+                        values["_".join(["d", i, j])] = pd[i][j]
+                if "indHet" in analysis:
+                    het = popgen.sample_het_from_pairs(
+                        het_m, het_s, ind_names_sorted, diploid, ms_gate)
+                    for key, v in het.items():
+                        values["het_" + key] = v
+        elif use_blocks and need_het:
+            with timer.stage("d2h"):
+                psums, pcnts, het_m, het_s = handles["pophet"].collect()
+            with timer.stage("finalize"):
+                if "popDist" in analysis or "popPairDist" in analysis:
+                    values.update(popgen.group_dist_stats_from_blocks(
+                        psums, pcnts, dist_pops, dist_sizes,
+                        do_pairs="popPairDist" in analysis,
+                        min_data=args.minData))
+                het = popgen.sample_het_from_pairs(
+                    het_m, het_s, ind_names_sorted, diploid, ms_gate)
+                for key, v in het.items():
+                    values["het_" + key] = v
+        elif use_blocks:
+            with timer.stage("d2h"):
+                bsums, bcnts = handles["pairblocks"].collect()
+            with timer.stage("finalize"):
+                values.update(popgen.group_dist_stats_from_blocks(
+                    bsums, bcnts, dist_pops, dist_sizes,
+                    do_pairs="popPairDist" in analysis,
+                    min_data=args.minData))
+        elif need_dist:
+            with timer.stage("d2h"):
+                mism, shar = handles["pair"].collect()
+            with timer.stage("finalize"):
+                ctx = popgen.DistStatsContext(mism, shar)
+                # analysis order matters: the reference mutates the cached
+                # matrix (popgenWindows.py:51-64)
+                if "popDist" in analysis or "popPairDist" in analysis:
+                    values.update(popgen.group_dist_stats(
+                        ctx, model.row_group, do_pairs="popPairDist" in analysis,
+                        min_sites=min_sites, min_data=args.minData))
+                if "indPairDist" in analysis:
+                    pd = popgen.ind_pair_dists(ctx, model.sample_names,
+                                               model.sample_rows)
+                    for i, j in itertools.combinations_with_replacement(
+                            sorted(pd.keys()), 2):
+                        values["_".join(["d", i, j])] = pd[i][j]
+                if "indHet" in analysis:
+                    het = popgen.sample_het(ctx, model.sample_names,
+                                            model.sample_rows)
+                    for key, v in het.items():
+                        values["het_" + key] = v
+                if "hapStats" in analysis:
+                    values.update(popgen.h12_stats(ctx, model.row_group,
+                                                   args.hapDist))
 
         if need_hud:
             values.update(popgen.hudson_fst_from_stats(values, pop_names))
+
+        if need_freq or need_wc:
+            needed = batch.needed_end
+            with timer.stage("d2h"):
+                counts = handles["counts"].collect() if "counts" in handles \
+                    else np.zeros((0, len(freq_groups), 4), np.int32)  # [S, G, 4]
+            with timer.stage("finalize"):
+                if need_freq:
+                    complete = (batch.alleles[:, :needed] >= 0).all(axis=0)
+                    group_counts = {g: counts[:, gi, :]
+                                    for gi, g in enumerate(freq_groups)}
+                    values.update(popgen.group_freq_stats(
+                        group_counts, fsizes, complete,
+                        zip(plan.first, plan.last)))
+                if need_wc:
+                    gidx = {g: i for i, g in enumerate(freq_groups)}
+                    for x, y in itertools.combinations(pop_names, 2):
+                        values["FstWC_" + x + "_" + y] = popgen.wc_fst_windows(
+                            counts[:, gidx[x], :], counts[:, gidx[y], :],
+                            zip(plan.first, plan.last))
 
         with timer.stage("write"):
             if c_out is not None and n_w:
@@ -205,7 +384,8 @@ def main(argv=None) -> int:
                         else np.full(n_w, np.nan) for s in stats]
                 vals_mat = np.column_stack(cols) if stats \
                     else np.zeros((n_w, 0), dtype=np.float64)
-                kind = np.zeros(len(stats), dtype=np.uint8)   # all floats
+                kind = np.array([1 if (s in int_stats or s.startswith("S_"))
+                                 else 0 for s in stats], dtype=np.uint8)
                 if native.format_window_csv(
                         names_b, scaf_idx, plan.start, plan.end,
                         np.asarray(mid, dtype=np.float64), sites, vals_mat,
@@ -232,6 +412,11 @@ def main(argv=None) -> int:
                 for s in stats:
                     if not is_good:
                         row.append("nan")
+                    elif s in int_stats:
+                        row.append(writers.fmt_int_or_nan(values[s][w]))
+                    elif s.startswith("S_"):
+                        v = values[s][w]
+                        row.append(writers.fmt_int_or_nan(v) if v == v else "nan")
                     else:
                         row.append(writers.fmt_float(values[s][w], rt))
                 text = ",".join(row) + "\n"
@@ -245,12 +430,22 @@ def main(argv=None) -> int:
                 out.flush()
                 cursor.save(batch.window_offset + plan.n_windows, out.tell())
 
+    # the general distance path (hapStats, GGT_HOST_DIST_FINALIZE=1, or
+    # sharing a run with popFreq/WC) materializes TWO int32 [W, H, H]
+    # matrices per flush on the host; cap the flush window count by a
+    # W*H^2 byte budget so large cohorts stay bounded (the fused blocks
+    # paths never materialize them)
+    whh_cap = None
+    if need_dist and not use_blocks:
+        budget = int(os.environ.get("GGT_WHH_BUDGET", 1 << 28))
+        whh_cap = max(8, budget // (32 * model.n_rows * model.n_rows))
+
     engine.run_pipeline(
         engine.stream_windows(
             reader, wind,
             include=common.read_scaffold_list(args.include),
             exclude=common.read_scaffold_list(args.exclude),
-            progress=progress, timer=timer),
+            progress=progress, timer=timer, max_flush_windows=whh_cap),
         dispatch, finalize,
         # resume: skip batches already fully written
         skip=lambda b: (b.plan.n_windows == 0

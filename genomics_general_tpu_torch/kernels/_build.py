@@ -28,6 +28,11 @@ _SIGNATURES = {
         "ggt_pair_counts_v3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
         "ggt_exception_patch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
         "ggt_blocks_tail": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "ggt_tri_pack": [_P, _P, _I, _I, _I, _P, _P],
+        "ggt_het_pairs": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    },
+    "counts": {
+        "ggt_site_pop_counts": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     },
 }
 

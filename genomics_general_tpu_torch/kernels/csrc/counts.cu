@@ -1,0 +1,107 @@
+// Per-site, per-population allele counts for Hopper (sm_90a), read in place
+// from the 2-bit span wire of popgenWindows' popFreq / WC Fst path.
+//
+// Plain C launch interface (extern "C", bound with ctypes from
+// kernels/counts.py).  The launch goes on the caller's stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().
+//
+// Span wire (kernels/transfer.py pack_span) for [h, sp] sites: codes, h rows
+// of sp/4 bytes, site 4b + k in bits 2k..2k+1 of byte b; then miss, h rows
+// of sp/8 bytes, site 8b + k in bit k of byte b (1 = missing; pad sites
+// past the span are missing).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// ---------------------------------------------------------------- K6
+// site_pop_counts — replaces genomics_general_tpu/kernels/counts.py
+// site_pop_counts / _site_pop_counts_u16 and the _unpack of
+// kernels/transfer.py unpack_span:
+//   out[s - s0, p, a] = #rows r of group p with a called code a at site s
+// for s in [s0, s1).  Rows are grouped (perm[offs[p] .. offs[p+1]) are the
+// rows of p); the wrapper checks that every row is in exactly one group,
+// which is the JAX one-hot matmul for such a 0/1 mask.
+//
+// Bound: bytes — 3/8 byte per (row, site) read against a few integer
+// operations.  Design: one thread per code byte (4 sites) walks the rows
+// group by group; a warp's 32 threads read 32 consecutive code bytes and 16
+// miss bytes of one row per step, and keep 16 counters (4 sites x 4
+// alleles) in registers.  s0 is a multiple of 8, so the block starts on a
+// whole byte of both planes.  Counts are exact integers; the wrapper picks
+// uint16 only when h < 2^16.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+site_pop_counts_kernel(const uint8_t* __restrict__ codes,
+                       const uint8_t* __restrict__ miss, int c4, int m8,
+                       int s0, int s1, const int32_t* __restrict__ perm,
+                       const int32_t* __restrict__ offs, int P,
+                       T* __restrict__ out) {
+  const int b = s0 / 4 + blockIdx.x * kThreads + threadIdx.x;
+  const int site0 = 4 * b;
+  if (site0 >= s1) return;
+  const int shift = (b & 1) * 4;
+  for (int p = 0; p < P; ++p) {
+    int cnt[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) cnt[k][a] = 0;
+    const int r_end = offs[p + 1];
+    for (int r = offs[p]; r < r_end; ++r) {
+      const size_t row = (size_t)perm[r];
+      const unsigned c = codes[row * c4 + b];
+      const unsigned mb = (miss[row * m8 + (b >> 1)] >> shift) & 0xFu;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned a = (c >> (2 * k)) & 3u;
+        const int called = !((mb >> k) & 1u);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) cnt[k][x] += called & (a == (unsigned)x);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int site = site0 + k;
+      if (site < s1) {
+        T* o = out + ((size_t)(site - s0) * P + p) * 4;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) o[a] = (T)cnt[k][a];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// buf: the span wire of [h, sp]; out: [s1 - s0, P, 4] for sites s0 .. s1-1,
+// uint16 when u16 != 0, else int32.
+int ggt_site_pop_counts(const void* buf, int h, int sp, int s0, int s1,
+                        const void* perm, const void* offs, int P, int u16,
+                        void* out, void* stream) {
+  const int c4 = sp / 4;
+  const int m8 = sp / 8;
+  const uint8_t* codes = (const uint8_t*)buf;
+  const uint8_t* miss = codes + (size_t)h * c4;
+  const int nbytes = (s1 - s0 + 3) / 4;
+  const unsigned blocks = (unsigned)((nbytes + kThreads - 1) / kThreads);
+  if (u16) {
+    site_pop_counts_kernel<uint16_t><<<blocks, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        codes, miss, c4, m8, s0, s1, (const int32_t*)perm,
+        (const int32_t*)offs, P, (uint16_t*)out);
+  } else {
+    site_pop_counts_kernel<int32_t><<<blocks, kThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        codes, miss, c4, m8, s0, s1, (const int32_t*)perm,
+        (const int32_t*)offs, P, (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,6 +1,7 @@
 // Wire-v3 pairwise kernels for Hopper (sm_90a): per-window masked-Hamming
-// pair counts, the multi-allelic exception patch, and the per-pop-block
-// float64 epilogue of popgenWindows' popDist/popPairDist path.
+// pair counts, the multi-allelic exception patch, and the epilogues of
+// popgenWindows' distance analyses: per-block float64 sums, each
+// individual's own pair, and the packed upper triangles.
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/pairdist.py).  Every launch goes on the caller's stream, does not
@@ -256,6 +257,59 @@ blocks_tail_kernel(const int32_t* __restrict__ m,
   }
 }
 
+// ---------------------------------------------------------------- K4
+// tri_pack — replaces the "tri" mode of genomics_general_tpu/kernels/
+// pairdist.py _modes_tail.  Copies the upper triangles (i <= j, row by row:
+// np.triu_indices order) of a chunk's m and s into out [nwin, 2T],
+// T = h (h + 1) / 2, m half first, narrowed to uint16 when the wrapper
+// knows every count is below 2^16 (each is at most its window's sites).
+//
+// Bound: bytes — a pure gather.  Design: one block per (row i, window);
+// its threads walk j = i .. h - 1, so both the reads of row i and the
+// writes of its T-segment (which starts at i h - i (i - 1) / 2) are
+// consecutive addresses across a warp.
+template <typename T>
+__global__ void __launch_bounds__(kTailThreads)
+tri_pack_kernel(const int32_t* __restrict__ m,
+                const int32_t* __restrict__ s, int h,
+                T* __restrict__ out) {
+  const int i = blockIdx.x;
+  const int wl = blockIdx.y;
+  const size_t tri = (size_t)h * (h + 1) / 2;
+  const size_t row = (size_t)i * h - (size_t)i * (i - 1) / 2;
+  const size_t src = ((size_t)wl * h + i) * h;
+  T* om = out + (size_t)wl * 2 * tri + row;
+  T* os = om + tri;
+  for (int j = i + threadIdx.x; j < h; j += kTailThreads) {
+    om[j - i] = (T)m[src + j];
+    os[j - i] = (T)s[src + j];
+  }
+}
+
+// ---------------------------------------------------------------- K5
+// het_pairs — replaces the het gather of the "blocks_het" mode of
+// genomics_general_tpu/kernels/pairdist.py _modes_tail:
+//   out[w, k] = ((double) m[w, r1[k], r2[k]], (double) s[w, r1[k], r2[k]])
+// for each individual k (r1 == r2 for a non-diploid; the host discards
+// that value).  Integers below 2^31 are exact in f64.
+//
+// Bound: bytes — one 32-byte sector per read of m and s, 16 bytes out.
+// Design: one thread per (window, individual); nothing to share.
+__global__ void __launch_bounds__(kTailThreads)
+het_pairs_kernel(const int32_t* __restrict__ m,
+                 const int32_t* __restrict__ s,
+                 const int32_t* __restrict__ r1,
+                 const int32_t* __restrict__ r2, int h, int n_ind, int nwin,
+                 double* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * kTailThreads + threadIdx.x;
+  if (t >= (long long)nwin * n_ind) return;
+  const int wl = (int)(t / n_ind);
+  const int k = (int)(t % n_ind);
+  const size_t o = ((size_t)wl * h + r1[k]) * h + r2[k];
+  out[2 * t] = (double)m[o];
+  out[2 * t + 1] = (double)s[o];
+}
+
 }  // namespace
 
 extern "C" {
@@ -291,6 +345,34 @@ int ggt_blocks_tail(const void* m, const void* s, const void* perm,
   blocks_tail_kernel<<<grid, kTailThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)m, (const int32_t*)s, (const int32_t*)perm,
       (const int32_t*)offs, P, h, min_sites, (double*)out);
+  return (int)cudaGetLastError();
+}
+
+// out: [nwin, 2 h (h + 1) / 2], uint16 when u16 != 0, else int32.
+int ggt_tri_pack(const void* m, const void* s, int h, int nwin, int u16,
+                 void* out, void* stream) {
+  dim3 grid(h, nwin);
+  if (u16) {
+    tri_pack_kernel<uint16_t><<<grid, kTailThreads, 0,
+                                (cudaStream_t)stream>>>(
+        (const int32_t*)m, (const int32_t*)s, h, (uint16_t*)out);
+  } else {
+    tri_pack_kernel<int32_t><<<grid, kTailThreads, 0,
+                               (cudaStream_t)stream>>>(
+        (const int32_t*)m, (const int32_t*)s, h, (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out: float64 [nwin, n_ind, 2].
+int ggt_het_pairs(const void* m, const void* s, const void* r1,
+                  const void* r2, int h, int n_ind, int nwin, void* out,
+                  void* stream) {
+  const long long n = (long long)nwin * n_ind;
+  const unsigned blocks = (unsigned)((n + kTailThreads - 1) / kTailThreads);
+  het_pairs_kernel<<<blocks, kTailThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)m, (const int32_t*)s, (const int32_t*)r1,
+      (const int32_t*)r2, h, n_ind, nwin, (double*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Pairwise masked-Hamming counting for popgenWindows' popDist/popPairDist.
+"""Pairwise masked-Hamming counting for popgenWindows' distance analyses.
 
 For haplotypes i, j of a window (the reference's ``Alignment.distMatrix``
 inner loop, genomics.py:903-916):
@@ -9,13 +9,22 @@ inner loop, genomics.py:903-916):
 and the per-population-block float64 reductions of ``mismatch / shared``
 that stats/popgen.group_dist_stats_from_blocks finalizes on the host.
 
-Three CUDA kernels (kernels/csrc/pair_v3.cu) do the device work of a flush,
+CUDA kernels (kernels/csrc/pair_v3.cu) do the device work of a flush,
 window chunk by window chunk so the [chunk, H, H] int32 scratch stays
 bounded at large H:
 
 * :func:`pair_counts_v3` (K1) — counts from the wire-v3 bit planes,
 * :func:`exception_patch` (K2) — multi-allelic sites' contributions,
-* :func:`blocks_tail` (K3) — f64 per-pop-block sums and valid-pair counts.
+
+then one of three epilogues, the modes of the JAX ``_modes_tail``:
+
+* ``blocks``: :func:`blocks_tail` (K3) — f64 per-block sums and valid-pair
+  counts (:func:`window_pair_block_stats_dispatch`);
+* ``blocks_het``: K3 plus :func:`het_pairs` (K5) — each individual's own
+  (mismatch, shared) pair (:func:`window_pair_ind_blocks_dispatch`);
+* ``tri``: :func:`tri_pack` (K4) — the upper triangles of both count
+  matrices, which the host mirrors back to [W, H, H]
+  (:func:`window_pair_counts_dispatch`).
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 ``LAUNCHES``) and runs its plain PyTorch version, in this module, only for
@@ -23,17 +32,18 @@ CPU tensors.  ``GGT_EXEC=host`` instead runs the host C executor
 (io/native ``pairwise_window_counts``, copied from the JAX package), an
 independent check of the kernels.
 
-Dispatch/collect split: on CUDA, :func:`window_pair_block_stats_dispatch`
-stages the wire in pinned memory, copies it with ``non_blocking`` and
-launches on the current stream, then starts the copy back into pinned
-memory and records an event; ``collect()`` waits on that event only.  So
-engine.run_pipeline's finalize of batch k overlaps the parse, pack, upload
-and kernels of batch k+1.  On the CPU the flush runs at dispatch.
+Dispatch/collect split: on CUDA, each dispatch stages the wire in pinned
+memory, copies it with ``non_blocking`` and launches on the current
+stream, then starts the copy back into pinned memory and records an event;
+``collect()`` waits on that event only.  So engine.run_pipeline's finalize
+of batch k overlaps the parse, pack, upload and kernels of batch k+1.  On
+the CPU the flush runs at dispatch.
 """
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,7 +54,8 @@ from . import transfer
 
 # launches of each CUDA kernel since the last reset (the plain versions
 # and the host executor never count)
-LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0}
+LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0,
+            "tri_pack": 0, "het_pairs": 0}
 # flushes run by the host C executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 # pair cells the plain K2 materializes per slab of exception entries
@@ -204,19 +215,41 @@ class PopGroups:
         self.offs = torch.from_numpy(offs).to(device)
 
 
-_GROUPS: dict = {}
+# per-run constants on the device, keyed on their bytes (a few at a time:
+# a run hands every flush the same masks and rows)
+_CONSTS: dict = {}
+_MAX_CONSTS = 8
+
+
+def _run_const(kind: str, arr: np.ndarray, device: torch.device, build):
+    """``build(arr)`` once per distinct (kind, bytes, device): the CLI hands
+    every flush the same mask, and a pageable upload per flush would block
+    dispatch until the previous flush's work had drained."""
+    key = (kind, arr.dtype.str, arr.shape, arr.tobytes(), str(device))
+    if key not in _CONSTS:
+        if len(_CONSTS) >= _MAX_CONSTS:
+            _CONSTS.clear()
+        _CONSTS[key] = build(arr)
+    return _CONSTS[key]
 
 
 def _pop_groups(pop_mask: np.ndarray, device: torch.device) -> PopGroups:
-    """The run's PopGroups, built and uploaded once: the CLI hands every
-    flush the same mask, and a pageable upload per flush would block
-    dispatch until the previous flush's work had drained."""
+    """The run's PopGroups, built and uploaded once."""
     mask = np.ascontiguousarray(pop_mask, dtype=np.float64)
-    key = (mask.shape, mask.tobytes(), str(device))
-    if key not in _GROUPS:
-        _GROUPS.clear()
-        _GROUPS[key] = PopGroups(mask, device)
-    return _GROUPS[key]
+    return _run_const("groups", mask, device,
+                      lambda m: PopGroups(m, device))
+
+
+def _het_rows(het_rows: np.ndarray, h: int, device: torch.device):
+    """The run's (r1, r2) int32 [I] row indices on ``device``, uploaded
+    once; every index must name a row of the [H, H] counts."""
+    rows = np.ascontiguousarray(het_rows, dtype=np.int32)
+    if rows.ndim != 2 or rows.shape[0] != 2 or \
+            (rows.size and (rows.min() < 0 or rows.max() >= h)):
+        raise ValueError(f"het_rows must be int32 [2, I] rows of 0..{h - 1}")
+    return _run_const("het_rows", rows, device,
+                      lambda r: tuple(torch.from_numpy(r[k].copy()).to(device)
+                                      for k in range(2)))
 
 
 def blocks_tail(m: torch.Tensor, s: torch.Tensor, groups: PopGroups,
@@ -258,6 +291,93 @@ def blocks_tail_plain(m: torch.Tensor, s: torch.Tensor,
     return torch.stack([sums, cnts], dim=1)
 
 
+# --------------------------------------------------------- K4 tri pack
+
+def tri_pack(m: torch.Tensor, s: torch.Tensor, out: torch.Tensor) -> None:
+    """Write the upper triangles (``i <= j``, ``np.triu_indices`` order) of
+    the chunk's counts into ``out`` [nwin, 2T], T = H(H+1)/2: the m half,
+    then the s half, as uint16 or int32 (``out``'s dtype; uint16 only when
+    every count is below 2^16).  Replaces the ``tri`` mode of the JAX
+    ``_modes_tail``."""
+    nwin, h, _ = m.shape
+    T = h * (h + 1) // 2
+    if out.shape != (nwin, 2 * T) or \
+            out.dtype not in (torch.uint16, torch.int32):
+        raise ValueError(f"out must be uint16 or int32 {(nwin, 2 * T)}")
+    if not m.is_cuda:
+        out.copy_(tri_pack_plain(m, s, out.dtype == torch.uint16))
+        return
+    _check_cuda(m, s, out)
+    if nwin == 0:
+        return
+    code = _build.lib("pair_v3").ggt_tri_pack(
+        m.data_ptr(), s.data_ptr(), h, nwin, int(out.dtype == torch.uint16),
+        out.data_ptr(), _stream_ptr(m))
+    _build.check(code, "tri_pack")
+    LAUNCHES["tri_pack"] += 1
+
+
+def tri_pack_plain(m: torch.Tensor, s: torch.Tensor,
+                   u16: bool) -> torch.Tensor:
+    """Plain PyTorch K4 (the JAX form): [nwin, 2T] uint16 or int32."""
+    iu, ju = np.triu_indices(m.shape[1])
+    iu = torch.from_numpy(iu).to(m.device)
+    ju = torch.from_numpy(ju).to(m.device)
+    out = torch.cat([m[:, iu, ju], s[:, iu, ju]], dim=1)
+    # counts below 2^16 keep their low 16 bits through int16; reading
+    # those bits as uint16 needs no uint16 arithmetic on the device
+    return out.to(torch.int16).view(torch.uint16) if u16 else out
+
+
+def _tri_unpack(host: np.ndarray, b: int, H: int):
+    T = H * (H + 1) // 2
+    iu, ju = np.triu_indices(H)
+    mt = host[:b, :T].astype(np.int32)
+    st = host[:b, T:].astype(np.int32)
+    mism = np.empty((b, H, H), dtype=np.int32)
+    shar = np.empty((b, H, H), dtype=np.int32)
+    mism[:, iu, ju] = mt
+    mism[:, ju, iu] = mt
+    shar[:, iu, ju] = st
+    shar[:, ju, iu] = st
+    return mism, shar
+
+
+# -------------------------------------------------------- K5 het pairs
+
+def het_pairs(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
+              r2: torch.Tensor, out: torch.Tensor) -> None:
+    """Write float64 [nwin, I, 2] into ``out``: (m, s)[w, r1[k], r2[k]], each
+    individual's own haplotype pair (``r1 == r2`` for a non-diploid, whose
+    value the host discards).  Replaces the het gather of the JAX
+    ``_modes_tail`` ``blocks_het`` mode."""
+    nwin, h, _ = m.shape
+    n_ind = r1.shape[0]
+    if out.shape != (nwin, n_ind, 2) or out.dtype != torch.float64:
+        raise ValueError(f"out must be float64 {(nwin, n_ind, 2)}")
+    if not m.is_cuda:
+        out.copy_(het_pairs_plain(m, s, r1, r2))
+        return
+    _check_cuda(m, s, r1, r2, out)
+    if r1.dtype != torch.int32 or r2.dtype != torch.int32:
+        raise ValueError("het rows must be int32")
+    if nwin == 0 or n_ind == 0:
+        return
+    code = _build.lib("pair_v3").ggt_het_pairs(
+        m.data_ptr(), s.data_ptr(), r1.data_ptr(), r2.data_ptr(), h, n_ind,
+        nwin, out.data_ptr(), _stream_ptr(m))
+    _build.check(code, "het_pairs")
+    LAUNCHES["het_pairs"] += 1
+
+
+def het_pairs_plain(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
+                    r2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K5 (the JAX form): float64 [nwin, I, 2]."""
+    r1, r2 = r1.long(), r2.long()
+    return torch.stack([m[:, r1, r2], s[:, r1, r2]], dim=-1) \
+        .to(torch.float64)
+
+
 # ------------------------------------------------------------ the flush
 
 def _next_pow2(n: int, lo: int) -> int:
@@ -267,15 +387,35 @@ def _next_pow2(n: int, lo: int) -> int:
     return b
 
 
+class V3Flush(NamedTuple):
+    """One flush's wire-v3 buffer with its static sizes (the packer's),
+    the window chunk and the ``tri`` output type."""
+    buf: np.ndarray
+    spb: int
+    spc: int
+    spd: int
+    h: int
+    wp: int
+    chunk: int
+    ep: int
+    u16: bool
+
+    def wire(self, buf: torch.Tensor) -> transfer.PairWireV3:
+        """Typed views of ``buf``, this flush's bytes on some device."""
+        return transfer.from_jax_wire(buf, self.spb, self.spc, self.spd,
+                                      self.h, self.wp, self.ep)
+
+
 def _v3_flush_args(alleles: np.ndarray, first: np.ndarray,
-                   n_sites: np.ndarray):
+                   n_sites: np.ndarray) -> V3Flush:
     """Host-side prep for the wire-v3 kernels: classify + pack the flush
-    buffer and choose the window chunk so the [chunk, H, H] count scratch
-    stays bounded."""
+    buffer, choose the window chunk so the [chunk, H, H] count scratch
+    stays bounded, and whether the ``tri`` output fits uint16 (every count
+    is at most its window's site count)."""
     if os.environ.get("GGT_WIRE") == "2":
         raise NotImplementedError(
             "GGT_WIRE=2 (the wire-v2 kernels) is not ported yet: ROADMAP "
-            "queue 2, row 5")
+            "queue 2, rows 5 and 6")
     W = first.shape[0]
     H = alleles.shape[0]
     wp = _next_pow2(W, 8)
@@ -284,27 +424,61 @@ def _v3_flush_args(alleles: np.ndarray, first: np.ndarray,
     chunk = min(wp, 128)
     while chunk > 8 and chunk * H * H > (1 << 25):
         chunk //= 2
-    return buf, SpB, SpC, SpD, H, wp, chunk, ep
+    u16 = max(int(n_sites.max()), 1) < (1 << 16)
+    return V3Flush(buf, SpB, SpC, SpD, H, wp, chunk, ep, u16)
 
 
-def flush_blocks(wire: transfer.PairWireV3, W: int, chunk: int,
-                 groups: PopGroups, min_sites: int) -> torch.Tensor:
-    """Run K1, K2 and K3 over windows 0 .. W-1 of one wire, ``chunk``
-    windows at a time, on the wire's device.  Returns float64
-    [W, 2, P, P]."""
-    dev = wire.buf.device
-    if dev.type != "cuda" and W:
+def _flush(wire: transfer.PairWireV3, W: int, chunk: int, epilogue) -> None:
+    """Run K1 and K2 over windows 0 .. W-1 of one wire, ``chunk`` windows
+    at a time, on the wire's device, and hand each chunk's counts to
+    ``epilogue(m, s, w0, n)``."""
+    if wire.buf.device.type != "cuda" and W:
         # the plain K1 also holds float64 [chunk, H, s_max] factors
         s_max = _next_pow2(max(int(wire.meta[1:6:2, :W].max()), 1), 128)
         while chunk > 8 and chunk * wire.h * s_max > (1 << 26):
             chunk //= 2
-    out = torch.empty((W, 2, groups.P, groups.P), dtype=torch.float64,
-                      device=dev)
     for w0 in range(0, W, chunk):
         n = min(chunk, W - w0)
         m, s = pair_counts_v3(wire, w0, n)
         exception_patch(m, s, wire, w0)
-        blocks_tail(m, s, groups, min_sites, out[w0:w0 + n])
+        epilogue(m, s, w0, n)
+
+
+def flush_blocks(wire: transfer.PairWireV3, W: int, chunk: int,
+                 groups: PopGroups, min_sites: int) -> torch.Tensor:
+    """K1, K2 and K3 over one flush: float64 [W, 2, P, P]."""
+    out = torch.empty((W, 2, groups.P, groups.P), dtype=torch.float64,
+                      device=wire.buf.device)
+    _flush(wire, W, chunk, lambda m, s, w0, n: blocks_tail(
+        m, s, groups, min_sites, out[w0:w0 + n]))
+    return out
+
+
+def flush_blocks_het(wire: transfer.PairWireV3, W: int, chunk: int,
+                     groups: PopGroups, rows, min_sites: int) -> torch.Tensor:
+    """K1, K2, K3 and K5 over one flush into ONE float64 buffer, so one
+    copy brings it back: blocks [W, 2, P, P] then het [W, I, 2], flat."""
+    P, n_ind = groups.P, rows[0].shape[0]
+    flat = torch.empty(W * 2 * P * P + W * n_ind * 2, dtype=torch.float64,
+                       device=wire.buf.device)
+    blocks = flat[:W * 2 * P * P].view(W, 2, P, P)
+    het = flat[W * 2 * P * P:].view(W, n_ind, 2)
+
+    def epilogue(m, s, w0, n):
+        blocks_tail(m, s, groups, min_sites, blocks[w0:w0 + n])
+        het_pairs(m, s, rows[0], rows[1], het[w0:w0 + n])
+    _flush(wire, W, chunk, epilogue)
+    return flat
+
+
+def flush_tri(wire: transfer.PairWireV3, W: int, chunk: int,
+              u16: bool) -> torch.Tensor:
+    """K1, K2 and K4 over one flush: [W, 2T] uint16 or int32."""
+    T = wire.h * (wire.h + 1) // 2
+    out = torch.empty((W, 2 * T), dtype=torch.uint16 if u16 else torch.int32,
+                      device=wire.buf.device)
+    _flush(wire, W, chunk, lambda m, s, w0, n: tri_pack(
+        m, s, out[w0:w0 + n]))
     return out
 
 
@@ -354,8 +528,11 @@ def _host_flush_counts(alleles: np.ndarray, first: np.ndarray,
 
 def _blocks_from_counts(m: np.ndarray, s: np.ndarray, pop_mask: np.ndarray,
                         min_sites: int):
-    """Numpy mirror of the device blocks tail (:func:`_modes_tail`):
-    float64 nanmean numerators/denominators per pop-pair block."""
+    """Numpy mirror of the device blocks tail (K3): float64 nanmean
+    numerators/denominators per block, as two matmuls per window
+    (``pm @ d0 @ pm.T``).  The JAX package's single three-operand
+    ``np.einsum`` contracts without a path, in O(W H^2 P^2): hours at
+    H = 512 with one block per individual."""
     ms = max(int(min_sites or 0), 1)
     h = m.shape[1]
     offdiag = ~np.eye(h, dtype=bool)
@@ -363,19 +540,34 @@ def _blocks_from_counts(m: np.ndarray, s: np.ndarray, pop_mask: np.ndarray,
     d0 = np.zeros(m.shape, dtype=np.float64)
     np.divide(m, s, out=d0, where=valid)
     pm = pop_mask.astype(np.float64)
-    sums = np.einsum("whg,ph,qg->wpq", d0, pm, pm)
-    cnts = np.einsum("whg,ph,qg->wpq", valid.astype(np.float64), pm, pm)
+    sums = pm @ d0 @ pm.T
+    cnts = pm @ valid.astype(np.float64) @ pm.T
     return sums, cnts
 
 
-def _host_blocks(alleles, first, n_sites, pop_mask, min_sites):
+def _host_counts(alleles, first, n_sites):
+    """The host executor's (m, s) of one flush, counted in HOST_FLUSHES."""
     global HOST_FLUSHES
     counts = _host_flush_counts(alleles, first, n_sites)
     if counts is None:
         raise RuntimeError("GGT_EXEC=host needs the native library "
                            "(io/native.py), which did not build")
     HOST_FLUSHES += 1
-    return _blocks_from_counts(*counts, pop_mask, min_sites)
+    return counts
+
+
+def _host_blocks(alleles, first, n_sites, pop_mask, min_sites):
+    return _blocks_from_counts(*_host_counts(alleles, first, n_sites),
+                               pop_mask, min_sites)
+
+
+def _host_blocks_het(alleles, first, n_sites, ind_mask, het_rows,
+                     min_sites):
+    m, s = _host_counts(alleles, first, n_sites)
+    sums, cnts = _blocks_from_counts(m, s, ind_mask, min_sites)
+    r1, r2 = het_rows[0], het_rows[1]
+    return (sums, cnts, m[:, r1, r2].astype(np.int64),
+            s[:, r1, r2].astype(np.int64))
 
 
 class _ReadyHandle:
@@ -392,6 +584,7 @@ class _ReadyHandle:
 
 # ------------------------------------------------------------ dispatch
 
+
 class PairBlockStatsHandle:
     """In-flight per-window pop-block distance sums.
 
@@ -400,24 +593,17 @@ class PairBlockStatsHandle:
     mismatch/shared; counts = number of valid pairs.  Valid = off-diagonal
     and shared >= max(min_sites, 1) — exactly the non-NaN entries of the
     reference's per-window distance matrix after ``apply_min_sites``
-    (stats/popgen.DistStatsContext).
+    (stats/popgen.DistStatsContext)."""
 
-    On CUDA it holds the pinned host buffers of the flush (the wire being
-    uploaded and the result being fetched) and the event recorded after
-    the fetch; ``collect()`` waits on that event alone."""
-
-    def __init__(self, W: int, P: int, result=None, event=None, keep=()):
-        self.W, self.P = W, P
-        self._result, self._event, self._keep = result, event, keep
+    def __init__(self, W: int, P: int, pending=None):
+        self.W, self.P, self._pending = W, P, pending
 
     def collect(self):
-        if self._result is None:
+        if self._pending is None:
             z = np.zeros((self.W, self.P, self.P), dtype=np.float64)
             return z, z.copy()
-        if self._event is not None:
-            self._event.synchronize()
-        host = self._result.numpy()
-        self._result, self._event, self._keep = None, None, ()
+        host = self._pending.wait()
+        self._pending = None
         return host[:, 0].copy(), host[:, 1].copy()
 
 
@@ -441,20 +627,110 @@ def window_pair_block_stats_dispatch(alleles: np.ndarray, first: np.ndarray,
         return _ReadyHandle(lambda: _host_blocks(
             alleles, first, n_sites, pop_mask, min_sites))
     dev = get_device()
-    buf, SpB, SpC, SpD, H, wp, chunk, ep = _v3_flush_args(
-        alleles, first, n_sites)
+    v3 = _v3_flush_args(alleles, first, n_sites)
     groups = _pop_groups(pop_mask, dev)
-    if dev.type != "cuda":
-        wire = transfer.from_jax_wire(buf, SpB, SpC, SpD, H, wp, ep)
-        return PairBlockStatsHandle(
-            W, P, flush_blocks(wire, W, chunk, groups, min_sites))
-    staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
-    staged.numpy()[:] = buf
-    wire = transfer.from_jax_wire(staged.to(dev, non_blocking=True),
-                                  SpB, SpC, SpD, H, wp, ep)
-    out = flush_blocks(wire, W, chunk, groups, min_sites)
-    result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    result.copy_(out, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return PairBlockStatsHandle(W, P, result, event, keep=(staged,))
+    return PairBlockStatsHandle(W, P, transfer.run_on_device(
+        v3.buf, dev, lambda buf: flush_blocks(
+            v3.wire(buf), W, v3.chunk, groups, min_sites)))
+
+
+class PairBlocksHetHandle:
+    """In-flight packed (blocks | het) results of the ``blocks_het`` flush
+    (one float64 buffer per flush, fetched by one copy).
+
+    ``collect()`` -> (sums f64 [W, P, P], cnts f64 [W, P, P],
+    het_m int64 [W, I], het_s int64 [W, I]); P is the mask's block count
+    (populations, or individuals for the indPairDist path — pop blocks are
+    exact aggregations of individual blocks)."""
+
+    def __init__(self, W: int, P: int, n_ind: int, pending=None):
+        self.W, self.P, self.n_ind, self._pending = W, P, n_ind, pending
+
+    def collect(self):
+        W, P = self.W, self.P
+        if self._pending is None:
+            z = np.zeros((W, P, P), dtype=np.float64)
+            e = np.zeros((W, self.n_ind), dtype=np.int64)
+            return z, z.copy(), e, e.copy()
+        host = self._pending.wait()
+        self._pending = None
+        blocks = host[:W * 2 * P * P].reshape(W, 2, P, P)
+        het = host[W * 2 * P * P:].reshape(W, self.n_ind, 2)
+        return (blocks[:, 0].copy(), blocks[:, 1].copy(),
+                het[..., 0].astype(np.int64), het[..., 1].astype(np.int64))
+
+
+def window_pair_ind_blocks_dispatch(alleles: np.ndarray, first: np.ndarray,
+                                    n_sites: np.ndarray,
+                                    ind_mask: np.ndarray,
+                                    het_rows: np.ndarray,
+                                    min_sites: int) -> PairBlocksHetHandle:
+    """Fused popDist/popPairDist/indPairDist/indHet flush: per-block sums
+    and counts (K3) plus each individual's own-pair raw (mismatch, shared)
+    (K5) come back in one transfer, never [W, H, H] matrices.
+
+    ``ind_mask``: float [P, H] 0/1 row membership per block (individuals,
+    or populations for indHet without indPairDist), every row in exactly
+    one block; ``het_rows``: int32 [2, I] the two haplotype rows of each
+    individual (any pair for non-diploids — the host overwrites their het
+    with NaN)."""
+    W = first.shape[0]
+    P, n_ind = ind_mask.shape[0], het_rows.shape[1]
+    if W == 0:
+        return PairBlocksHetHandle(W, P, n_ind)
+    if _exec_choice() == "host":
+        return _ReadyHandle(lambda: _host_blocks_het(
+            alleles, first, n_sites, ind_mask, het_rows, min_sites))
+    dev = get_device()
+    v3 = _v3_flush_args(alleles, first, n_sites)
+    groups = _pop_groups(ind_mask, dev)
+    rows = _het_rows(het_rows, alleles.shape[0], dev)
+    return PairBlocksHetHandle(W, P, n_ind, transfer.run_on_device(
+        v3.buf, dev, lambda buf: flush_blocks_het(
+            v3.wire(buf), W, v3.chunk, groups, rows, min_sites)))
+
+
+class PairCountsHandle:
+    """In-flight pair counts of one flush (the ``tri`` output).
+    ``collect()`` waits for the fetch and returns numpy (mismatch
+    [W, H, H], shared [W, H, H]) int32 in window order: the only [W, H, H]
+    arrays of the flush on the host, made at collect time."""
+
+    def __init__(self, W: int, H: int, pending=None):
+        self.W, self.H, self._pending = W, H, pending
+
+    def collect(self):
+        if self._pending is None:
+            z = np.zeros((self.W, self.H, self.H), dtype=np.int32)
+            return z, z.copy()
+        host = self._pending.wait()
+        self._pending = None
+        return _tri_unpack(host, self.W, self.H)
+
+
+def window_pair_counts_dispatch(alleles, first: np.ndarray,
+                                n_sites: np.ndarray) -> PairCountsHandle:
+    """Dispatch the pair counts of one flush without fetching them.
+
+    ``alleles`` is the flush's host int8 [H, S] span.  It ships as one
+    wire-v3 buffer; K1 and K2 count each window chunk and K4 packs the
+    upper triangles (uint16 when every window has fewer than 2^16 sites).
+    The JAX package's other routes (a device-array span, the raw
+    ``GGT_PACKED_TRANSFER=0`` upload, wire v2) run the general 4-state
+    counts, which are not ported."""
+    if not isinstance(alleles, np.ndarray) or not transfer.packed_enabled():
+        raise NotImplementedError(
+            "pair counts from a device-array span or with "
+            "GGT_PACKED_TRANSFER=0 (the general 4-state counts) are not "
+            "ported yet: ROADMAP queue 2, rows 5 and 6")
+    W = first.shape[0]
+    H = alleles.shape[0]
+    if W == 0:
+        return PairCountsHandle(W, H)
+    if _exec_choice() == "host":
+        return _ReadyHandle(lambda: _host_counts(alleles, first, n_sites))
+    dev = get_device()
+    v3 = _v3_flush_args(alleles, first, n_sites)
+    return PairCountsHandle(W, H, transfer.run_on_device(
+        v3.buf, dev, lambda buf: flush_tri(
+            v3.wire(buf), W, v3.chunk, v3.u16)))

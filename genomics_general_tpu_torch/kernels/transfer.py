@@ -1,4 +1,11 @@
-"""Wire format v3 of the pairwise kernels: host packer and typed views.
+"""Host packers of the kernels' wires, and their typed views.
+
+The 2-bit span wire of the per-site count kernel (``pack_alleles`` /
+``pack_span``, copies of the JAX package's) is one uint8 buffer
+``[codes H x Sp/4 | miss H x Sp/8]``; the CUDA kernel reads it in place
+and :func:`unpack_span` is its plain inverse.
+
+Wire format v3 of the pairwise kernels follows.
 
 The host side is a copy of the JAX package's packer
 (genomics_general_tpu/kernels/transfer.py: ``pack_pair_wire_v3`` with its
@@ -45,6 +52,112 @@ def _bucket_sites(S: int, min_bucket: int = 1 << 16) -> int:
     return -(-S // step) * step
 
 
+# ------------------------------------------------ the 2-bit span wire
+
+def pack_alleles(alleles: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
+    """Pack int8 [H, S] (values -1..3) into (codes, miss, S) planes."""
+    H, S = alleles.shape
+    # contract: only {-1, 0..3} survive the 2-bit pack; anything else (e.g. a
+    # stray parser poison value) would silently alias to a valid allele
+    assert alleles.min(initial=0) >= -1 and alleles.max(initial=-1) <= 3, \
+        "pack_alleles requires codes in {-1, 0..3}"
+    s4 = -(-S // 4) * 4
+    codes = np.ascontiguousarray(alleles).view(np.uint8) & 3
+    if s4 != S:
+        codes = np.concatenate(
+            [codes, np.zeros((H, s4 - S), np.uint8)], axis=1)
+    c = codes.reshape(H, s4 // 4, 4)
+    packed_codes = (c[:, :, 0] | (c[:, :, 1] << 2) |
+                    (c[:, :, 2] << 4) | (c[:, :, 3] << 6))
+    miss = np.packbits(alleles < 0, axis=1, bitorder="little")
+    return np.ascontiguousarray(packed_codes), miss, S
+
+
+def pack_span(alleles: np.ndarray, min_bucket: int = 1 << 16) -> tuple[np.ndarray, int]:
+    """Pack a host int8 [H, S] span into ONE flat uint8 wire buffer
+    ``[codes H x Sp/4 | miss H x Sp/8]`` with the site axis padded to a
+    power-of-two bucket Sp (pad sites = missing): one upload per flush.
+    The same bytes as the JAX package's ``pack_span``.  Returns
+    (buffer, Sp).
+    """
+    H, S = alleles.shape
+    Sp = _bucket_sites(max(S, 1), min_bucket)
+    codes, miss, _ = pack_alleles(alleles)
+    c4, m8 = Sp // 4, Sp // 8
+    buf = np.empty(H * (c4 + m8), dtype=np.uint8)
+    cview = buf[:H * c4].reshape(H, c4)
+    mview = buf[H * c4:].reshape(H, m8)
+    cview[:, :codes.shape[1]] = codes
+    cview[:, codes.shape[1]:] = 0
+    mview[:, :miss.shape[1]] = miss
+    mview[:, miss.shape[1]:] = 0xFF          # pad sites are missing
+    # real sites S..8*ceil(S/8) inside the last miss byte: mark missing too
+    rem = S % 8
+    if rem and m8 > S // 8:
+        mview[:, S // 8] |= (0xFF << rem) & 0xFF
+    return buf, Sp
+
+
+def packed_enabled() -> bool:
+    """False under ``GGT_PACKED_TRANSFER=0`` (the JAX package's raw int8
+    upload, whose consumers are not ported)."""
+    return os.environ.get("GGT_PACKED_TRANSFER", "1") != "0"
+
+
+class Pending:
+    """A flush result on its way to the host: the tensor (pinned, with the
+    event recorded after its copy, on CUDA; the result itself on the CPU)
+    and the buffers to keep alive until the copy is done."""
+
+    def __init__(self, result: torch.Tensor, event=None, keep=()):
+        self._result, self._event, self._keep = result, event, keep
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        host = self._result.numpy()
+        self._result, self._event, self._keep = None, None, ()
+        return host
+
+
+def run_on_device(buf: np.ndarray, dev: torch.device, run) -> Pending:
+    """Upload one uint8 wire buffer and call ``run(device_buf)``, which
+    launches the flush's kernels and returns its result tensor.
+
+    On CUDA the buffer is staged in pinned memory and copied with
+    ``non_blocking``, the kernels go on the current stream, and the result
+    is copied back into pinned memory asynchronously: nothing here waits
+    for the device.  On the CPU ``run`` computes at once."""
+    if dev.type != "cuda":
+        return Pending(run(torch.from_numpy(buf)))
+    staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
+    staged.numpy()[:] = buf
+    out = run(staged.to(dev, non_blocking=True))
+    result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    result.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return Pending(result, event, keep=(staged,))
+
+
+def unpack_span(buf, sp: int, h: int) -> torch.Tensor:
+    """Plain PyTorch inverse of :func:`pack_span` (the JAX ``unpack_span``
+    with its ``_unpack``): int8 [h, sp], -1 where the miss bit is set.
+    ``buf`` is the uint8 numpy buffer or a uint8 tensor on any device."""
+    if isinstance(buf, np.ndarray):
+        buf = torch.from_numpy(buf)
+    c4, m8 = sp // 4, sp // 8
+    codes = buf[:h * c4].reshape(h, c4)
+    miss = buf[h * c4:h * (c4 + m8)].reshape(h, m8)
+    shifts2 = torch.arange(0, 8, 2, dtype=torch.uint8, device=buf.device)
+    c = ((codes[:, :, None] >> shifts2) & 3).reshape(h, -1)[:, :sp]
+    shifts1 = torch.arange(8, dtype=torch.uint8, device=buf.device)
+    m = ((miss[:, :, None] >> shifts1) & 1).reshape(h, -1)[:, :sp]
+    return torch.where(m == 1, torch.full((), -1, dtype=torch.int8,
+                                          device=buf.device), c.to(torch.int8))
+
+
+# -------------------------------------------------------- wire v3
 
 _POPCOUNT = np.array([bin(i).count("1") for i in range(16)], dtype=np.uint8)
 _LOWBIT = np.array([0, 0, 1, 0, 2, 0, 1, 0, 3, 0, 1, 0, 2, 0, 1, 0],

@@ -30,6 +30,7 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.kernels._build",
     "genomics_general_tpu_torch.kernels.transfer",
     "genomics_general_tpu_torch.kernels.pairdist",
+    "genomics_general_tpu_torch.kernels.counts",
     "genomics_general_tpu_torch.cli",
     "genomics_general_tpu_torch.cli.common",
     "genomics_general_tpu_torch.cli.popgen_windows",
