@@ -18,24 +18,35 @@ not build, launch or agree, or an output is wrong):
    K4 tri_pack on its uint16 and (one window of 66,000 sites) int32
    branches; K5 het_pairs and K3 on a population mask and on an individual
    mask with haploid (r1 == r2) individuals; K6 site_pop_counts with 1 and
-   5 groups, against the C site counter too;
-3. popgenWindows end to end through the port's CLI at H = 512 (256 diploid
-   individuals in 4 populations of 64), 50 kb windows, on three analysis
-   sets: popDist popPairDist (500,000 sites: K1, K2, K3); run A, popFreq
-   popDist popPairDist indHet hapStats --fstMethod WC (500,000 sites: K1,
-   K2, K4, K6); run B, popDist popPairDist indPairDist indHet (100,000
-   sites: K1, K2, K3, K5).  Each run resets the launch counts just before
-   and fails unless every kernel of its path launched; then the host C
-   executor (GGT_EXEC=host) must give the same rows, integer columns
-   exactly and float cells within one rounding quantum; then a traced run
-   gives the device busy time;
+   5 groups, against the C site counter too; on ABBA inputs (an uncalled
+   outgroup block, 50/50 tie sites, fixed sites) in every mode, panel and
+   minData 0.3 / 0, on disjoint and overlapping populations: K6 on the
+   membership-class partition against the C site counter, K7
+   abba_site_terms against its plain version and the host executor's
+   per-site terms exactly (NaN positions equal), K8 abba_window_sums
+   against its plain version within rtol 1e-12 of the window's sum of
+   |terms|;
+3. five runs end to end through the port's CLIs at H = 512 (256 diploid
+   individuals in 4 populations of 64), 50 kb windows: popgenWindows
+   popDist popPairDist (500,000 sites: K1, K2, K3); run A, popFreq popDist
+   popPairDist indHet hapStats --fstMethod WC (500,000 sites: K1, K2, K4,
+   K6); run B, popDist popPairDist indPairDist indHet (100,000 sites: K1,
+   K2, K3, K5); run C, ABBABABAwindows --minData 0.3 (500,000 sites: K6,
+   K7, K8); run D, fourPopWindows -s 25000 --minData 0.3 (500,000 sites,
+   overlapping windows: K6, K7, K8).  Each run resets the launch counts
+   just before and fails unless every kernel of its path launched; then
+   the host executor (GGT_EXEC=host) must give the same rows, integer
+   columns exactly and float cells within one rounding quantum (runs C
+   and D also under GGT_ABBA_HOST=1 on the card); then a traced run gives
+   the device busy time;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events,
    beside the bound computed from these inputs;
 4. the popDist goldens and the full-panel popgen_coord.csv golden of
-   tests/golden through the port's CLI on the card, and the fused
+   tests/golden through the port's CLI on the card, the fused
    individual-blocks route against GGT_HOST_DIST_FINALIZE=1 on four
-   analysis sets, within one rounding quantum.
+   analysis sets, within one rounding quantum, and the three ABBA goldens
+   within one quantum (at tol 0 under GGT_ABBA_HOST=1).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -75,7 +86,12 @@ KERNELS = {
                   "genomics_general_tpu/kernels/pairdist.py:347"),
     "site_pop_counts": ("counts.cu",
                         "genomics_general_tpu/kernels/counts.py:36"),
+    "abba_site_terms": ("abba.cu",
+                        "genomics_general_tpu/kernels/abba.py:94"),
+    "abba_window_sums": ("abba.cu",
+                         "genomics_general_tpu/kernels/abba.py:175"),
 }
+SOURCES = ("pair_v3", "counts", "abba")
 # H100 SXM data-sheet rates (the bound's denominators); a card set below
 # its 700 W limit runs slower than these
 HBM_BYTES_PER_S = 3.35e12
@@ -91,17 +107,44 @@ N_SITES, INDS_PER_POP = 500_000, 64
 N_SITES_B = 100_000                   # run B's depth (32,896 d_ columns)
 QUANTUM = 1e-4                        # one --roundTo 4 rounding step
 POPS4 = ["-p", "pop1", "-p", "pop2", "-p", "pop3", "-p", "pop4"]
+ABBA_POPS = ["-P1", "pop1", "-P2", "pop2", "-P3", "pop3", "-O", "pop4"]
+ABBA_KERNELS = ("site_pop_counts", "abba_site_terms", "abba_window_sums")
 RUNS = {
-    # name: (--analysis arguments, the kernels of its path)
-    "popDist": (["popDist", "popPairDist"],
-                ("pair_counts_v3", "exception_patch", "blocks_tail")),
-    "run_A": (["popFreq", "popDist", "popPairDist", "indHet", "hapStats",
-               "--fstMethod", "WC"],
+    # name: (CLI, its window and analysis arguments, the kernels of its
+    # path, the kernel modules whose host executor GGT_EXEC=host runs)
+    "popDist": ("popgen", ["-w", "50000", "-m", "100", *POPS4, "--analysis",
+                           "popDist", "popPairDist"],
+                ("pair_counts_v3", "exception_patch", "blocks_tail"),
+                ("pairdist",)),
+    "run_A": ("popgen", ["-w", "50000", "-m", "100", *POPS4, "--analysis",
+                         "popFreq", "popDist", "popPairDist", "indHet",
+                         "hapStats", "--fstMethod", "WC"],
               ("pair_counts_v3", "exception_patch", "tri_pack",
-               "site_pop_counts")),
-    "run_B": (["popDist", "popPairDist", "indPairDist", "indHet"],
+               "site_pop_counts"), ("pairdist", "counts")),
+    "run_B": ("popgen", ["-w", "50000", "-m", "100", *POPS4, "--analysis",
+                         "popDist", "popPairDist", "indPairDist", "indHet"],
               ("pair_counts_v3", "exception_patch", "blocks_tail",
-               "het_pairs")),
+               "het_pairs"), ("pairdist",)),
+    "run_C": ("abba", ["-w", "50000", "-m", "100", "--minData", "0.3",
+                       *ABBA_POPS], ABBA_KERNELS, ("abba",)),
+    "run_D": ("fourpop", ["-w", "50000", "-s", "25000", "-m", "100",
+                          "--minData", "0.3", *ABBA_POPS], ABBA_KERNELS,
+              ("abba",)),
+}
+# f64 operations of K7 (kernels/csrc/abba.cu): the gate of every site (4
+# divisions, 4 comparisons), the freqs of a gated site (20 divisions), the
+# terms of one selected (site, allele) pair (classic 56, full 414: f4 is
+# 11 operations, f4c 27)
+K7_SITE_OPS, K7_GATED_OPS = 8, 20
+K7_PAIR_OPS = {8: 56, 18: 414}
+# the three ABBA goldens (tests/test_abba_windows.py CONFIGS)
+ABBA_GOLDENS = {
+    "abba_coord": ("abba", ["-w", "50000", "-s", "25000", "-m", "50",
+                            "--minData", "0.3", "--writeFailedWindows"]),
+    "abba_sites": ("abba", ["--windType", "sites", "-w", "100", "-m", "20"]),
+    "fourpop_coord": ("fourpop", ["-w", "50000", "-s", "50000", "-m", "50",
+                                  "--minData", "0.3",
+                                  "--writeFailedWindows"]),
 }
 
 
@@ -416,6 +459,128 @@ def counts_parity(counts, transfer, native, a, mask, dev, block=1024):
     torch.cuda.synchronize()
 
 
+def abba_input(H: int = 160, S: int = 5003, seed: int = 7):
+    """ABBA alleles: beta-distributed allele frequencies, 10 % missing, a
+    few multi-allelic sites; the outgroup's rows (the last quarter) all
+    missing on a block of sites; 50/50 tie sites in the union; sites where
+    the populations' row blocks are fixed.  Overlapping windows of 100
+    sites every 37, an empty one and one long one."""
+    rng = np.random.default_rng(seed)
+    q = H // 4
+    f = rng.beta(0.4, 0.4, size=S)
+    a = (rng.random((H, S)) < f).astype(np.int8) \
+        * rng.integers(1, 4, size=S).astype(np.int8)
+    a[rng.random((H, S)) < 0.1] = -1
+    for s in rng.choice(S, size=S // 30, replace=False):
+        a[rng.integers(0, H, 3), s] = rng.integers(0, 4)
+    a[3 * q:, 200:400] = -1
+    for s in range(600, 900):
+        x, y = rng.choice(4, size=2, replace=False)
+        a[:, s] = np.where(rng.permutation(H) < H // 2, x, y)
+    for s in range(1000, 1200):
+        x, y = rng.choice(4, size=2, replace=False)
+        a[:, s] = x
+        a[2 * q:3 * q, s] = y
+        if s % 2:
+            a[q:2 * q, s] = y
+    first = np.arange(0, S - 100, 37, dtype=np.int32)
+    n = np.full(first.size, 100, np.int32)
+    n[5] = 0
+    first = np.append(first, 550).astype(np.int32)
+    n = np.append(n, 1400).astype(np.int32)
+    return a, first, n
+
+
+def abba_mask(H: int, overlap: bool):
+    """[5, H] P1, P2, P3, O and their union; ``overlap`` makes P1 and P2
+    share rows and leaves rows in no population."""
+    q = H // 4
+    spans = ([(0, q + 2), (q - 2, 2 * q), (2 * q, 3 * q - 2), (3 * q, H)]
+             if overlap else [(0, q), (q, 2 * q), (2 * q, 3 * q), (3 * q, H)])
+    mask = np.zeros((5, H), np.float32)
+    for k, (lo, hi) in enumerate(spans):
+        mask[k, lo:hi] = 1
+    mask[4] = mask[:4].max(axis=0)
+    return mask, [hi - lo for lo, hi in spans]
+
+
+def check_same(name: str, got, want) -> float:
+    """float64 results equal exactly, NaN positions included."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w.shape or not np.array_equal(g, w, equal_nan=True):
+        nan = np.isnan(g) | np.isnan(w)
+        raise AssertionError(f"{name}: not equal (NaN positions equal: "
+                             f"{np.array_equal(np.isnan(g), np.isnan(w))}, "
+                             f"max abs err {np.abs(g - w)[~nan].max()})")
+    return 0.0
+
+
+def check_sums(abba, name: str, got, terms, first, n) -> float:
+    """K8 against its plain version: NaN positions equal, each sum within
+    RTOL of the window's sum of |terms| (the scale of its rounding)."""
+    import torch
+    want = abba.abba_window_sums_plain(terms, first, n).cpu().numpy()
+    scale = abba.abba_window_sums_plain(torch.nan_to_num(terms.abs()),
+                                        first, n).cpu().numpy()
+    g = got.cpu().numpy()
+    if not np.array_equal(np.isnan(g), np.isnan(want)):
+        raise AssertionError(f"{name}: NaN positions differ")
+    ok = ~np.isnan(g)
+    err = np.abs(g - want)[ok]
+    if (err > RTOL * scale[ok] + ATOL).any():
+        raise AssertionError(f"{name}: beyond rtol {RTOL} of the sum of "
+                             f"|terms| (max abs err {err.max()})")
+    return float(err.max()) if err.size else 0.0
+
+
+def abba_parity(abba, counts, transfer, native, dev) -> dict:
+    """K6 on the class partition, K7 and K8 on the ABBA messy input in
+    every mode, panel and minData, on disjoint and overlapping
+    populations.  Returns the largest error of K7 and K8."""
+    import torch
+    a, first, n = abba_input()
+    H, S = a.shape
+    buf, Sp = transfer.pack_span(a)
+    dbuf = torch.from_numpy(buf).to(dev)
+    f_d = torch.from_numpy(first).to(dev)
+    n_d = torch.from_numpy(n).to(dev)
+    ones = np.ones(S, np.int32)
+    err = {"abba_site_terms": 0.0, "abba_window_sums": 0.0}
+    for overlap in (False, True):
+        mask, n_pops = abba_mask(H, overlap)
+        classes = counts.MaskClasses(mask, dev)
+        cc = counts.count_span(dbuf, Sp, H, S, classes.groups, block=1024)
+        membership = counts.membership_bits(mask)
+        host = native.site_pop_counts_host_native(a, membership)
+        if host is None:
+            raise AssertionError("the C site counter did not load")
+        check_equal(f"class counts (overlap={overlap}) vs C counter",
+                    torch.from_numpy(classes.combine(cc.cpu().numpy())),
+                    torch.from_numpy(host.astype(np.int64)))
+        for mode in abba.MODES:
+            for full in (False, True):
+                for md in (0.3, 0.0):
+                    what = f"{mode} full={full} minData={md} " \
+                           f"overlap={overlap}"
+                    t = abba.abba_site_terms(cc, classes.codes, n_pops, md,
+                                             mode, full)
+                    check_same(f"abba_site_terms {what} vs plain", t,
+                               abba.abba_site_terms_plain(
+                                   cc, classes.codes, n_pops, md, mode,
+                                   full))
+                    check_same(f"abba_site_terms {what} vs host executor",
+                               t, torch.from_numpy(abba.host_window_abba_sums(
+                                   a, np.arange(S, dtype=np.int32), ones,
+                                   membership, n_pops, md, mode, full)))
+                    s = abba.abba_window_sums(t, f_d, n_d)
+                    err["abba_window_sums"] = max(
+                        err["abba_window_sums"],
+                        check_sums(abba, f"abba_window_sums {what}", s, t,
+                                   f_d, n_d))
+    torch.cuda.synchronize()
+    return err
+
+
 # ------------------------------------------- times at the runs' flushes
 
 def time_tri(pair, transfer, flush, dev):
@@ -512,6 +677,72 @@ def time_counts(counts, transfer, flush, dev):
     return res
 
 
+def time_abba(abba, counts, transfer, flush, dev) -> dict:
+    """K7 and K8 at one ABBA run's largest flush (its class counts from
+    K6), checked against their plain versions there.  K8's yardstick is
+    ``torch.segment_reduce`` when the windows tile their sites."""
+    import torch
+    a, first, n, mask, n_pops, md, mode, full = flush
+    H, S = a.shape
+    W = first.shape[0]
+    wp = 8
+    while wp < W:
+        wp *= 2
+    buf, Sp = transfer.pack_flush_buffer(a, first, n, wp)
+    dbuf = torch.from_numpy(buf).to(dev)
+    span, f_all, n_all = transfer.flush_views(dbuf, Sp, H, wp)
+    f_d, n_d = f_all[:W], n_all[:W]
+    classes = counts.MaskClasses(mask, dev)
+    cc = counts.count_span(span, Sp, H, S, classes.groups)
+    codes = classes.codes
+    t = abba.abba_site_terms(cc, codes, n_pops, md, mode, full)
+    k7_err = check_same("abba_site_terms (run flush) vs plain", t,
+                        abba.abba_site_terms_plain(cc, codes, n_pops, md,
+                                                   mode, full))
+    sums = abba.abba_window_sums(t, f_d, n_d)
+    k8_err = check_sums(abba, "abba_window_sums (run flush)", sums, t, f_d,
+                        n_d)
+    K = t.shape[1]
+    k7 = {"max_abs_err": k7_err, "library_ms": None,
+          "ms": cuda_ms(lambda: abba.abba_site_terms(
+              cc, codes, n_pops, md, mode, full), 20),
+          "plain_ms": cuda_ms(lambda: abba.abba_site_terms_plain(
+              cc, codes, n_pops, md, mode, full), 3, 1)}
+    k8 = {"max_abs_err": k8_err,
+          "ms": cuda_ms(lambda: abba.abba_window_sums(t, f_d, n_d), 20),
+          "plain_ms": cuda_ms(lambda: abba.abba_window_sums_plain(
+              t, f_d, n_d), 3, 1), "library_ms": None}
+    tiles = bool((first[1:] == first[:-1] + n[:-1]).all())
+    if tiles:
+        lo, hi = int(first[0]), int(first[-1] + n[-1])
+        lengths = torch.from_numpy(n.astype(np.int64)).to(dev)
+        seg = torch.segment_reduce(t[lo:hi], "sum", lengths=lengths)
+        check_sums(abba, "segment_reduce yardstick", seg, t, f_d, n_d)
+        k8["library_ms"] = cuda_ms(lambda: torch.segment_reduce(
+            t[lo:hi], "sum", lengths=lengths), 20)
+    # bounds from this flush: K7 reads the class counts and writes [S, K];
+    # its operations follow the gated sites and selected pairs it found
+    host = t.cpu().numpy()
+    gated, pairs = float(host[:, 0].sum()), float(host[:, 1].sum())
+    k7["bound"] = bound(cc.numel() * cc.element_size() + 4 * codes.numel()
+                        + 729 + 8 * S * K,
+                        K7_SITE_OPS * S + K7_GATED_OPS * gated
+                        + (K7_PAIR_OPS[K] + K - 2) * pairs, FP64_PER_S)
+    # K8 reads each site that some window covers once, writes [W, K], and
+    # adds every window's rows
+    covered = np.zeros(S + 1, np.int64)
+    np.add.at(covered, first[n > 0], 1)
+    np.add.at(covered, (first + n)[n > 0], -1)
+    n_cov = int((np.cumsum(covered)[:S] > 0).sum())
+    k8["bound"] = bound(8 * n_cov * K + 8 * W + 8 * W * K,
+                        float(n.astype(np.int64).sum()) * K, FP64_PER_S)
+    shape = (f"{S} sites, {W} windows, H={H}, C={codes.numel()} classes, "
+             f"K={K}, {mode}, {int(gated)} gated sites, {int(pairs)} pairs"
+             f"{', tiling' if tiles else ', overlapping'}")
+    k7["shape"] = k8["shape"] = shape
+    return {"abba_site_terms": k7, "abba_window_sums": k8}
+
+
 # ------------------------------------------------------------ the CLI
 
 def csv_mismatches(ref_path, ours_path, tol: float) -> int:
@@ -542,8 +773,8 @@ def csv_mismatches(ref_path, ours_path, tol: float) -> int:
 
 def rows_within_quantum(path_a, path_b, what: str) -> int:
     """Same header and rows; the row keys and the integer columns (sites,
-    l_, S_) exactly, float cells within one quantum.  Returns the number
-    of cells that moved."""
+    sitesUsed, l_, S_) exactly, float cells within one quantum.  Returns
+    the number of cells that moved."""
     rows_a = list(csv.reader(open(path_a)))
     rows_b = list(csv.reader(open(path_b)))
     if len(rows_a) < 2:
@@ -552,7 +783,8 @@ def rows_within_quantum(path_a, path_b, what: str) -> int:
         raise AssertionError(f"{what}: rows or header differ")
     header = rows_a[0]
     exact = {i for i, c in enumerate(header)
-             if c in ("scaffold", "start", "end", "mid", "sites", "windowID")
+             if c in ("scaffold", "start", "end", "mid", "sites", "sitesUsed",
+                      "windowID")
              or c.startswith(("l_", "S_"))}
     moved = 0
     for ra, rb in zip(rows_a[1:], rows_b[1:]):
@@ -584,7 +816,7 @@ def run_cli(main, argv, env=None) -> tuple[float, str]:
             else:
                 os.environ[k] = v
     if rc != 0:
-        raise AssertionError(f"popgenWindows exited {rc}: {err.getvalue()}")
+        raise AssertionError(f"the CLI exited {rc}: {err.getvalue()}")
     return wall, err.getvalue()
 
 
@@ -624,17 +856,20 @@ def make_cohort(testing, work: Path, name: str, n_sites: int,
     return geno, pops
 
 
-def drive(name, mods, popgen_windows, native, geno, pops, n_sites, work,
-          record):
-    """Phase 3 for one analysis set: the kernel path with the launch counts
-    reset just before and read just after, the host executor, a traced
-    run.  ``record`` names the dispatch functions whose largest call to
-    keep (module, attribute, size of a call).  Returns (launches, kept
-    calls, report)."""
-    pair = mods[0]
-    analysis, need = RUNS[name]
-    args = ["-g", str(geno), "-f", "phased", "-w", "50000", "-m", "100",
-            *POPS4, "--popsFile", str(pops), "--analysis", *analysis,
+def short(mod) -> str:
+    return mod.__name__.rsplit(".", 1)[-1]
+
+
+def drive(name, mods, clis, native, geno, pops, n_sites, work, record):
+    """Phase 3 for one run: the kernel path with the launch counts reset
+    just before and read just after, the host executor (and for the ABBA
+    CLIs the per-site count route, GGT_ABBA_HOST=1), a traced run.
+    ``record`` names the dispatch functions whose largest call to keep
+    (module, attribute, size of a call).  Returns (launches, kept calls,
+    report)."""
+    cli, tail, need, host_mods = RUNS[name]
+    main = clis[cli]
+    args = ["-g", str(geno), "-f", "phased", *tail, "--popsFile", str(pops),
             "--profile"]
     kept = {}
     originals = []
@@ -651,7 +886,7 @@ def drive(name, mods, popgen_windows, native, geno, pops, n_sites, work,
         setattr(mod, attr, recording)
     try:
         reset(mods)
-        wall, err = run_cli(popgen_windows.main,
+        wall, err = run_cli(main,
                             args + ["-o", str(work / f"{name}.gpu.csv")],
                             {"GGT_EXEC": "device"})
         launches = launches_of(mods)
@@ -673,12 +908,11 @@ def drive(name, mods, popgen_windows, native, geno, pops, n_sites, work,
                                  "path")
 
     reset(mods)
-    wall_h, err_h = run_cli(popgen_windows.main,
+    wall_h, err_h = run_cli(main,
                             args + ["-o", str(work / f"{name}.host.csv")],
                             {"GGT_EXEC": "host"})
     if any(launches_of(mods).values()) or \
-            any(m.HOST_FLUSHES == 0 for m in mods
-                if any(k in need for k in m.LAUNCHES)):
+            any(m.HOST_FLUSHES == 0 for m in mods if short(m) in host_mods):
         raise AssertionError(f"{name}: GGT_EXEC=host did not run the host "
                              "executor alone")
     moved = rows_within_quantum(work / f"{name}.gpu.csv",
@@ -691,35 +925,95 @@ def drive(name, mods, popgen_windows, native, geno, pops, n_sites, work,
     report = {"wall_s": wall, "sites_per_s": n_sites / wall,
               "host_wall_s": wall_h, "rows": n_rows,
               "cells_moved_vs_host": moved, "profile": profile_line(err)}
-    report.update(device_busy(popgen_windows, args, work, name))
+    if cli != "popgen":
+        reset(mods)
+        wall_c, _ = run_cli(main,
+                            args + ["-o", str(work / f"{name}.counts.csv")],
+                            {"GGT_EXEC": "device", "GGT_ABBA_HOST": "1"})
+        lc = launches_of(mods)
+        if lc["site_pop_counts"] <= 0 or lc["abba_site_terms"] or \
+                lc["abba_window_sums"]:
+            raise AssertionError(f"{name}: GGT_ABBA_HOST=1 did not count "
+                                 f"with K6 alone ({lc})")
+        moved_c = rows_within_quantum(work / f"{name}.counts.csv",
+                                      work / f"{name}.host.csv",
+                                      f"{name} GGT_ABBA_HOST=1 vs host")
+        log(f"[e2e] {name} GGT_ABBA_HOST=1 on the card: wall {wall_c:.3f}s, "
+            f"K6 launches {lc['site_pop_counts']}; vs host executor "
+            f"{moved_c} float cells moved (each within {QUANTUM})")
+        report.update(counts_route_wall_s=wall_c,
+                      counts_route_cells_moved_vs_host=moved_c)
+    report.update(device_busy(cli, args, work, name))
     return launches, kept, report
 
 
-def device_busy(popgen_windows, args, work: Path, name: str) -> dict:
-    """One more kernel-path run under torch.profiler: the device time of
-    every kernel and copy it traced, against the run's wall time (the
-    profiler's own cost is in that wall)."""
+def device_busy(cli: str, args, work: Path, name: str) -> dict:
+    """One more kernel-path run under torch.profiler, in a fresh process
+    (:func:`traced_child`): the device time of every kernel and copy it
+    traced, against the run's wall time (the profiler's own cost is in
+    that wall).  Within one long process, profiling sessions after the
+    first few were seen to lose whole flushes, so the run's launch counts
+    are also held against the kernel events the trace kept: an incomplete
+    trace's busy time is a lower bound."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.traced_child(sys.argv[1:]))", cli, *args,
+         "-o", str(work / "traced.csv")], cwd=REPO, capture_output=True,
+        text=True, timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"{name} traced run failed: {r.stderr[-3000:]}")
+    t = json.loads(r.stdout.strip().splitlines()[-1])
+    complete = t["traced"] == t["counted"]
+    log(f"[e2e] {name} traced run: wall {t['wall_s']:.3f}s, device busy "
+        f"{t['busy_s']:.4f}s ({100 * t['busy_s'] / t['wall_s']:.2f}% of "
+        f"wall); kernel launches traced {t['traced']} of {t['counted']}"
+        + ("" if complete else " (incomplete trace: busy is a lower bound)")
+        + "; top device events: " + t["top"])
+    return {"traced_wall_s": t["wall_s"], "device_busy_s": t["busy_s"],
+            "trace_complete": complete}
+
+
+def traced_child(argv) -> int:
+    """The traced run of :func:`device_busy`: CLI ``argv[0]`` with the
+    arguments ``argv[1:]`` on the kernel path under torch.profiler; prints
+    one JSON line (wall, device busy, launches counted and traced, the top
+    device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _ = run_cli(popgen_windows.main,
-                          args + ["-o", str(work / "traced.csv")],
+    from genomics_general_tpu_torch.kernels import abba, counts, pairdist
+    os.environ["GGT_DEVICE"] = "cuda"
+    mods = (pairdist, counts, abba)
+    reset(mods)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        wall, _ = run_cli(port_clis()[argv[0]], argv[1:],
                           {"GGT_EXEC": "device"})
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    counted = {k: v for k, v in launches_of(mods).items() if v}
 
     def us(e):
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0.0)
-    busy = sum(us(e) for e in dev) / 1e6
     top = sorted(dev, key=us, reverse=True)[:8]
-    log(f"[e2e] {name} traced run: wall {wall:.3f}s, device busy "
-        f"{busy:.4f}s ({100 * busy / wall:.2f}% of wall); top device "
-        "events: " + "; ".join(f"{e.key[:48]} x{e.count} "
-                               f"{us(e) / 1e3:.2f} ms" for e in top))
-    return {"traced_wall_s": wall, "device_busy_s": busy}
+    print(json.dumps({
+        "wall_s": wall, "busy_s": sum(us(e) for e in dev) / 1e6,
+        "counted": counted,
+        "traced": {k: sum(e.count for e in dev if k in e.key)
+                   for k in counted},
+        "top": "; ".join(f"{e.key[:48]} x{e.count} {us(e) / 1e3:.2f} ms"
+                         for e in top)}))
+    return 0
+
+
+def port_clis() -> dict:
+    """The port's CLI entry points by the names RUNS uses."""
+    from genomics_general_tpu_torch.cli import abba_windows
+    from genomics_general_tpu_torch.cli import four_pop_windows
+    from genomics_general_tpu_torch.cli import popgen_windows
+    return {"popgen": popgen_windows.main, "abba": abba_windows.main,
+            "fourpop": four_pop_windows.main}
 
 
 def goldens(popgen_windows, work: Path):
@@ -791,6 +1085,34 @@ def goldens(popgen_windows, work: Path):
             f"{moved} cells moved (each within {QUANTUM})")
 
 
+def abba_goldens(clis, mods, work: Path):
+    """The three ABBA goldens through the port's CLIs on the card: the
+    kernel route within one quantum (its window sums add in another order
+    than numpy), GGT_ABBA_HOST=1 at tol 0."""
+    D = REPO / "tests" / "data"
+    G = REPO / "tests" / "golden"
+    base = ["-g", str(D / "sim1.geno.gz"), "-f", "phased", "--popsFile",
+            str(D / "sim1.pops.txt"), *ABBA_POPS]
+    for name, (cli, extra) in ABBA_GOLDENS.items():
+        for route, env, tol in (
+                ("kernel", {"GGT_EXEC": "device"}, QUANTUM + 1e-12),
+                ("GGT_ABBA_HOST=1", {"GGT_EXEC": "device",
+                                     "GGT_ABBA_HOST": "1"}, 0.0)):
+            out = work / f"{name}.{route}.csv"
+            reset(mods)
+            run_cli(clis[cli], base + extra + ["-o", str(out)], env)
+            if launches_of(mods)["site_pop_counts"] <= 0:
+                raise AssertionError(f"golden {name} ({route}): K6 never "
+                                     "launched")
+            exact = csv_mismatches(G / f"{name}.csv", out, 0.0)
+            beyond = csv_mismatches(G / f"{name}.csv", out, tol)
+            log(f"[golden] {name} ({route}): {exact} cells differ at tol 0, "
+                f"{beyond} beyond {tol}")
+            if beyond:
+                raise AssertionError(f"golden {name} ({route}): {beyond} "
+                                     f"cells beyond {tol}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -802,6 +1124,7 @@ def main() -> int:
         from genomics_general_tpu_torch.cli import popgen_windows
         from genomics_general_tpu_torch.io import native
         from genomics_general_tpu_torch.kernels import _build
+        from genomics_general_tpu_torch.kernels import abba
         from genomics_general_tpu_torch.kernels import counts
         from genomics_general_tpu_torch.kernels import pairdist as pair
         from genomics_general_tpu_torch.kernels import transfer
@@ -811,7 +1134,8 @@ def main() -> int:
         return 2
     os.environ["GGT_DEVICE"] = "cuda"
     dev = torch.device("cuda")
-    mods = (pair, counts)
+    mods = (pair, counts, abba)
+    clis = port_clis()
     t_start = time.perf_counter()
 
     # ---- phase 1: the card and the builds (one nvcc per source, and g++,
@@ -828,9 +1152,9 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*a)
         return out, time.perf_counter() - t0
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as ex:
         futs = {name: ex.submit(timed, _build.build, name)
-                for name in ("pair_v3", "counts")}
+                for name in SOURCES}
         gxx = ex.submit(timed, native.get_lib)
         built = {name: f.result() for name, f in futs.items()}
         lib, t_gxx = gxx.result()
@@ -870,6 +1194,12 @@ def main() -> int:
                              "branch")
     log(f"[parity] K4 int32 branch (one window of {n[0]} sites, "
         f"H={a.shape[0]}): tri_pack == plain == host executor")
+    for k, v in abba_parity(abba, counts, transfer, native, dev).items():
+        errs[k] = max(errs[k], v)
+    log("[parity] ABBA messy input (3 modes x 2 panels x minData 0.3/0 x "
+        "disjoint/overlapping pops): K6 class counts == C counter; K7 == "
+        "plain == host executor (NaN positions equal); K8 within rtol "
+        f"{RTOL} of plain; max abs err K8 {errs['abba_window_sums']}")
     log(f"[time] phase 2a done at {time.perf_counter() - t_start:.1f}s")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke-",
@@ -882,19 +1212,24 @@ def main() -> int:
                                      2_000_000)
         runs = {}
         runs["popDist"] = drive(
-            "popDist", mods, popgen_windows, native, geno, pops, N_SITES,
+            "popDist", mods, clis, native, geno, pops, N_SITES,
             work, [(pair, "window_pair_block_stats_dispatch",
                     lambda a: a[1].shape[0])])
         runs["run_A"] = drive(
-            "run_A", mods, popgen_windows, native, geno, pops, N_SITES,
+            "run_A", mods, clis, native, geno, pops, N_SITES,
             work, [(pair, "window_pair_counts_dispatch",
                     lambda a: a[1].shape[0]),
                    (counts, "site_pop_counts_dispatch",
                     lambda a: a[0].shape[1])])
         runs["run_B"] = drive(
-            "run_B", mods, popgen_windows, native, geno_b, pops_b,
+            "run_B", mods, clis, native, geno_b, pops_b,
             N_SITES_B, work, [(pair, "window_pair_ind_blocks_dispatch",
                                lambda a: a[1].shape[0])])
+        for name in ("run_C", "run_D"):
+            runs[name] = drive(
+                name, mods, clis, native, geno, pops, N_SITES, work,
+                [(abba, "window_abba_sums_dispatch",
+                  lambda a: a[0].shape[1])])
         log(f"[time] phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
         # ---- phase 2b: parity and times at the runs' flush shapes
@@ -913,12 +1248,24 @@ def main() -> int:
         res["het_pairs"] = time_het(
             pair, transfer,
             runs["run_B"][1]["window_pair_ind_blocks_dispatch"], dev)
-        for k in ("tri_pack", "site_pop_counts", "het_pairs"):
+        res.update(time_abba(
+            abba, counts, transfer,
+            runs["run_C"][1]["window_abba_sums_dispatch"], dev))
+        for k, r in time_abba(
+                abba, counts, transfer,
+                runs["run_D"][1]["window_abba_sums_dispatch"], dev).items():
+            log(f"[kernel] {k} at run D's flush ({r['shape']}): kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms "
+                f"({r['bound'][1]}), max abs err {r['max_abs_err']}")
+        for k in ("tri_pack", "site_pop_counts", "het_pairs",
+                  "abba_site_terms", "abba_window_sums"):
             bnd[k] = res[k]["bound"]
             log(f"[parity] {k} at {res[k]['shape']}")
         owner = {"pair_counts_v3": "popDist", "exception_patch": "popDist",
                  "blocks_tail": "popDist", "tri_pack": "run_A",
-                 "site_pop_counts": "run_A", "het_pairs": "run_B"}
+                 "site_pop_counts": "run_A", "het_pairs": "run_B",
+                 "abba_site_terms": "run_C", "abba_window_sums": "run_C"}
         launches = {k: runs[owner[k]][0][k] for k in KERNELS}
         for k in KERNELS:
             r = res[k]
@@ -931,6 +1278,7 @@ def main() -> int:
 
         # ---- phase 4: goldens on the card
         goldens(popgen_windows, work)
+        abba_goldens(clis, mods, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -21,8 +21,10 @@ from .._buildcache import cached_build
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 
-# C signatures: every pointer and the stream as void*, sizes as int
+# C signatures: every pointer and the stream as void*, sizes as int,
+# reals as double
 _SIGNATURES = {
     "pair_v3": {
         "ggt_pair_counts_v3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -34,7 +36,15 @@ _SIGNATURES = {
     "counts": {
         "ggt_site_pop_counts": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     },
+    "abba": {
+        "ggt_abba_site_terms": [_P, _I, _I, _I, _P, _P, _D, _D, _D, _D, _D,
+                                _I, _I, _P, _P],
+        "ggt_abba_window_sums": [_P, _I, _I, _P, _P, _I, _P, _P],
+    },
 }
+# nvcc flags of one source beyond the common line: abba.cu's f4 terms must
+# equal numpy's bit for bit, so no multiply-add is contracted into an fma
+_EXTRA_FLAGS = {"abba": ["--fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,10 +57,10 @@ def nvcc_path() -> str:
     return nvcc
 
 
-def _command(src: Path):
+def _command(src: Path, extra: list[str]):
     def cmd(out: Path) -> list[str]:
         return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                "-std=c++17", "-O3", "-Xptxas", "-v", *extra, "-shared",
                 "-Xcompiler", "-fPIC",
                 "-o", str(out), str(src)]
     return cmd
@@ -61,7 +71,8 @@ def build(name: str) -> Path:
     ``nvcc``'s register and spill report is beside it with ``.log``."""
     src = _CSRC / f"{name}.cu"
     try:
-        return cached_build(name, [src], _command(src))
+        return cached_build(name, [src],
+                            _command(src, _EXTRA_FLAGS.get(name, [])))
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"nvcc failed on {src}:\n{e.stdout}{e.stderr}") \
             from e

@@ -1,4 +1,5 @@
-"""Per-site allele counting for popgenWindows' popFreq and WC Fst.
+"""Per-site allele counting for popgenWindows' popFreq and WC Fst, and
+for ABBABABAwindows / fourPopWindows.
 
 Replaces the reference's per-site Python loops (``binBaseFreqs`` /
 ``Alignment.siteFreqs``, genomics.py:592-599, 1049-1052):
@@ -11,6 +12,10 @@ codes [H, Sp/4], then the missing-bit plane [H, Sp/8]) and the CUDA kernel
 place: there is no device-side unpack.  Counts come back uint16 while
 H < 2^16 (a count never exceeds H), else int32, and widen to int32 on the
 host; every downstream statistic derives from them in float64 on the host.
+K6 takes a partition of the haplotype rows; a mask whose rows overlap
+(ABBA's P1, P2, P3, O and their union) is counted on the partition by
+membership code (:class:`MaskClasses`), and each mask's counts are exact
+integer sums of its classes'.
 
 The wrapper launches K6 for CUDA tensors (counting the launch in
 ``LAUNCHES``) and runs :func:`site_pop_counts_plain` only for CPU tensors.
@@ -28,7 +33,7 @@ from ..device import get_device
 from . import _build
 from . import transfer
 from .pairdist import PopGroups, _ReadyHandle, _check_cuda, _exec_choice, \
-    _pop_groups, _stream_ptr
+    _pop_groups, _run_const, _stream_ptr
 
 # sites per kernel launch when counting long site axes
 DEFAULT_SITE_BLOCK = 1 << 18
@@ -96,8 +101,9 @@ def site_pop_counts_plain(buf: torch.Tensor, sp: int, h: int, s0: int,
     return counts.permute(1, 0, 2).to(torch.int32)
 
 
-def _count_span(buf: torch.Tensor, sp: int, h: int, S: int,
-                groups: PopGroups, block: int) -> torch.Tensor:
+def count_span(buf: torch.Tensor, sp: int, h: int, S: int,
+               groups: PopGroups, block: int = DEFAULT_SITE_BLOCK
+               ) -> torch.Tensor:
     """K6 over sites 0 .. S - 1, ``block`` sites per launch."""
     out = torch.empty((S, groups.P, 4), dtype=count_dtype(h),
                       device=buf.device)
@@ -107,22 +113,74 @@ def _count_span(buf: torch.Tensor, sp: int, h: int, S: int,
     return out
 
 
+# ------------------------------------------- overlapping masks (ABBA)
+
+class MaskClasses:
+    """A 0/1 mask [P, H] (P <= 8) whose rows may overlap (ABBA's P1, P2,
+    P3, O and their union), as the partition K6 takes: the haplotype rows
+    grouped by their membership code (:func:`membership_bits`), one group
+    per code that occurs, rows in no mask included.
+
+    ``groups`` is the PopGroups of the C classes, ``codes`` int32 [C] each
+    class's code (ascending; on ``device``), ``bits`` int64 [C, P] its 0/1
+    membership (host).  A mask's counts are the exact integer sum of the
+    counts of the classes whose code has its bit (:meth:`combine`)."""
+
+    def __init__(self, pop_mask: np.ndarray, device: torch.device):
+        mask = np.asarray(pop_mask, dtype=np.float64)
+        if mask.ndim != 2 or not np.isin(mask, (0.0, 1.0)).all() \
+                or mask.shape[0] > 8:
+            raise ValueError("MaskClasses needs a 0/1 mask [P, H], P <= 8")
+        self.P, H = mask.shape
+        codes, cls = np.unique(membership_bits(mask), return_inverse=True)
+        onehot = np.zeros((codes.size, H))
+        onehot[cls.reshape(-1), np.arange(H)] = 1.0
+        self.groups = PopGroups(onehot, device)
+        self.codes = torch.from_numpy(codes.astype(np.int32)).to(device)
+        self.bits = (codes.astype(np.int64)[:, None]
+                     >> np.arange(self.P)) & 1
+
+    def combine(self, class_counts: np.ndarray) -> np.ndarray:
+        """int [S, C, 4] class counts -> int32 [S, P, 4] mask counts."""
+        c = np.asarray(class_counts, dtype=np.int64)
+        return np.einsum("sca,cp->spa", c, self.bits).astype(np.int32)
+
+
+def _mask_classes(pop_mask: np.ndarray, device: torch.device) -> MaskClasses:
+    """The run's MaskClasses, built and uploaded once."""
+    mask = np.ascontiguousarray(pop_mask, dtype=np.float64)
+    return _run_const("classes", mask, device,
+                      lambda m: MaskClasses(m, device))
+
+
+def is_partition(pop_mask: np.ndarray) -> bool:
+    """True when every haplotype row lies in exactly one mask row."""
+    return bool(((np.asarray(pop_mask) > 0).sum(axis=0) == 1).all())
+
+
 # ------------------------------------------------------------ host route
+
+def membership_bits(pop_mask: np.ndarray) -> np.ndarray:
+    """uint8 [H]: bit p set when the row lies in mask row p (P <= 8), the
+    membership the C site counter takes."""
+    m = np.asarray(pop_mask) > 0
+    return (m.astype(np.uint8)
+            << np.arange(m.shape[0], dtype=np.uint8)[:, None]
+            ).sum(axis=0).astype(np.uint8)
+
 
 def _host_site_pop_counts(alleles: np.ndarray,
                           pop_mask: np.ndarray) -> np.ndarray:
     """int32 [S, P, 4] on the host: the C counter for P <= 8 (the JAX
     package's host route), numpy for more masks."""
     global HOST_FLUSHES
-    H, S = alleles.shape
+    S = alleles.shape[1]
     P = pop_mask.shape[0]
     HOST_FLUSHES += 1
     if P <= 8:
         from ..io import native
-        membership = np.zeros(H, dtype=np.uint8)
-        for p in range(P):
-            membership[np.asarray(pop_mask[p]) > 0] |= 1 << p
-        c = native.site_pop_counts_host_native(alleles, membership)
+        c = native.site_pop_counts_host_native(alleles,
+                                               membership_bits(pop_mask))
         if c is None:
             raise RuntimeError("GGT_EXEC=host needs the native library "
                                "(io/native.py), which did not build")
@@ -139,26 +197,32 @@ def _host_site_pop_counts(alleles: np.ndarray,
 
 class SitePopCountsHandle:
     """In-flight per-site counts of one span; ``collect()`` waits for the
-    fetch and returns numpy int32 [S, P, 4]."""
+    fetch and returns numpy int32 [S, P, 4].  ``classes`` (a MaskClasses)
+    means the fetch holds class counts, combined here on the host."""
 
-    def __init__(self, S: int, P: int, pending=None):
+    def __init__(self, S: int, P: int, pending=None, classes=None):
         self.S, self.P, self._pending = S, P, pending
+        self._classes = classes
 
     def collect(self) -> np.ndarray:
         if self._pending is None:
             return np.zeros((self.S, self.P, 4), dtype=np.int32)
         host = self._pending.wait()
         self._pending = None
+        if self._classes is not None:
+            return self._classes.combine(host)
         return host.astype(np.int32)
 
 
 def site_pop_counts_dispatch(alleles, pop_mask: np.ndarray,
                              block: int = DEFAULT_SITE_BLOCK):
     """Dispatch per-site counting of a host int8 [H, S] span without
-    fetching.  ``pop_mask``: 0/1 [P, H], every row in exactly one group
-    (popgenWindows' mask puts ungrouped rows in the "" group).  The span
-    ships once as the 2-bit span wire; K6 counts ``block`` sites per
-    launch (a multiple of 8)."""
+    fetching.  ``pop_mask``: 0/1 [P, H].  When every row lies in exactly
+    one group (popgenWindows' mask puts ungrouped rows in the "" group) K6
+    counts the groups; when rows overlap (ABBA's P1, P2, P3, O and union)
+    K6 counts the membership classes (:class:`MaskClasses`) and the host
+    sums them per mask.  The span ships once as the 2-bit span wire; K6
+    counts ``block`` sites per launch (a multiple of 8)."""
     if not isinstance(alleles, np.ndarray) or not transfer.packed_enabled():
         raise NotImplementedError(
             "site counts of a device-array span or with "
@@ -174,9 +238,15 @@ def site_pop_counts_dispatch(alleles, pop_mask: np.ndarray,
         return _ReadyHandle(lambda: _host_site_pop_counts(alleles, pop_mask))
     dev = get_device()
     buf, Sp = transfer.pack_span(alleles)
-    groups = _pop_groups(pop_mask, dev)
+    classes = None
+    if is_partition(pop_mask):
+        groups = _pop_groups(pop_mask, dev)
+    else:
+        classes = _mask_classes(pop_mask, dev)
+        groups = classes.groups
     return SitePopCountsHandle(S, P, transfer.run_on_device(
-        buf, dev, lambda b: _count_span(b, Sp, H, S, groups, block)))
+        buf, dev, lambda b: count_span(b, Sp, H, S, groups, block)),
+        classes)
 
 
 def site_pop_counts_chunked(alleles, pop_mask: np.ndarray,

@@ -3,7 +3,10 @@
 The 2-bit span wire of the per-site count kernel (``pack_alleles`` /
 ``pack_span``, copies of the JAX package's) is one uint8 buffer
 ``[codes H x Sp/4 | miss H x Sp/8]``; the CUDA kernel reads it in place
-and :func:`unpack_span` is its plain inverse.
+and :func:`unpack_span` is its plain inverse.  The ABBA flush buffer
+(``pack_flush_buffer``, also a copy) appends the window metadata
+``first, n_sites int32[wp]``; :func:`flush_views` cuts it into typed views
+in place and :func:`unpack_flush_buffer` is its plain inverse.
 
 Wire format v3 of the pairwise kernels follows.
 
@@ -155,6 +158,45 @@ def unpack_span(buf, sp: int, h: int) -> torch.Tensor:
     m = ((miss[:, :, None] >> shifts1) & 1).reshape(h, -1)[:, :sp]
     return torch.where(m == 1, torch.full((), -1, dtype=torch.int8,
                                           device=buf.device), c.to(torch.int8))
+
+
+def pack_flush_buffer(alleles: np.ndarray, first: np.ndarray,
+                      n_sites: np.ndarray, wp: int,
+                      min_bucket: int = 1 << 16):
+    """One wire buffer for a whole flush: packed allele planes + window
+    metadata ``[planes | first int32[wp] | n_sites int32[wp]]``.
+    Returns (buffer uint8 [.], Sp)."""
+    span_buf, Sp = pack_span(alleles, min_bucket)
+    W = first.shape[0]
+    meta = np.zeros(2 * wp, np.int32)
+    meta[:W] = first
+    meta[wp:wp + W] = n_sites
+    return np.concatenate([span_buf, meta.view(np.uint8)]), Sp
+
+
+def flush_views(buf: torch.Tensor, sp: int, h: int, wp: int):
+    """Views of a :func:`pack_flush_buffer` buffer (a uint8 tensor on any
+    device): (span wire uint8, first int32 [wp], n_sites int32 [wp]).
+    With the default bucket (Sp a multiple of 2^16) the metadata starts
+    4-byte aligned and is read in place; a smaller bucket may leave it
+    unaligned, and then the metadata is copied."""
+    base = h * (sp // 4 + sp // 8)
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or \
+            buf.numel() != base + 8 * wp:
+        raise ValueError(f"not a flush buffer of h={h}, sp={sp}, wp={wp}")
+    meta = buf[base:]
+    meta = (meta if base % 4 == 0 else meta.clone()).view(torch.int32)
+    return buf[:base], meta[:wp], meta[wp:]
+
+
+def unpack_flush_buffer(buf, sp: int, h: int, wp: int):
+    """Plain PyTorch inverse of :func:`pack_flush_buffer` (the JAX
+    ``unpack_flush_buffer``): (alleles int8 [h, sp], first int32 [wp],
+    n_sites int32 [wp])."""
+    if isinstance(buf, np.ndarray):
+        buf = torch.from_numpy(buf)
+    span, first, n_sites = flush_views(buf, sp, h, wp)
+    return unpack_span(span, sp, h), first, n_sites
 
 
 # -------------------------------------------------------- wire v3

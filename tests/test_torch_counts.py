@@ -126,11 +126,17 @@ def test_dispatch_matches_jax_and_host(port_cpu, monkeypatch, name, P):
 
 
 def test_counts_refuse_overlapping_groups(port_cpu):
+    """K6 takes a partition, so PopGroups refuses overlapping groups; the
+    dispatch counts an overlapping mask on its membership-class partition
+    instead (ABBA's P1..O and union), equal to the JAX counts."""
     a = _alleles("s_mod8")
     mask = _mask(a.shape[0], 3)
     mask[0, :] = 1.0
     with pytest.raises(ValueError):
-        port_counts.site_pop_counts_chunked(a, mask)
+        port_pair.PopGroups(mask, torch.device("cpu"))
+    np.testing.assert_array_equal(
+        port_counts.site_pop_counts_chunked(a, mask),
+        np.asarray(jax_counts.site_pop_counts(a, mask)))
 
 
 def test_counts_unported_routes_raise(port_cpu, monkeypatch):

@@ -24,6 +24,8 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.io.writers",
     "genomics_general_tpu_torch.stats",
     "genomics_general_tpu_torch.stats.popgen",
+    "genomics_general_tpu_torch.stats.abbababa",
+    "genomics_general_tpu_torch.stats.jackknife",
     "genomics_general_tpu_torch.parallel",
     "genomics_general_tpu_torch.parallel.multihost",
     "genomics_general_tpu_torch.kernels",
@@ -31,9 +33,12 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.kernels.transfer",
     "genomics_general_tpu_torch.kernels.pairdist",
     "genomics_general_tpu_torch.kernels.counts",
+    "genomics_general_tpu_torch.kernels.abba",
     "genomics_general_tpu_torch.cli",
     "genomics_general_tpu_torch.cli.common",
     "genomics_general_tpu_torch.cli.popgen_windows",
+    "genomics_general_tpu_torch.cli.abba_windows",
+    "genomics_general_tpu_torch.cli.four_pop_windows",
 ]
 
 _PROBE = """
