@@ -25,7 +25,12 @@ not build, launch or agree, or an output is wrong):
    abba_site_terms against its plain version and the host executor's
    per-site terms exactly (NaN positions equal), K8 abba_window_sums
    against its plain version within rtol 1e-12 of the window's sum of
-   |terms|;
+   |terms|; K9 pair_counts_4state on messy inputs (H = 160 and 77, S =
+   70,003, windows of 0 and 1 site, unaligned starts, one of 66,000 sites)
+   against its plain version and the host executor exactly, on its split
+   (atomic) and unsplit paths and on row-strided input; K10
+   window_stats_tail against its plain version (rtol 1e-6, NaN positions
+   equal) and K11 window_pop_counts exactly, with 5 and 1 populations;
 3. five runs end to end through the port's CLIs at H = 512 (256 diploid
    individuals in 4 populations of 64), 50 kb windows: popgenWindows
    popDist popPairDist (500,000 sites: K1, K2, K3); run A, popFreq popDist
@@ -38,15 +43,25 @@ not build, launch or agree, or an output is wrong):
    the host executor (GGT_EXEC=host) must give the same rows, integer
    columns exactly and float cells within one rounding quantum (runs C
    and D also under GGT_ABBA_HOST=1 on the card); then a traced run gives
-   the device busy time;
+   the device busy time.  Then three more: run E, distMat --windType cat
+   on the 500,000-site cohort (K9), byte-equal to GGT_EXEC=host, with a
+   traced run; run F, windowed distMat with --windowDataOutFile (K1, K2,
+   K4), byte-equal under GGT_PACKED_TRANSFER=0 (K9, K4) and GGT_EXEC=host;
+   run G, the port's entry() step at H = 512, P = 4 over 128 windows of
+   the cohort's first 80,000 sites made complete (K9, K10, K11), its counts
+   against the wire-v3 route's (K1 + K2 + K4) exactly and its statistics
+   against the float64 CSV-exact path at the JAX test's tolerance;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events,
-   beside the bound computed from these inputs;
+   beside the bound computed from these inputs (K9 at run E's block and
+   at run F's and run A's largest flushes, where the K9 + K4 and K1 + K2 +
+   K4 routes are timed side by side; K10 and K11 at run G's shape);
 4. the popDist goldens and the full-panel popgen_coord.csv golden of
    tests/golden through the port's CLI on the card, the fused
    individual-blocks route against GGT_HOST_DIST_FINALIZE=1 on four
-   analysis sets, within one rounding quantum, and the three ABBA goldens
-   within one quantum (at tol 0 under GGT_ABBA_HOST=1).
+   analysis sets, within one rounding quantum, the three ABBA goldens
+   within one quantum (at tol 0 under GGT_ABBA_HOST=1), and the five
+   distMat / distPaint goldens at tol 0.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -90,12 +105,19 @@ KERNELS = {
                         "genomics_general_tpu/kernels/abba.py:94"),
     "abba_window_sums": ("abba.cu",
                          "genomics_general_tpu/kernels/abba.py:175"),
+    "pair_counts_4state": ("pair4.cu",
+                           "genomics_general_tpu/kernels/pairdist.py:46"),
+    "window_stats_tail": ("window_stats.cu",
+                          "genomics_general_tpu/kernels/window_stats.py:49"),
+    "window_pop_counts": ("window_stats.cu",
+                          "genomics_general_tpu/kernels/window_stats.py:83"),
 }
-SOURCES = ("pair_v3", "counts", "abba")
+SOURCES = ("pair_v3", "counts", "abba", "pair4", "window_stats")
 # H100 SXM data-sheet rates (the bound's denominators); a card set below
 # its 700 W limit runs slower than these
 HBM_BYTES_PER_S = 3.35e12
 FP64_PER_S = 34e12
+INT8_OPS_PER_S = 1979e12              # dense int8 tensor rate (K9's bound)
 # results per clock per SM for compute capability 9.0 (CUDA C++
 # Programming Guide, throughput of native arithmetic instructions)
 POPC_PER_CLK_SM = 16
@@ -105,6 +127,12 @@ RTOL, ATOL = 1e-12, 1e-15
 # the full-width cohort: 4 pops x 64 diploid individuals (H = 512)
 N_SITES, INDS_PER_POP = 500_000, 64
 N_SITES_B = 100_000                   # run B's depth (32,896 d_ columns)
+# run F: run B's density (12.5 sites per kb) cut to 8 windows of 50 kb —
+# distMat's finalize walks 256^2 individual blocks per window on the host
+N_SITES_F, SCAFFOLD_F = 5_000, 100_000
+N_SITES_G, WINDOWS_G = 80_000, 128     # run G: the entry() step's batch
+K10_RTOL = 1e-6                       # K10 vs its plain version (float32)
+G_RTOL, G_FST_RTOL, G_FST_ATOL = 2e-5, 2e-4, 2e-5  # run G vs float64
 QUANTUM = 1e-4                        # one --roundTo 4 rounding step
 POPS4 = ["-p", "pop1", "-p", "pop2", "-p", "pop3", "-p", "pop4"]
 ABBA_POPS = ["-P1", "pop1", "-P2", "pop2", "-P3", "pop3", "-O", "pop4"]
@@ -137,6 +165,10 @@ RUNS = {
 # 11 operations, f4c 27)
 K7_SITE_OPS, K7_GATED_OPS = 8, 20
 K7_PAIR_OPS = {8: 56, 18: 414}
+DISTMAT_ARGS = {
+    "run_E": ["--windType", "cat", "--outFormat", "phylip"],
+    "run_F": ["-w", "50000", "-m", "100", "--outFormat", "phylip"],
+}
 # the three ABBA goldens (tests/test_abba_windows.py CONFIGS)
 ABBA_GOLDENS = {
     "abba_coord": ("abba", ["-w", "50000", "-s", "25000", "-m", "50",
@@ -380,14 +412,20 @@ def bounds(shapes, sm_count: int, clk_hz: float) -> dict:
     active = ex_w[(ex_w >= 0) & (ex_w < nwin)]
     touched = np.unique(active).size
     k2_bytes = shapes["ex_bytes"] + 2 * 2 * 4 * touched * H * H
-    k3_bytes = 8 * nwin * H * H + 16 * nwin * P * P + 4 * (2 * H + P + 1)
     return {
         "pair_counts_v3": bound(k1_bytes, popc,
                                 POPC_PER_CLK_SM * sm_count * clk_hz),
         "exception_patch": bound(k2_bytes, 3 * active.size * H * H,
                                  INT32_PER_CLK_SM * sm_count * clk_hz),
-        "blocks_tail": bound(k3_bytes, 3 * nwin * H * (H - 1), FP64_PER_S),
+        "blocks_tail": blocks_tail_bound(nwin, H, P),
     }
+
+
+def blocks_tail_bound(nwin: int, H: int, P: int):
+    """K3: the [nwin, H, H] counts once, the perm / offs, [nwin, 2, P, P]
+    written; 3 f64 operations per off-diagonal pair."""
+    return bound(8 * nwin * H * H + 16 * nwin * P * P + 4 * (2 * H + P + 1),
+                 3 * nwin * H * (H - 1), FP64_PER_S)
 
 
 def epilogue_parity(pair, transfer, a, first, n, pop_mask, min_sites, dev):
@@ -640,8 +678,11 @@ def time_het(pair, transfer, flush, dev):
     k3_err = check_close("blocks_tail (run B individual mask) sums",
                          blk[:, 0], want[:, 0])
     k3_ms = cuda_ms(lambda: pair.blocks_tail(m, s, groups, gate, blk), 5)
-    log(f"[kernel] blocks_tail on run B's individual mask (P={groups.P}, "
-        f"{nwin} windows): kernel {k3_ms:.4f} ms, max abs err {k3_err}")
+    P = groups.P
+    k3_bound = blocks_tail_bound(nwin, H, P)
+    log(f"[kernel] blocks_tail on run B's individual mask (P={P}, "
+        f"{nwin} windows): kernel {k3_ms:.4f} ms, bound "
+        f"{k3_bound[0]:.4f} ms ({k3_bound[1]}), max abs err {k3_err}")
     return res
 
 
@@ -741,6 +782,255 @@ def time_abba(abba, counts, transfer, flush, dev) -> dict:
              f"{', tiling' if tiles else ', overlapping'}")
     k7["shape"] = k8["shape"] = shape
     return {"abba_site_terms": k7, "abba_window_sums": k8}
+
+
+# ------------------------------------------- K9, K10, K11 parity and times
+
+def k9_input(H: int, seed: int = 8):
+    """K9's messy input: mostly biallelic codes, 10 % missing, 1 % of sites
+    with a third or fourth allele, an all-missing block and a block where
+    the rows cycle through all four codes; S = 70,003 (not a multiple of
+    4); 60 windows at unaligned starts: one of 0 sites, one of 1 site, one
+    ending exactly at S and one of 66,000 sites (more than 2^16)."""
+    rng = np.random.default_rng(seed)
+    S = 70_003
+    a = rng.integers(0, 2, size=(H, S)).astype(np.int8)
+    a[rng.random((H, S)) < 0.1] = -1
+    for s in rng.choice(S, size=S // 100, replace=False):
+        a[rng.integers(0, H, 4), s] = rng.integers(2, 4)
+    a[:, 1000:1100] = -1
+    a[:, 2000:2100] = (np.arange(H)[:, None] + np.arange(100)[None, :]) % 4
+    first = rng.integers(0, S - 1500, size=60).astype(np.int32)
+    n = rng.integers(2, 1500, size=60).astype(np.int32)
+    first[:4] = (5, 11, S - 777, 3)
+    n[:4] = (0, 1, 777, 66_000)
+    return a, first, n
+
+
+def k9_parity(pair, a, first, n, dev):
+    """K9 on all windows in one launch (unsplit at H = 160, split at
+    H = 77), one window per launch (split: int32 atomics), and on
+    row-strided input, against its plain version and the host executor
+    exactly.  Returns the device tensors and counts for K10 / K11."""
+    import torch
+    H, S = a.shape
+    at = torch.from_numpy(a).to(dev)
+    f = torch.from_numpy(first).to(dev)
+    k = torch.from_numpy(n).to(dev)
+    s_max = int(n.max())
+    m, s = pair.pair_counts_4state(at, f, k, s_max)
+    mp, sp = pair.pair_counts_4state_plain(at, f, k)
+    check_equal(f"pair_counts_4state m H={H} vs plain", m, mp)
+    check_equal(f"pair_counts_4state s H={H} vs plain", s, sp)
+    del mp, sp
+    hm, hs = pair._host_flush_counts(a, first, n)
+    check_equal(f"pair_counts_4state m H={H} vs host executor", m,
+                torch.from_numpy(hm))
+    check_equal(f"pair_counts_4state s H={H} vs host executor", s,
+                torch.from_numpy(hs))
+    del hm, hs
+    for w in range(4):
+        m1, s1 = pair.pair_counts_4state(at, f[w:w + 1], k[w:w + 1],
+                                         int(n[w]))
+        check_equal(f"pair_counts_4state m H={H} window {w} alone", m1,
+                    m[w:w + 1])
+        check_equal(f"pair_counts_4state s H={H} window {w} alone", s1,
+                    s[w:w + 1])
+    wide = torch.full((H, S + 61), -1, dtype=torch.int8, device=dev)
+    wide[:, :S] = at
+    m2, s2 = pair.pair_counts_4state(wide[:, :S], f, k, s_max)
+    check_equal(f"pair_counts_4state m H={H} strided rows", m2, m)
+    check_equal(f"pair_counts_4state s H={H} strided rows", s2, s)
+    torch.cuda.synchronize()
+    return at, f, k, m, s
+
+
+def check_f32(name: str, got, want, atol: float = 0.0):
+    """float32 results: NaN positions equal, the rest within K10_RTOL (and
+    ``atol``).  Returns (max abs err, cells not bit-equal)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    nan = np.isnan(g)
+    if g.shape != w.shape or not np.array_equal(nan, np.isnan(w)):
+        raise AssertionError(f"{name}: shape or NaN positions differ")
+    err = np.abs(g[~nan].astype(np.float64) - w[~nan])
+    if (err > K10_RTOL * np.abs(w[~nan]) + atol).any():
+        raise AssertionError(f"{name}: beyond rtol {K10_RTOL} (max abs err "
+                             f"{err.max()})")
+    return (float(err.max()) if err.size else 0.0,
+            int((g[~nan] != w[~nan]).sum()))
+
+
+def stats_parity(ws, at, f, k, m, s, dev, masks) -> tuple[float, int]:
+    """K10 against its plain version and K11 exactly, for each mask.
+    Returns K10's max abs err and its number of cells not bit-equal."""
+    import torch
+    err, diff = 0.0, 0
+    for mask in masks:
+        pm = torch.from_numpy(mask).to(dev)
+        got = ws.window_stats_tail(m, s, pm)
+        want = ws.window_stats_tail_plain(m, s, pm)
+        for name, g, w in zip(("pi", "dxy", "fst"), got, want):
+            e, d = check_f32(f"window_stats_tail {name} P={mask.shape[0]}",
+                             g, w, atol=K10_RTOL if name == "fst" else 0.0)
+            err, diff = max(err, e), diff + d
+        check_equal(f"window_pop_counts P={mask.shape[0]} vs plain",
+                    ws.window_pop_counts(at, f, k, pm),
+                    ws.window_pop_counts_plain(at, f, k, pm))
+    torch.cuda.synchronize()
+    return err, diff
+
+
+def messy_masks(H: int, seed: int = 9):
+    """Five populations over H rows (one of them a single haplotype that
+    also lies in another, rows in none) and one of all rows."""
+    rng = np.random.default_rng(seed)
+    groups = rng.integers(0, 5, size=H)
+    pm = np.zeros((5, H), np.float32)
+    for p in range(4):
+        pm[p, groups == p] = 1.0
+    pm[4, 0] = 1.0
+    return pm, np.ones((1, H), np.float32)
+
+
+def k9_bound(H: int, in_bytes: float, sites: float, nwin: int):
+    """K9's least time: the larger of the input read once plus both count
+    matrices written, over the HBM rate, and the one-hot Gram's work over
+    the upper triangle (2 T 5 sites: the called Gram and the 4-code Gram)
+    at the dense int8 tensor rate."""
+    T = H * (H + 1) // 2
+    return bound(in_bytes + 8 * nwin * H * H, 2 * T * 5 * sites,
+                 INT8_OPS_PER_S)
+
+
+def gram_yardstick(wa, valid):
+    """The library yardstick of K9: the two bf16 one-hot torch.matmul
+    Grams of the JAX kernel over gathered windows [B, H, s].  torch returns
+    them in bf16 (JAX asks XLA for float32), which rounds counts above
+    256, so the yardstick is timed, not compared.  Returns a callable."""
+    import torch
+    keep = valid[:, None, :]
+    called = ((wa >= 0) & keep).to(torch.bfloat16)
+    codes = torch.arange(4, device=wa.device, dtype=torch.int8)
+    oh = ((wa[..., None] == codes) & keep[..., None]).to(torch.bfloat16)
+    oh = oh.reshape(wa.shape[0], wa.shape[1], -1)
+
+    def grams():
+        return (torch.matmul(called, called.transpose(1, 2)),
+                torch.matmul(oh, oh.transpose(1, 2)))
+    return grams
+
+
+def time_k9_block(pair, call, dev):
+    """K9 at run E's largest block (one window over the staging block)."""
+    import torch
+    at, f, k, s_max = call
+    H = at.shape[0]
+    m, s = pair.pair_counts_4state(at, f, k, s_max)
+    mp, sp = pair.pair_counts_4state_plain(at, f, k)
+    err = max(check_equal("pair_counts_4state (run E block) m", m, mp),
+              check_equal("pair_counts_4state (run E block) s", s, sp))
+    del mp, sp
+    wa = at[None, :, :s_max]
+    grams = gram_yardstick(
+        wa, torch.ones((1, s_max), dtype=torch.bool, device=dev))
+    res = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: pair.pair_counts_4state(at, f, k, s_max),
+                         5),
+           "plain_ms": cuda_ms(lambda: pair.pair_counts_4state_plain(
+               at, f, k), 2, 1),
+           "library_ms": cuda_ms(grams, 3, 1)}
+    res["bound"] = k9_bound(H, H * s_max, s_max, 1)
+    res["shape"] = f"1 window of {s_max} sites, H={H}"
+    del wa, grams
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_k9_flush(pair, transfer, flush, dev, name: str) -> dict:
+    """K9 over the first chunk of one windowed flush, from the raw upload:
+    equal to K1 + K2 on the same windows; the K9 + K4 and the K1 + K2 + K4
+    routes over the whole flush timed side by side."""
+    import torch
+    a, first, n = flush
+    H, S = a.shape
+    W = first.shape[0]
+    b = torch.from_numpy(transfer.pack_raw_span(a, first, n)).to(dev)
+    al, f, k = transfer.raw_span_views(b, H, S, W)
+    s_max, u16 = int(n.max()), pair._tri_u16(n)
+    chunk = pair._window_chunk(W, H)
+    nw = min(chunk, W)
+    m, s = pair.pair_counts_4state(al, f[:nw], k[:nw], s_max)
+    v3 = pair._v3_flush_args(a, first, n)
+    wire = v3.wire(torch.from_numpy(v3.buf).to(dev))
+    m3, s3 = pair.pair_counts_v3(wire, 0, nw)
+    pair.exception_patch(m3, s3, wire, 0)
+    check_equal(f"pair_counts_4state ({name} flush) m vs K1 + K2", m, m3)
+    check_equal(f"pair_counts_4state ({name} flush) s vs K1 + K2", s, s3)
+    check_equal(f"K9 + K4 vs K1 + K2 + K4 ({name} flush)",
+                pair.flush_tri_4state(al, f, k, chunk, u16, s_max),
+                pair.flush_tri(wire, W, v3.chunk, v3.u16))
+    offs = torch.arange(s_max, device=dev)
+    idx = f[:nw, None].long() + offs[None, :]
+    valid = offs[None, :] < k[:nw, None]
+    wa = al[:, torch.where(valid, idx, torch.zeros_like(idx))] \
+        .permute(1, 0, 2)
+    grams = gram_yardstick(wa, valid)
+    res = {
+        "ms": cuda_ms(lambda: pair.pair_counts_4state(al, f[:nw], k[:nw],
+                                                      s_max), 10),
+        "plain_ms": cuda_ms(lambda: pair.pair_counts_4state_plain(
+            al, f[:nw], k[:nw]), 2, 1),
+        "library_ms": cuda_ms(grams, 5),
+        "route_k9_k4_ms": cuda_ms(lambda: pair.flush_tri_4state(
+            al, f, k, chunk, u16, s_max), 10),
+        "route_k1_k2_k4_ms": cuda_ms(lambda: pair.flush_tri(
+            wire, W, v3.chunk, v3.u16), 10)}
+    covered = int((first[:nw] + n[:nw]).max() - first[:nw].min())
+    res["bound"] = k9_bound(H, H * min(covered, S),
+                            float(n[:nw].astype(np.int64).sum()), nw)
+    log(f"[kernel] pair_counts_4state at {name}'s largest flush ({nw} of "
+        f"{W} windows, H={H}, longest {s_max} sites): kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
+        f"{res['library_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
+        f"({res['bound'][1]}); whole flush: K9 + K4 "
+        f"{res['route_k9_k4_ms']:.4f} ms, K1 + K2 + K4 "
+        f"{res['route_k1_k2_k4_ms']:.4f} ms; K9 == K1 + K2")
+    del wa, grams
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_stats(ws, g_inputs, g_out, dev) -> dict:
+    """K10 and K11 at run G's shape, against their plain versions."""
+    at, f, k, pm = g_inputs
+    m, s = g_out["mismatch"], g_out["shared"]
+    B, H, _ = m.shape
+    P = pm.shape[0]
+    want = ws.window_stats_tail_plain(m, s, pm)
+    err, diff = 0.0, 0
+    for name, g, w in zip(("pi", "dxy", "fst"), (g_out["pi"], g_out["dxy"],
+                                                 g_out["fst"]), want):
+        e, d = check_f32(f"window_stats_tail {name} (run G)", g, w,
+                         atol=K10_RTOL if name == "fst" else 0.0)
+        err, diff = max(err, e), diff + d
+    check_equal("window_pop_counts (run G) vs plain", g_out["pop_counts"],
+                ws.window_pop_counts_plain(at, f, k, pm))
+    k10 = {"max_abs_err": err, "cells_not_bit_equal": diff,
+           "library_ms": None,
+           "ms": cuda_ms(lambda: ws.window_stats_tail(m, s, pm), 20),
+           "plain_ms": cuda_ms(lambda: ws.window_stats_tail_plain(m, s, pm),
+                               2, 1),
+           # the counts once, the mask, pi / dxy / fst written
+           "bound": bound(8 * B * H * H + 4 * P * H + 4 * B * (P + 2 * P * P))}
+    sites = int(k.sum())
+    k11 = {"max_abs_err": 0.0, "library_ms": None,
+           "ms": cuda_ms(lambda: ws.window_pop_counts(at, f, k, pm), 20),
+           "plain_ms": cuda_ms(lambda: ws.window_pop_counts_plain(
+               at, f, k, pm), 3, 1),
+           # every row's window sites read once, the mask, [B, P, 4] written
+           "bound": bound(H * sites + 4 * P * H + 16 * B * P)}
+    k10["shape"] = k11["shape"] = f"{B} windows, H={H}, P={P}"
+    return {"window_stats_tail": k10, "window_pop_counts": k11}
 
 
 # ------------------------------------------------------------ the CLI
@@ -1010,10 +1300,201 @@ def traced_child(argv) -> int:
 def port_clis() -> dict:
     """The port's CLI entry points by the names RUNS uses."""
     from genomics_general_tpu_torch.cli import abba_windows
+    from genomics_general_tpu_torch.cli import dist_mat
+    from genomics_general_tpu_torch.cli import dist_paint
     from genomics_general_tpu_torch.cli import four_pop_windows
     from genomics_general_tpu_torch.cli import popgen_windows
     return {"popgen": popgen_windows.main, "abba": abba_windows.main,
-            "fourpop": four_pop_windows.main}
+            "fourpop": four_pop_windows.main, "distmat": dist_mat.main,
+            "distpaint": dist_paint.main}
+
+
+def same_bytes(paths, what: str) -> None:
+    first = Path(paths[0]).read_bytes()
+    if not first:
+        raise AssertionError(f"{what}: empty output")
+    for other in paths[1:]:
+        if Path(other).read_bytes() != first:
+            raise AssertionError(f"{what}: {other} differs from {paths[0]}")
+
+
+def run_e(pair, mods, clis, geno, work):
+    """Run E: distMat --windType cat at H = 512 on the 500,000-site cohort
+    (K9 on each 262,144-site block), byte-equal to GGT_EXEC=host, then a
+    traced run.  Returns (launches, the largest K9 call, report)."""
+    args = ["-g", str(geno), "-f", "phased", *DISTMAT_ARGS["run_E"],
+            "--profile"]
+    kept = {}
+    real = pair.pair_counts_4state
+
+    def recording(*a):
+        if "k9" not in kept or a[3] > kept["k9"][3]:
+            kept["k9"] = a
+        return real(*a)
+    pair.pair_counts_4state = recording
+    try:
+        reset(mods)
+        wall, err = run_cli(clis["distmat"],
+                            args + ["-o", str(work / "run_E.gpu.phy")],
+                            {"GGT_EXEC": "device"})
+        launches = launches_of(mods)
+        host_flushes = pair.HOST_FLUSHES
+    finally:
+        pair.pair_counts_4state = real
+    log(f"[e2e] run_E kernel path: wall {wall:.3f}s, "
+        f"{N_SITES / wall:.0f} sites/s, launches {launches}")
+    log(f"[e2e] run_E {profile_line(err)}")
+    if launches["pair_counts_4state"] <= 0 or launches["pair_counts_v3"] \
+            or host_flushes:
+        raise AssertionError(f"run_E: K9 alone should count the cat blocks "
+                             f"({launches}, host flushes {host_flushes})")
+    reset(mods)
+    wall_h, _ = run_cli(clis["distmat"],
+                        args + ["-o", str(work / "run_E.host.phy")],
+                        {"GGT_EXEC": "host"})
+    if any(launches_of(mods).values()) or pair.HOST_FLUSHES == 0:
+        raise AssertionError("run_E: GGT_EXEC=host did not run the host "
+                             "executor alone")
+    same_bytes([work / "run_E.gpu.phy", work / "run_E.host.phy"],
+               "run_E kernel vs host")
+    log(f"[e2e] run_E host executor: wall {wall_h:.3f}s; kernel vs host: "
+        "byte-identical")
+    report = {"wall_s": wall, "sites_per_s": N_SITES / wall,
+              "host_wall_s": wall_h, "bytes_equal_host": True,
+              "profile": profile_line(err)}
+    report.update(device_busy("distmat", args, work, "run_E"))
+    return launches, kept["k9"], report
+
+
+def run_f(pair, mods, clis, geno, work):
+    """Run F: windowed distMat with --windowDataOutFile at H = 512 on the
+    wire-v3 route (K1, K2, K4), again under GGT_PACKED_TRANSFER=0 (K9, K4)
+    and GGT_EXEC=host: both files byte-identical across the three.
+    Returns (launches of the v3 run, its largest flush, report)."""
+    args = ["-g", str(geno), "-f", "phased", *DISTMAT_ARGS["run_F"],
+            "--profile"]
+    routes = (
+        ("v3", {"GGT_EXEC": "device"},
+         ("pair_counts_v3", "exception_patch", "tri_pack"),
+         ("pair_counts_4state",)),
+        ("raw", {"GGT_EXEC": "device", "GGT_PACKED_TRANSFER": "0"},
+         ("pair_counts_4state", "tri_pack"), ("pair_counts_v3",)),
+        ("host", {"GGT_EXEC": "host"}, (), tuple(pair.LAUNCHES)))
+    kept = {}
+    real = pair.window_pair_counts_dispatch
+
+    def recording(alleles, first, n_sites):
+        if "flush" not in kept or first.shape[0] > kept["flush"][1].shape[0]:
+            kept["flush"] = (alleles.copy(), first.copy(), n_sites.copy())
+        return real(alleles, first, n_sites)
+    report, launches = {"rows": 0}, None
+    for route, env, need, forbid in routes:
+        out, data = work / f"run_F.{route}.phy", work / f"run_F.{route}.tsv"
+        if route == "v3":
+            pair.window_pair_counts_dispatch = recording
+        try:
+            reset(mods)
+            wall, err = run_cli(clis["distmat"], args + [
+                "--windowDataOutFile", str(data), "-o", str(out)], env)
+            got = launches_of(mods)
+        finally:
+            pair.window_pair_counts_dispatch = real
+        bad = [k for k in need if got[k] <= 0] + [k for k in forbid
+                                                  if got[k]]
+        if bad or (route == "host") != (pair.HOST_FLUSHES > 0):
+            raise AssertionError(f"run_F {route}: launches {got}, host "
+                                 f"flushes {pair.HOST_FLUSHES}")
+        if route == "v3":
+            launches = got
+            log(f"[e2e] run_F {profile_line(err)}")
+        log(f"[e2e] run_F {route} ({env}): wall {wall:.3f}s, launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        report[f"{route}_wall_s"] = wall
+    for suffix in ("phy", "tsv"):
+        same_bytes([work / f"run_F.{r}.{suffix}" for r, *_ in routes],
+                   f"run_F .{suffix} across v3, raw upload, host")
+    report["rows"] = (work / "run_F.v3.tsv").read_text().count("\n")
+    log(f"[e2e] run_F: {report['rows']} windows; matrices and window data "
+        "byte-identical on the v3, GGT_PACKED_TRANSFER=0 and host routes")
+    return launches, kept["flush"], report
+
+
+def run_g(pair, ws, geno, pops, dev):
+    """Run G: the port's entry() step at full width (H = 512, P = 4, 128
+    windows of the cohort's first 80,000 sites, each missing call filled
+    with an allele of its own site so the data are complete, as the JAX
+    test compares).  Its counts must equal the wire-v3 route's (K1 + K2 +
+    K4); pi / dxy / Fst must meet the float64 CSV-exact path on those
+    counts at the JAX test's tolerance.  Returns (launches, (inputs,
+    outputs), report)."""
+    import torch
+    from genomics_general_tpu_torch.entry import entry
+    from genomics_general_tpu_torch.io import geno as geno_io
+    from genomics_general_tpu_torch.samples import SampleData
+    from genomics_general_tpu_torch.stats import popgen
+    names = ["pop1", "pop2", "pop3", "pop4"]
+    sd = SampleData.from_pop_args(population_args=[[x] for x in names],
+                                  pops_file=str(pops), geno_format="phased")
+    reader = geno_io.GenoReader(str(geno), sample_data=sd,
+                                geno_format="phased")
+    parts, got = [], 0
+    for c in reader.iter_chunks(threads=1):
+        parts.append(c.alleles[:, :N_SITES_G - got].copy())
+        got += parts[-1].shape[1]
+        if got >= N_SITES_G:
+            break
+    a = np.concatenate(parts, axis=1)
+    a = np.ascontiguousarray(np.where(a < 0, a.max(axis=0)[None, :], a))
+    pm = reader.model.pop_mask(names)
+    size = N_SITES_G // WINDOWS_G
+    first = np.arange(0, WINDOWS_G * size, size, dtype=np.int32)
+    n = np.full(WINDOWS_G, size, np.int32)
+    fn, _ = entry()
+    inputs = tuple(torch.from_numpy(x).to(dev) for x in (a, first, n, pm))
+    mods = (pair, ws)
+    reset(mods)
+    t0 = time.perf_counter()
+    out = fn(*inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(mods)
+    for k in ("pair_counts_4state", "window_stats_tail", "window_pop_counts"):
+        if launches[k] <= 0:
+            raise AssertionError(f"run_G: kernel {k} never launched")
+    reset(mods)
+    vm, vs = pair.window_pair_counts(a, first, n)
+    if pair.LAUNCHES["pair_counts_v3"] <= 0:
+        raise AssertionError("run_G: the wire-v3 route did not run")
+    check_equal("run_G mismatch vs K1 + K2 + K4", out["mismatch"],
+                torch.from_numpy(vm))
+    check_equal("run_G shared vs K1 + K2 + K4", out["shared"],
+                torch.from_numpy(vs))
+    exact = popgen.group_dist_stats(popgen.DistStatsContext(vm, vs),
+                                    reader.model.row_group, do_pairs=True,
+                                    min_sites=0, min_data=0.0)
+    del vm, vs
+    pi, dxy, fst = (out[k].cpu().numpy() for k in ("pi", "dxy", "fst"))
+    rel = {"pi": 0.0, "dxy": 0.0, "fst": 0.0}
+
+    def hold(name, g, w, rtol, atol=0.0):
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                   err_msg=f"run_G {name} vs float64")
+        rel[name] = max(rel[name], float(np.max(
+            np.abs(g - w) / np.maximum(np.abs(w), 1e-30))))
+    for x, px in enumerate(names):
+        hold("pi", pi[:, x], exact["pi_" + px], G_RTOL)
+        for y in range(x + 1, len(names)):
+            key = px + "_" + names[y]
+            hold("dxy", dxy[:, x, y], exact["dxy_" + key], G_RTOL)
+            hold("fst", fst[:, x, y], exact["Fst_" + key], G_FST_RTOL,
+                 G_FST_ATOL)
+    log(f"[e2e] run_G entry() step: {WINDOWS_G} windows of {size} sites, "
+        f"H={a.shape[0]}, P={pm.shape[0]}: wall {wall:.3f}s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; counts == K1 + K2 "
+        f"+ K4; max relative error vs float64 {rel} (limits pi/dxy "
+        f"{G_RTOL}, Fst {G_FST_RTOL} / atol {G_FST_ATOL})")
+    return launches, (inputs, out), {"wall_s": wall,
+                                     "max_rel_err_vs_f64": rel}
 
 
 def goldens(popgen_windows, work: Path):
@@ -1113,6 +1594,43 @@ def abba_goldens(clis, mods, work: Path):
                                      f"cells beyond {tol}")
 
 
+def dist_goldens(clis, pair, work: Path):
+    """The five distMat / distPaint goldens through the port's CLIs on the
+    card at tol 0 (distmat_cat.phy at H = 40 through K9)."""
+    D = REPO / "tests" / "data"
+    G = REPO / "tests" / "golden"
+    sim1 = ["-g", str(D / "sim1.geno.gz"), "-f", "phased"]
+    paint = ["-g", str(D / "sim_paint.geno.gz"), "-p", "pop1", "-p", "pop2",
+             "-p", "pop3", "--popsFile", str(D / "sim_paint.pops.txt")]
+    wdata = work / "distmat_wind.data.tsv"
+    cases = [
+        ("distmat", sim1 + ["-w", "50000", "-m", "50", "--outFormat",
+                            "phylip", "--windowDataOutFile", str(wdata)],
+         ["distmat_wind.phy", "distmat_wind.data.tsv"], "pair_counts_v3"),
+        ("distmat", sim1 + ["--windType", "cat", "--outFormat", "phylip"],
+         ["distmat_cat.phy"], "pair_counts_4state"),
+        ("distpaint", paint + ["-w", "50000", "-s", "25000", "-m", "50",
+                               "--writeFailedWindows"],
+         ["distpaint_test.tsv"], "pair_counts_v3"),
+        ("distpaint", paint + ["--windType", "sites", "-w", "200", "-m",
+                               "100", "--delta_threshold", "0.02",
+                               "--addWindowID"],
+         ["distpaint_delta.tsv"], "pair_counts_v3"),
+    ]
+    for cli, args, goldens_, kernel in cases:
+        out = work / goldens_[0]
+        pair.reset_launches()
+        run_cli(clis[cli], args + ["-o", str(out)], {"GGT_EXEC": "device"})
+        if pair.LAUNCHES[kernel] <= 0:
+            raise AssertionError(f"golden {goldens_[0]}: {kernel} never "
+                                 "launched")
+        for g in goldens_:
+            if (work / g).read_text() != (G / g).read_text():
+                raise AssertionError(f"golden {g}: differs at tol 0")
+            log(f"[golden] {g}: equal at tol 0 ({kernel} launches "
+                f"{pair.LAUNCHES[kernel]})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1128,6 +1646,7 @@ def main() -> int:
         from genomics_general_tpu_torch.kernels import counts
         from genomics_general_tpu_torch.kernels import pairdist as pair
         from genomics_general_tpu_torch.kernels import transfer
+        from genomics_general_tpu_torch.kernels import window_stats as ws
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -1200,6 +1719,19 @@ def main() -> int:
         "disjoint/overlapping pops): K6 class counts == C counter; K7 == "
         "plain == host executor (NaN positions equal); K8 within rtol "
         f"{RTOL} of plain; max abs err K8 {errs['abba_window_sums']}")
+    not_bit_equal = 0
+    for H in (160, 77):
+        a, first, n = k9_input(H)
+        at, f, k, m, s = k9_parity(pair, a, first, n, dev)
+        e, d = stats_parity(ws, at, f, k, m, s, dev, messy_masks(H))
+        errs["window_stats_tail"] = max(errs["window_stats_tail"], e)
+        not_bit_equal += d
+        del at, f, k, m, s
+    log("[parity] K9 messy input (H=160, 77; S=70,003; 60 windows incl. "
+        "0, 1 and 66,000 sites; unsplit, split and strided): == plain == "
+        f"host executor; K10 within rtol {K10_RTOL} of plain (NaN positions "
+        f"equal, {not_bit_equal} cells not bit-equal, max abs err "
+        f"{errs['window_stats_tail']}); K11 == plain (P=5, P=1)")
     log(f"[time] phase 2a done at {time.perf_counter() - t_start:.1f}s")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke-",
@@ -1230,6 +1762,11 @@ def main() -> int:
                 name, mods, clis, native, geno, pops, N_SITES, work,
                 [(abba, "window_abba_sums_dispatch",
                   lambda a: a[0].shape[1])])
+        runs["run_E"] = run_e(pair, mods, clis, geno, work)
+        geno_f, _ = make_cohort(testing, work, "cohort_f", N_SITES_F,
+                                SCAFFOLD_F)
+        runs["run_F"] = run_f(pair, mods, clis, geno_f, work)
+        runs["run_G"] = run_g(pair, ws, geno, pops, dev)
         log(f"[time] phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
         # ---- phase 2b: parity and times at the runs' flush shapes
@@ -1258,14 +1795,26 @@ def main() -> int:
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms "
                 f"({r['bound'][1]}), max abs err {r['max_abs_err']}")
+        res["pair_counts_4state"] = time_k9_block(pair, runs["run_E"][1],
+                                                  dev)
+        runs["run_F"][2]["k9_flush"] = time_k9_flush(
+            pair, transfer, runs["run_F"][1], dev, "run_F")
+        runs["run_A"][2]["k9_flush"] = time_k9_flush(
+            pair, transfer, runs["run_A"][1]["window_pair_counts_dispatch"],
+            dev, "run_A")
+        res.update(time_stats(ws, *runs["run_G"][1], dev))
         for k in ("tri_pack", "site_pop_counts", "het_pairs",
-                  "abba_site_terms", "abba_window_sums"):
+                  "abba_site_terms", "abba_window_sums",
+                  "pair_counts_4state", "window_stats_tail",
+                  "window_pop_counts"):
             bnd[k] = res[k]["bound"]
             log(f"[parity] {k} at {res[k]['shape']}")
         owner = {"pair_counts_v3": "popDist", "exception_patch": "popDist",
                  "blocks_tail": "popDist", "tri_pack": "run_A",
                  "site_pop_counts": "run_A", "het_pairs": "run_B",
-                 "abba_site_terms": "run_C", "abba_window_sums": "run_C"}
+                 "abba_site_terms": "run_C", "abba_window_sums": "run_C",
+                 "pair_counts_4state": "run_E", "window_stats_tail": "run_G",
+                 "window_pop_counts": "run_G"}
         launches = {k: runs[owner[k]][0][k] for k in KERNELS}
         for k in KERNELS:
             r = res[k]
@@ -1279,6 +1828,7 @@ def main() -> int:
         # ---- phase 4: goldens on the card
         goldens(popgen_windows, work)
         abba_goldens(clis, mods, work)
+        dist_goldens(clis, pair, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1289,6 +1839,7 @@ def main() -> int:
                 "bound_by": bnd[k][1], "library_ms": res[k]["library_ms"]}
                for k, (src, replaces) in KERNELS.items()]
     e2e = {name: r[2] for name, r in runs.items()}
+    del runs
     log(f"[done] {time.perf_counter() - t_start:.1f}s; e2e {json.dumps(e2e)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -68,16 +68,16 @@ def _check_slice() -> None:
     """Raise NotImplementedError for the JAX package's wire options whose
     kernels are not ported yet (multi-process runs raise in
     parallel/multihost; the port has no device mesh: one process drives
-    one device)."""
+    one device).  The pair counts take the raw upload (K9), but the
+    per-site count routes (kernels/counts.py, kernels/abba.py) do not."""
     if os.environ.get("GGT_WIRE") == "2":
         raise NotImplementedError(
             "GGT_WIRE=2 (the wire-v2 pair kernels) is not ported yet: "
-            "ROADMAP queue 2, rows 5 and 6")
+            "ROADMAP queue 2, row 5")
     if os.environ.get("GGT_PACKED_TRANSFER") == "0":
         raise NotImplementedError(
-            "GGT_PACKED_TRANSFER=0 (the raw int8 upload and the general "
-            "4-state pair counts) is not ported yet: ROADMAP queue 2, "
-            "rows 6 and 7")
+            "GGT_PACKED_TRANSFER=0 (the raw int8 upload of the per-site "
+            "count routes) is not ported yet: ROADMAP queue 2, row 7")
 
 
 def main(argv=None) -> int:

@@ -22,9 +22,10 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
-# C signatures: every pointer and the stream as void*, sizes as int,
-# reals as double
+# C signatures: every pointer and the stream as void*, sizes as int (row
+# strides and span lengths as long long), reals as double
 _SIGNATURES = {
     "pair_v3": {
         "ggt_pair_counts_v3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -41,10 +42,20 @@ _SIGNATURES = {
                                 _I, _I, _P, _P],
         "ggt_abba_window_sums": [_P, _I, _I, _P, _P, _I, _P, _P],
     },
+    "pair4": {
+        "ggt_pair_counts_4state": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _P,
+                                   _P, _P],
+    },
+    "window_stats": {
+        "ggt_window_stats_tail": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "ggt_window_pop_counts": [_P, _L, _L, _P, _P, _P, _I, _I, _I, _P,
+                                  _P],
+    },
 }
 # nvcc flags of one source beyond the common line: abba.cu's f4 terms must
-# equal numpy's bit for bit, so no multiply-add is contracted into an fma
-_EXTRA_FLAGS = {"abba": ["--fmad=false"]}
+# equal numpy's bit for bit, and window_stats.cu's float32 Fst its plain
+# version's, so no multiply-add is contracted into an fma
+_EXTRA_FLAGS = {"abba": ["--fmad=false"], "window_stats": ["--fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,0 +1,214 @@
+// General 4-state pair counts for Hopper (sm_90a): per-window masked-Hamming
+// counts straight from the int8 allele matrix, for distMat --windType cat,
+// the device-array and raw-upload routes of the tri counts, the long-span
+// helper and the window-stats step.
+//
+// Plain C launch interface (extern "C", bound with ctypes from
+// kernels/pairdist.py).  The launch goes on the caller's stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError() so the
+// wrapper can raise on a refused launch.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 64;                  // pair tile: 64 x 64 haplotypes
+constexpr int kMicro = 4;                  // each thread owns 4 x 4 pairs
+constexpr int kSide = kTile / kMicro;      // 16 x 16 threads
+constexpr int kThreads = kSide * kSide;    // 256
+constexpr int kRows = 2 * kTile;           // staged rows: i tile, j tile
+constexpr int kStage = 128;                // sites staged per step
+constexpr int kGroups = kStage / 32;       // 32-site groups per step
+constexpr int kRawWords = kStage / 4 + 1;  // raw row: 132 bytes (33 words)
+constexpr int kPackWords = 5 * kGroups + 1;  // 4 one-hot + 1 called per group
+
+// ---------------------------------------------------------------- K9
+// pair_counts_4state — replaces genomics_general_tpu/kernels/pairdist.py
+// pairwise_counts with gather_window_batch (and so _gathered_pair_counts'
+// count stage).  For window w = [first, first + n) and haplotypes i, j:
+//   shared(i, j)   = #sites where both codes are >= 0
+//   match(i, j)    = #sites where both codes are the same one of 0..3
+//   mismatch(i, j) = shared - match
+// which is the JAX kernel's one-hot Gram (called . called^T minus
+// onehot . onehot^T).  Missing is -1; a site outside the window, the span
+// or the matrix reads as missing, so no padding is needed and each window
+// is read at its own length.
+//
+// Bound: operations.  Every pair of the upper triangle compares every site
+// of its window, while the input is read once per 64 x 64 tile.  Design: a
+// block owns one window (blockIdx.z), one 64 x 64 pair tile with j >= i
+// (blockIdx.x; the result is mirrored into (j, i)) and one contiguous range
+// of the window's sites (blockIdx.y: split-K when the tiles alone do not
+// fill the card; the splits then add their counts with int32 atomics, which
+// are exact in any order).  Each step stages 128 sites of the tile's 128
+// rows in shared memory with coalesced byte loads (first[w] has any
+// alignment), repacks each row's 32-site group into four one-hot words
+// (site k of the group in nibble k % 8 of word k / 8, bit = its code) and
+// one called word, and every thread then counts its 4 x 4 pairs with AND +
+// popcount in int32 registers: 5 popcounts per pair per 32 sites.
+__global__ void __launch_bounds__(kThreads)
+pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
+                          long long S, const int32_t* __restrict__ first,
+                          const int32_t* __restrict__ n_sites, int h,
+                          int tiles, int split_len, int atomic,
+                          int32_t* __restrict__ m_out,
+                          int32_t* __restrict__ s_out) {
+  __shared__ uint32_t raw[kRows][kRawWords];
+  __shared__ uint32_t packed[kRows][kPackWords];
+  const int wl = blockIdx.z;
+  const int tid = threadIdx.x;
+
+  // upper-triangle tile (ti <= tj), row by row
+  int ti = 0;
+  int rem = blockIdx.x;
+  while (rem >= tiles - ti) {
+    rem -= tiles - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+
+  const long long f = first[wl];
+  const int n = n_sites[wl];
+  const int lo = blockIdx.y * split_len;
+  const int hi = min(n, lo + split_len);
+  if (atomic && lo >= hi) return;          // the zeroed output stands
+
+  const int ty = tid / kSide;
+  const int tx = tid % kSide;
+  int acc_s[kMicro][kMicro];
+  int acc_t[kMicro][kMicro];
+#pragma unroll
+  for (int a = 0; a < kMicro; ++a)
+#pragma unroll
+    for (int b = 0; b < kMicro; ++b) acc_s[a][b] = acc_t[a][b] = 0;
+
+  for (int off = lo; off < hi; off += kStage) {
+    // stage: raw codes of sites off .. off + kStage - 1 of the window
+    int8_t* rawb = reinterpret_cast<int8_t*>(&raw[0][0]);
+    for (int idx = tid; idx < kRows * kStage; idx += kThreads) {
+      const int r = idx / kStage;
+      const int c = idx % kStage;
+      const int row = r < kTile ? i0 + r : j0 + r - kTile;
+      const long long col = f + off + c;
+      int8_t v = -1;
+      if (row < h && off + c < hi && col >= 0 && col < S)
+        v = alleles[(long long)row * ld + col];
+      rawb[r * kRawWords * 4 + c] = v;
+    }
+    __syncthreads();
+    // repack: task (row r, group g), g fastest, so a warp's reads of
+    // raw[r][8 g + q] fall in 32 distinct banks (row pitch 33 words)
+    for (int task = tid; task < kRows * kGroups; task += kThreads) {
+      const int r = task / kGroups;
+      const int g = task % kGroups;
+      uint32_t oh[4] = {0u, 0u, 0u, 0u};
+      uint32_t called = 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint32_t x = raw[r][8 * g + q];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int code = (int8_t)(x >> (8 * k));
+          const int site = 4 * q + k;
+          if (code >= 0) {
+            called |= 1u << site;
+            if (code <= 3) oh[q >> 1] |= 1u << (4 * (site & 7) + code);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) packed[r][5 * g + k] = oh[k];
+      packed[r][5 * g + 4] = called;
+    }
+    __syncthreads();
+    // count: thread (ty, tx) owns rows i0 + ty + 16 a, columns
+    // j0 + tx + 16 b; the j reads hit 16 distinct banks (pitch 21 words)
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      uint32_t ci[kMicro], cj[kMicro], oi[kMicro][4], oj[kMicro][4];
+#pragma unroll
+      for (int a = 0; a < kMicro; ++a) {
+        const uint32_t* pi = packed[ty + kSide * a] + 5 * g;
+        const uint32_t* pj = packed[kTile + tx + kSide * a] + 5 * g;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          oi[a][k] = pi[k];
+          oj[a][k] = pj[k];
+        }
+        ci[a] = pi[4];
+        cj[a] = pj[4];
+      }
+#pragma unroll
+      for (int a = 0; a < kMicro; ++a)
+#pragma unroll
+        for (int b = 0; b < kMicro; ++b) {
+          acc_s[a][b] += __popc(ci[a] & cj[b]);
+          acc_t[a][b] += __popc(oi[a][0] & oj[b][0]) +
+                         __popc(oi[a][1] & oj[b][1]) +
+                         __popc(oi[a][2] & oj[b][2]) +
+                         __popc(oi[a][3] & oj[b][3]);
+        }
+    }
+    __syncthreads();
+  }
+
+  // write (i, j) and, off the diagonal tiles, the mirror (j, i); a diagonal
+  // tile computes both (i, j) and (j, i) itself, so each cell is written
+  // once per block
+  const size_t base = (size_t)wl * h * h;
+#pragma unroll
+  for (int a = 0; a < kMicro; ++a) {
+    const int i = i0 + ty + kSide * a;
+#pragma unroll
+    for (int b = 0; b < kMicro; ++b) {
+      const int j = j0 + tx + kSide * b;
+      if (i >= h || j >= h) continue;
+      const int sv = acc_s[a][b];
+      const int mv = sv - acc_t[a][b];
+      const size_t o = base + (size_t)i * h + j;
+      const size_t ot = base + (size_t)j * h + i;
+      if (atomic) {
+        if (sv) {
+          atomicAdd(&s_out[o], sv);
+          if (ti != tj) atomicAdd(&s_out[ot], sv);
+        }
+        if (mv) {
+          atomicAdd(&m_out[o], mv);
+          if (ti != tj) atomicAdd(&m_out[ot], mv);
+        }
+      } else {
+        s_out[o] = sv;
+        m_out[o] = mv;
+        if (ti != tj) {
+          s_out[ot] = sv;
+          m_out[ot] = mv;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// alleles: int8 rows of ld elements, columns 0 .. S - 1 valid; first,
+// n_sites: int32 [nwin]; m_out, s_out: int32 [nwin, h, h], zeroed by the
+// caller when splits > 1 (the splits then add with atomics).
+int ggt_pair_counts_4state(const void* alleles, long long ld, long long S,
+                           const void* first, const void* n_sites, int h,
+                           int nwin, int splits, int split_len, void* m_out,
+                           void* s_out, void* stream) {
+  const int tiles = (h + kTile - 1) / kTile;
+  dim3 grid(tiles * (tiles + 1) / 2, splits, nwin);
+  pair_counts_4state_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)alleles, ld, S, (const int32_t*)first,
+      (const int32_t*)n_sites, h, tiles, split_len, splits > 1 ? 1 : 0,
+      (int32_t*)m_out, (int32_t*)s_out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

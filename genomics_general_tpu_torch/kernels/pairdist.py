@@ -26,6 +26,13 @@ then one of three epilogues, the modes of the JAX ``_modes_tail``:
   matrices, which the host mirrors back to [W, H, H]
   (:func:`window_pair_counts_dispatch`).
 
+The general 4-state counts, :func:`pair_counts_4state` (K9,
+kernels/csrc/pair4.cu), count windows straight from an int8 [H, S] allele
+matrix on the device: the ``tri`` route of a device-array span or of the
+raw ``GGT_PACKED_TRANSFER=0`` upload (K9 then K4), distMat's
+:class:`CatPairAccumulator`, :func:`long_span_pair_counts` and the
+window-stats step (kernels/window_stats.py).
+
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 ``LAUNCHES``) and runs its plain PyTorch version, in this module, only for
 CPU tensors.  ``GGT_EXEC=host`` instead runs the host C executor
@@ -55,7 +62,7 @@ from . import transfer
 # launches of each CUDA kernel since the last reset (the plain versions
 # and the host executor never count)
 LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0,
-            "tri_pack": 0, "het_pairs": 0}
+            "tri_pack": 0, "het_pairs": 0, "pair_counts_4state": 0}
 # flushes run by the host C executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 # pair cells the plain K2 materializes per slab of exception entries
@@ -378,6 +385,110 @@ def het_pairs_plain(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
         .to(torch.float64)
 
 
+# ------------------------------------------- K9 general 4-state counts
+
+_K9_TILE = 64           # pair4.cu: 64 x 64 haplotype pairs per block
+_K9_STAGE = 128         # pair4.cu: sites staged per step
+_NO_SPLIT = (1 << 31) - 1
+# float64 cells of one one-hot factor of the plain K9 (per site slab)
+_PLAIN_CELLS = 1 << 24
+_SM_COUNT: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SM_COUNT:
+        _SM_COUNT[key] = torch.cuda.get_device_properties(
+            key).multi_processor_count
+    return _SM_COUNT[key]
+
+
+def _k9_splits(h: int, nwin: int, s_max: int, dev) -> tuple[int, int]:
+    """(splits, split_len) of K9's site axis: when the chunk's
+    upper-triangle tiles give fewer than two blocks per SM, each window's
+    sites are cut into up to that many ranges of at least 16 staging steps
+    (the ranges add their counts with exact int32 atomics)."""
+    tiles = -(-h // _K9_TILE)
+    blocks = tiles * (tiles + 1) // 2 * max(nwin, 1)
+    target = 2 * _sm_count(dev)
+    splits = min(-(-target // blocks), -(-s_max // (16 * _K9_STAGE)))
+    if splits <= 1:
+        return 1, _NO_SPLIT
+    split_len = -(-s_max // splits)
+    split_len = -(-split_len // _K9_STAGE) * _K9_STAGE
+    return -(-s_max // split_len), split_len
+
+
+def pair_counts_4state(alleles: torch.Tensor, first: torch.Tensor,
+                       n_sites: torch.Tensor, s_max: int | None = None):
+    """Mismatch/shared int32 [W, H, H] of the windows
+    [first[w], first[w] + n_sites[w]) of an int8 [H, S] allele matrix
+    (codes 0..3, -1 missing; rows may be strided, sites contiguous): the
+    general 4-state counts.  ``s_max``, the longest window (a host int,
+    default S), sets how K9 splits the sites over blocks.  Replaces the
+    JAX ``gather_window_batch`` + ``pairwise_counts``."""
+    if not alleles.is_cuda:
+        return pair_counts_4state_plain(alleles, first, n_sites)
+    if alleles.dim() != 2 or alleles.dtype != torch.int8 or \
+            alleles.stride(1) != 1:
+        raise ValueError("alleles must be int8 [H, S] with contiguous sites")
+    if first.dtype != torch.int32 or n_sites.dtype != torch.int32 or \
+            first.shape != n_sites.shape or first.dim() != 1:
+        raise ValueError("first and n_sites must be int32 [W]")
+    _check_cuda(first, n_sites)
+    h, S = alleles.shape
+    nwin = first.shape[0]
+    if nwin > 65535:
+        raise ValueError(f"{nwin} windows in one launch (at most 65535)")
+    splits, split_len = _k9_splits(h, nwin, S if s_max is None else s_max,
+                                   alleles.device)
+    alloc = torch.zeros if splits > 1 else torch.empty
+    m = alloc((nwin, h, h), dtype=torch.int32, device=alleles.device)
+    s = alloc((nwin, h, h), dtype=torch.int32, device=alleles.device)
+    if nwin == 0 or h == 0:
+        return m, s
+    code = _build.lib("pair4").ggt_pair_counts_4state(
+        alleles.data_ptr(), alleles.stride(0), S, first.data_ptr(),
+        n_sites.data_ptr(), h, nwin, splits, split_len, m.data_ptr(),
+        s.data_ptr(), _stream_ptr(m))
+    _build.check(code, "pair_counts_4state")
+    LAUNCHES["pair_counts_4state"] += 1
+    return m, s
+
+
+def pair_counts_4state_plain(alleles: torch.Tensor, first: torch.Tensor,
+                             n_sites: torch.Tensor):
+    """Plain PyTorch K9, the JAX form: gather each window's sites (padded
+    slots, and sites outside the matrix, are missing), then the one-hot
+    Grams
+
+        shared = called . called^T,  mismatch = shared - sum_c oh_c . oh_c^T
+
+    in float64 (exact counts), over slabs of sites so each [W, H, slab]
+    factor stays below 2^24 cells."""
+    h, S = alleles.shape
+    W = first.shape[0]
+    dev = alleles.device
+    s = torch.zeros((W, h, h), dtype=torch.float64, device=dev)
+    match = torch.zeros_like(s)
+    f, n = first.long().to(dev), n_sites.long().to(dev)
+    n_max = int(n.max()) if W else 0
+    slab = max(64, _PLAIN_CELLS // max(W * h, 1))
+    for off in range(0, n_max, slab):
+        offs = torch.arange(off, min(off + slab, n_max), device=dev)
+        idx = f[:, None] + offs[None, :]
+        valid = (offs[None, :] < n[:, None]) & (idx >= 0) & (idx < S)
+        idx = torch.where(valid, idx, torch.zeros_like(idx))
+        wa = alleles[:, idx].permute(1, 0, 2)                  # [W, H, k]
+        keep = valid[:, None, :]
+        called = ((wa >= 0) & keep).to(torch.float64)
+        s += called @ called.transpose(1, 2)
+        for c in range(4):
+            oh = ((wa == c) & keep).to(torch.float64)
+            match += oh @ oh.transpose(1, 2)
+    return (s - match).to(torch.int32), s.to(torch.int32)
+
+
 # ------------------------------------------------------------ the flush
 
 def _next_pow2(n: int, lo: int) -> int:
@@ -415,17 +526,38 @@ def _v3_flush_args(alleles: np.ndarray, first: np.ndarray,
     if os.environ.get("GGT_WIRE") == "2":
         raise NotImplementedError(
             "GGT_WIRE=2 (the wire-v2 kernels) is not ported yet: ROADMAP "
-            "queue 2, rows 5 and 6")
+            "queue 2, row 5")
     W = first.shape[0]
     H = alleles.shape[0]
     wp = _next_pow2(W, 8)
     buf, SpB, SpC, SpD, ep, _ = transfer.pack_pair_wire_v3(
         alleles, first, n_sites, wp)
-    chunk = min(wp, 128)
+    return V3Flush(buf, SpB, SpC, SpD, H, wp, _window_chunk(W, H), ep,
+                   _tri_u16(n_sites))
+
+
+def _window_chunk(W: int, H: int) -> int:
+    """Windows per launch, so the [chunk, H, H] int32 count scratch stays
+    bounded (2^25 cells) at large H."""
+    chunk = min(_next_pow2(W, 8), 128)
     while chunk > 8 and chunk * H * H > (1 << 25):
         chunk //= 2
-    u16 = max(int(n_sites.max()), 1) < (1 << 16)
-    return V3Flush(buf, SpB, SpC, SpD, H, wp, chunk, ep, u16)
+    return chunk
+
+
+def _tri_u16(n_sites: np.ndarray) -> bool:
+    """Whether the ``tri`` output fits uint16: every count is at most its
+    window's site count (the JAX rule)."""
+    return max(int(n_sites.max()), 1) < (1 << 16)
+
+
+def _chunks(counts, W: int, chunk: int, epilogue) -> None:
+    """Count windows 0 .. W-1, ``chunk`` at a time, with
+    ``counts(w0, n) -> (m, s)`` and hand each chunk's counts to
+    ``epilogue(m, s, w0, n)``."""
+    for w0 in range(0, W, chunk):
+        n = min(chunk, W - w0)
+        epilogue(*counts(w0, n), w0, n)
 
 
 def _flush(wire: transfer.PairWireV3, W: int, chunk: int, epilogue) -> None:
@@ -437,11 +569,12 @@ def _flush(wire: transfer.PairWireV3, W: int, chunk: int, epilogue) -> None:
         s_max = _next_pow2(max(int(wire.meta[1:6:2, :W].max()), 1), 128)
         while chunk > 8 and chunk * wire.h * s_max > (1 << 26):
             chunk //= 2
-    for w0 in range(0, W, chunk):
-        n = min(chunk, W - w0)
+
+    def counts(w0, n):
         m, s = pair_counts_v3(wire, w0, n)
         exception_patch(m, s, wire, w0)
-        epilogue(m, s, w0, n)
+        return m, s
+    _chunks(counts, W, chunk, epilogue)
 
 
 def flush_blocks(wire: transfer.PairWireV3, W: int, chunk: int,
@@ -471,14 +604,31 @@ def flush_blocks_het(wire: transfer.PairWireV3, W: int, chunk: int,
     return flat
 
 
+def _tri_out(W: int, h: int, u16: bool, device) -> torch.Tensor:
+    T = h * (h + 1) // 2
+    return torch.empty((W, 2 * T), dtype=torch.uint16 if u16 else torch.int32,
+                       device=device)
+
+
 def flush_tri(wire: transfer.PairWireV3, W: int, chunk: int,
               u16: bool) -> torch.Tensor:
     """K1, K2 and K4 over one flush: [W, 2T] uint16 or int32."""
-    T = wire.h * (wire.h + 1) // 2
-    out = torch.empty((W, 2 * T), dtype=torch.uint16 if u16 else torch.int32,
-                      device=wire.buf.device)
+    out = _tri_out(W, wire.h, u16, wire.buf.device)
     _flush(wire, W, chunk, lambda m, s, w0, n: tri_pack(
         m, s, out[w0:w0 + n]))
+    return out
+
+
+def flush_tri_4state(alleles: torch.Tensor, first: torch.Tensor,
+                     n_sites: torch.Tensor, chunk: int, u16: bool,
+                     s_max: int) -> torch.Tensor:
+    """K9 and K4 over one flush of windows of an int8 [H, S] tensor:
+    [W, 2T] uint16 or int32."""
+    W = first.shape[0]
+    out = _tri_out(W, alleles.shape[0], u16, alleles.device)
+    _chunks(lambda w0, n: pair_counts_4state(
+        alleles, first[w0:w0 + n], n_sites[w0:w0 + n], s_max), W, chunk,
+        lambda m, s, w0, n: tri_pack(m, s, out[w0:w0 + n]))
     return out
 
 
@@ -708,29 +858,179 @@ class PairCountsHandle:
         return _tri_unpack(host, self.W, self.H)
 
 
+def _check_windows(first: np.ndarray, n_sites: np.ndarray, S: int) -> None:
+    if ((n_sites < 0) | ((n_sites > 0)
+                         & ((first < 0) | (first + n_sites > S)))).any():
+        raise ValueError(f"a window's range leaves the span of {S} sites")
+
+
 def window_pair_counts_dispatch(alleles, first: np.ndarray,
                                 n_sites: np.ndarray) -> PairCountsHandle:
     """Dispatch the pair counts of one flush without fetching them.
 
-    ``alleles`` is the flush's host int8 [H, S] span.  It ships as one
-    wire-v3 buffer; K1 and K2 count each window chunk and K4 packs the
+    ``alleles`` is the flush's int8 [H, S] span.  A host array ships as one
+    wire-v3 buffer: K1 and K2 count each window chunk and K4 packs the
     upper triangles (uint16 when every window has fewer than 2^16 sites).
-    The JAX package's other routes (a device-array span, the raw
-    ``GGT_PACKED_TRANSFER=0`` upload, wire v2) run the general 4-state
-    counts, which are not ported."""
-    if not isinstance(alleles, np.ndarray) or not transfer.packed_enabled():
-        raise NotImplementedError(
-            "pair counts from a device-array span or with "
-            "GGT_PACKED_TRANSFER=0 (the general 4-state counts) are not "
-            "ported yet: ROADMAP queue 2, rows 5 and 6")
+    Under ``GGT_PACKED_TRANSFER=0`` it ships as the raw int8 matrix with the
+    windows (one upload, :func:`transfer.pack_raw_span`), and a tensor (the
+    JAX device-array route) is counted where it lies; both of those run the
+    general 4-state counts K9, then K4, per window chunk.  ``GGT_EXEC=host``
+    sends a host span to the host C executor."""
     W = first.shape[0]
-    H = alleles.shape[0]
+    H, S = alleles.shape
     if W == 0:
         return PairCountsHandle(W, H)
-    if _exec_choice() == "host":
+    on_host = isinstance(alleles, np.ndarray)
+    if on_host and _exec_choice() == "host":
         return _ReadyHandle(lambda: _host_counts(alleles, first, n_sites))
-    dev = get_device()
-    v3 = _v3_flush_args(alleles, first, n_sites)
+    if on_host and transfer.packed_enabled():
+        dev = get_device()
+        v3 = _v3_flush_args(alleles, first, n_sites)
+        return PairCountsHandle(W, H, transfer.run_on_device(
+            v3.buf, dev, lambda buf: flush_tri(
+                v3.wire(buf), W, v3.chunk, v3.u16)))
+    first = np.ascontiguousarray(first, dtype=np.int32)
+    n_sites = np.ascontiguousarray(n_sites, dtype=np.int32)
+    _check_windows(first, n_sites, S)
+    chunk, u16 = _window_chunk(W, H), _tri_u16(n_sites)
+    s_max = int(n_sites.max())
+    if on_host:
+        buf = transfer.pack_raw_span(alleles, first, n_sites)
+        return PairCountsHandle(W, H, transfer.run_on_device(
+            buf, get_device(), lambda b: flush_tri_4state(
+                *transfer.raw_span_views(b, H, S, W), chunk, u16, s_max)))
+    meta = np.concatenate([first, n_sites]).view(np.uint8)
+
+    def run(b):
+        fn = b.view(torch.int32)
+        return flush_tri_4state(alleles, fn[:W], fn[W:], chunk, u16, s_max)
     return PairCountsHandle(W, H, transfer.run_on_device(
-        v3.buf, dev, lambda buf: flush_tri(
-            v3.wire(buf), W, v3.chunk, v3.u16)))
+        meta, alleles.device, run))
+
+
+def window_pair_counts(alleles, first: np.ndarray, n_sites: np.ndarray):
+    """Dispatch + collect in one call: numpy (mismatch [W, H, H], shared
+    [W, H, H]) int32 in window order."""
+    return window_pair_counts_dispatch(alleles, first, n_sites).collect()
+
+
+# ----------------------------------------------- the long-span consumers
+
+def long_span_pair_counts(alleles_dev, first: int, last: int,
+                          block: int = 1 << 18):
+    """Pairwise counts over one long span [first, last) (e.g. distMat
+    --windType cat) as numpy int64 [H, H] (mismatch, shared): K9 counts
+    each block of ``block`` sites as one window and the blocks add up in
+    int64 on the device.  ``alleles_dev`` is an int8 [H, S] tensor or a
+    host array, which is uploaded raw (:func:`transfer.device_alleles`),
+    or counted by the host executor under ``GGT_EXEC=host``."""
+    if isinstance(alleles_dev, np.ndarray) and _exec_choice() == "host":
+        span = np.ascontiguousarray(alleles_dev[:, first:last])
+        m, s = _host_counts(span, np.array([0], np.int64),
+                            np.array([last - first], np.int64))
+        return m[0].astype(np.int64), s[0].astype(np.int64)
+    if isinstance(alleles_dev, np.ndarray):
+        alleles_dev = transfer.device_alleles(alleles_dev)
+    H, S = alleles_dev.shape
+    dev = alleles_dev.device
+    starts = np.arange(first, last, block, dtype=np.int32)
+    lens = (np.minimum(starts.astype(np.int64) + block, last)
+            - starts).astype(np.int32)
+    _check_windows(starts, lens, S)
+    f = torch.from_numpy(starts).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    mism = torch.zeros((H, H), dtype=torch.int64, device=dev)
+    shar = torch.zeros_like(mism)
+    for k in range(starts.shape[0]):
+        m, s = pair_counts_4state(alleles_dev, f[k:k + 1], n[k:k + 1],
+                                  int(lens[k]))
+        mism += m[0]
+        shar += s[0]
+    return mism.cpu().numpy(), shar.cpu().numpy()
+
+
+class CatPairAccumulator:
+    """Streaming genome-wide pair-count accumulator (distMat --windType
+    cat), the JAX class's counterpart.
+
+    Sites are appended into one staging block of ``block`` sites; each
+    full block, and the tail, is counted by K9 as one window of the
+    block's own length (no padding) while only the [H, H] int64
+    accumulators stay on the host: O(block) memory.  One block stays in
+    flight, so the card counts block k while the host parses block k + 1;
+    launching block k + 1 first collects block k.  On CUDA the staging
+    block is pinned memory uploaded with ``non_blocking``, and it is
+    written again only after that upload's event.  Under ``GGT_EXEC=host``
+    the host C executor counts each block instead."""
+
+    def __init__(self, H: int, block: int = 1 << 18):
+        self.H, self.block = H, block
+        self.fill = 0
+        self.mism = np.zeros((H, H), dtype=np.int64)
+        self.shar = np.zeros((H, H), dtype=np.int64)
+        self._pending = None
+        self._uploaded = None            # event after the staging upload
+        self._dev = None if _exec_choice() == "host" else get_device()
+        self._stage = torch.empty(
+            (H, block), dtype=torch.int8,
+            pin_memory=self._dev is not None and self._dev.type == "cuda")
+        self.buf = self._stage.numpy()
+
+    def _launch(self, S: int):
+        self._collect()
+        if self._dev is None:
+            m, s = _host_counts(np.ascontiguousarray(self.buf[:, :S]),
+                                np.array([0], np.int64),
+                                np.array([S], np.int64))
+            self.mism += m[0]
+            self.shar += s[0]
+            return
+        window = torch.tensor([0, S], dtype=torch.int32)
+        if self._dev.type != "cuda":
+            m, s = pair_counts_4state(self._stage, window[:1], window[1:], S)
+            self.mism += m[0].numpy()
+            self.shar += s[0].numpy()
+            return
+        a = self._stage.to(self._dev, non_blocking=True)
+        window = window.pin_memory().to(self._dev, non_blocking=True)
+        self._uploaded = torch.cuda.Event()
+        self._uploaded.record()
+        m, s = pair_counts_4state(a, window[:1], window[1:], S)
+        res = torch.empty((2, self.H, self.H), dtype=torch.int32,
+                          pin_memory=True)
+        res[0].copy_(m[0], non_blocking=True)
+        res[1].copy_(s[0], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._pending = transfer.Pending(res, done, keep=(a, window, m, s))
+
+    def _collect(self):
+        if self._pending is not None:
+            host = self._pending.wait()
+            self.mism += host[0]
+            self.shar += host[1]
+            self._pending = None
+
+    def add(self, a: np.ndarray):
+        """Append int8 [H, n] sites; dispatches full blocks."""
+        n = a.shape[1]
+        off = 0
+        while n - off > 0:
+            if self._uploaded is not None:
+                self._uploaded.synchronize()
+                self._uploaded = None
+            take = min(self.block - self.fill, n - off)
+            self.buf[:, self.fill:self.fill + take] = a[:, off:off + take]
+            self.fill += take
+            off += take
+            if self.fill == self.block:
+                self._launch(self.block)
+                self.fill = 0
+
+    def finish(self):
+        """Flush the tail and return (mismatch, shared) int64 [H, H]."""
+        if self.fill:
+            self._launch(self.fill)
+            self.fill = 0
+        self._collect()
+        return self.mism, self.shar

@@ -6,7 +6,9 @@ The 2-bit span wire of the per-site count kernel (``pack_alleles`` /
 and :func:`unpack_span` is its plain inverse.  The ABBA flush buffer
 (``pack_flush_buffer``, also a copy) appends the window metadata
 ``first, n_sites int32[wp]``; :func:`flush_views` cuts it into typed views
-in place and :func:`unpack_flush_buffer` is its plain inverse.
+in place and :func:`unpack_flush_buffer` is its plain inverse.  The general
+4-state pair counts read the int8 matrix itself: :func:`device_alleles`
+and :func:`pack_raw_span` upload the raw bytes.
 
 Wire format v3 of the pairwise kernels follows.
 
@@ -102,9 +104,58 @@ def pack_span(alleles: np.ndarray, min_bucket: int = 1 << 16) -> tuple[np.ndarra
 
 
 def packed_enabled() -> bool:
-    """False under ``GGT_PACKED_TRANSFER=0`` (the JAX package's raw int8
-    upload, whose consumers are not ported)."""
+    """False under ``GGT_PACKED_TRANSFER=0``: the JAX package's raw int8
+    upload instead of a packed wire (the pair counts run K9 on it; the
+    per-site count routes do not take it yet)."""
     return os.environ.get("GGT_PACKED_TRANSFER", "1") != "0"
+
+
+# ------------------------------------------------ the raw int8 upload
+
+def device_alleles(alleles: np.ndarray, dev=None) -> torch.Tensor:
+    """Upload an int8 [H, S] allele matrix to ``dev`` (default
+    ``get_device()``) and return the int8 tensor.
+
+    The JAX package's ``device_alleles`` ships 2-bit codes plus a missing
+    plane and unpacks them on the device, a packing made for its TPU
+    host's slow link.  The port uploads the raw bytes, which the general
+    4-state counts (K9) read as they are: staged in pinned memory and
+    copied with ``non_blocking``."""
+    from ..device import get_device
+    dev = get_device() if dev is None else dev
+    a = np.ascontiguousarray(alleles, dtype=np.int8)
+    if dev.type != "cuda":
+        return torch.from_numpy(a.copy())
+    staged = torch.empty(a.shape, dtype=torch.int8, pin_memory=True)
+    staged.numpy()[:] = a
+    return staged.to(dev, non_blocking=True)
+
+
+def pack_raw_span(alleles: np.ndarray, first: np.ndarray,
+                  n_sites: np.ndarray) -> np.ndarray:
+    """One uint8 buffer for a raw flush upload (``GGT_PACKED_TRANSFER=0``):
+    ``[int8 alleles H x S | zero pad to 4 bytes | first int32[W] |
+    n_sites int32[W]]``, the matrix K9 reads and its windows."""
+    H, S = alleles.shape
+    base = -(-H * S // 4) * 4
+    W = first.shape[0]
+    buf = np.zeros(base + 8 * W, dtype=np.uint8)
+    buf[:H * S].reshape(H, S)[:] = np.asarray(alleles).view(np.uint8)
+    meta = buf[base:].view(np.int32)
+    meta[:W] = first
+    meta[W:] = n_sites
+    return buf
+
+
+def raw_span_views(buf: torch.Tensor, h: int, s: int, w: int):
+    """Views of a :func:`pack_raw_span` buffer (a uint8 tensor on any
+    device): (alleles int8 [h, s], first int32 [w], n_sites int32 [w])."""
+    base = -(-h * s // 4) * 4
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or \
+            buf.numel() != base + 8 * w:
+        raise ValueError(f"not a raw span buffer of h={h}, s={s}, w={w}")
+    meta = buf[base:].view(torch.int32)
+    return buf[:h * s].view(torch.int8).view(h, s), meta[:w], meta[w:]
 
 
 class Pending:

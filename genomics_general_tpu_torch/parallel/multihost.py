@@ -2,9 +2,10 @@
 
 The JAX package runs one pipeline per host over a hash-sharded scaffold
 set (genomics_general_tpu/parallel/multihost.py).  Its torch.distributed
-counterpart is still to be ported (ROADMAP queue 1, "parallel/multihost.py,
-full, on torch.distributed"); until then a run is one process, and asking
-for more raises instead of silently running a single-process job.
+counterpart is still to be ported (ROADMAP queue 1, item 6,
+"parallel/multihost.py, full, on torch.distributed"); until then a run is
+one process, and asking for more raises instead of silently running a
+single-process job.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ def maybe_initialize() -> None:
     if n > 1 or os.environ.get("GGT_DIST_AUTO") == "1":
         raise NotImplementedError(
             "multi-process runs (GGT_NUM_PROCS>1, GGT_DIST_AUTO) are not "
-            "ported yet: ROADMAP queue 1, parallel/multihost.py on "
-            "torch.distributed")
+            "ported yet: ROADMAP queue 1, item 6 (parallel/multihost.py on "
+            "torch.distributed)")
 
 
 def process_count() -> int:

@@ -34,11 +34,15 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.kernels.pairdist",
     "genomics_general_tpu_torch.kernels.counts",
     "genomics_general_tpu_torch.kernels.abba",
+    "genomics_general_tpu_torch.kernels.window_stats",
+    "genomics_general_tpu_torch.entry",
     "genomics_general_tpu_torch.cli",
     "genomics_general_tpu_torch.cli.common",
     "genomics_general_tpu_torch.cli.popgen_windows",
     "genomics_general_tpu_torch.cli.abba_windows",
     "genomics_general_tpu_torch.cli.four_pop_windows",
+    "genomics_general_tpu_torch.cli.dist_mat",
+    "genomics_general_tpu_torch.cli.dist_paint",
 ]
 
 _PROBE = """

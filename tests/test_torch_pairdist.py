@@ -285,13 +285,12 @@ def test_ind_blocks_dispatch_matches_jax_and_host(port_cpu, name, kind):
 
 
 def test_pair_counts_unported_routes_raise(port_cpu, monkeypatch):
-    """A device-array span and the raw upload (the general 4-state counts)
-    raise, naming their ROADMAP rows."""
+    """The wire-v2 pair kernels (GGT_WIRE=2) raise on the tri route,
+    naming their ROADMAP row; the device-array span and the raw upload
+    run the general 4-state counts (tests/test_torch_pair4.py)."""
     a, first, n = _case("disjoint")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_pair.window_pair_counts_dispatch(torch.from_numpy(a), first, n)
-    monkeypatch.setenv("GGT_PACKED_TRANSFER", "0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setenv("GGT_WIRE", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, row 5"):
         port_pair.window_pair_counts_dispatch(a, first, n)
 
 
