@@ -30,8 +30,14 @@ not build, launch or agree, or an output is wrong):
    against its plain version and the host executor exactly, on its split
    (atomic) and unsplit paths and on row-strided input; K10
    window_stats_tail against its plain version (rtol 1e-6, NaN positions
-   equal) and K11 window_pop_counts exactly, with 5 and 1 populations;
-3. five runs end to end through the port's CLIs at H = 512 (256 diploid
+   equal) and K11 window_pop_counts exactly, with 5 and 1 populations; K12
+   site_pop_counts_raw (H = 77, S = 5,003, codes -7..5, strided rows,
+   blocks starting anywhere, uint16 and int32, 10 groups and a 10-row
+   overlapping mask's classes) against its plain version, and equal to K6
+   on the same alleles; K13 pair_counts_v2 + K2 against their plain
+   versions and against K1 + K2 on the same flushes, with K3 (bit for
+   bit), K4 and K5 on both;
+3. the runs end to end through the port's CLIs at H = 512 (256 diploid
    individuals in 4 populations of 64), 50 kb windows: popgenWindows
    popDist popPairDist (500,000 sites: K1, K2, K3); run A, popFreq popDist
    popPairDist indHet hapStats --fstMethod WC (500,000 sites: K1, K2, K4,
@@ -50,18 +56,32 @@ not build, launch or agree, or an output is wrong):
    run G, the port's entry() step at H = 512, P = 4 over 128 windows of
    the cohort's first 80,000 sites made complete (K9, K10, K11), its counts
    against the wire-v3 route's (K1 + K2 + K4) exactly and its statistics
-   against the float64 CSV-exact path at the JAX test's tolerance;
+   against the float64 CSV-exact path at the JAX test's tolerance.  Then
+   the count CLIs, each on its span-wire (K6), raw-upload (K12) and host
+   routes, byte-identical and launching exactly its route's kernels: run H,
+   freq --target derived --minData 0.5 with the 256 individuals in 9
+   populations (10 overlapping mask rows), with a traced run; run I, sfs
+   -p pop1 -p pop2 -p pop3 --doPairs on a 200,000-site cohort with 0.5 %
+   missing genotypes; run J, filterGenotypes -of coded on the cohort's
+   first 4,000 sites.  Run K reruns popDist, A and B under GGT_WIRE=2
+   (K13 in place of K1), run L reruns A (K9 + K4 + K12 from one raw upload
+   per flush) and C (kernel route K6-K8; GGT_ABBA_HOST=1 through K12)
+   under GGT_PACKED_TRANSFER=0: each byte-identical to its first run;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events,
    beside the bound computed from these inputs (K9 at run E's block and
    at run F's and run A's largest flushes, where the K9 + K4 and K1 + K2 +
-   K4 routes are timed side by side; K10 and K11 at run G's shape);
+   K4 routes are timed side by side; K10 and K11 at run G's shape; K12 at
+   run H's span beside K6, K13 at the popDist chunk beside K1, and K13 +
+   K2 + tails against K1 + K2 + tails on run A's and run B's flushes);
 4. the popDist goldens and the full-panel popgen_coord.csv golden of
    tests/golden through the port's CLI on the card, the fused
    individual-blocks route against GGT_HOST_DIST_FINALIZE=1 on four
    analysis sets, within one rounding quantum, the three ABBA goldens
-   within one quantum (at tol 0 under GGT_ABBA_HOST=1), and the five
-   distMat / distPaint goldens at tol 0.
+   within one quantum (at tol 0 under GGT_ABBA_HOST=1), the five
+   distMat / distPaint goldens at tol 0, the popgen goldens again under
+   GGT_WIRE=2 (byte-identical), and the freq (2), sfs (9) and
+   filterGenotypes (5) goldens at tol 0.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -111,6 +131,10 @@ KERNELS = {
                           "genomics_general_tpu/kernels/window_stats.py:49"),
     "window_pop_counts": ("window_stats.cu",
                           "genomics_general_tpu/kernels/window_stats.py:83"),
+    "site_pop_counts_raw": ("counts.cu",
+                            "genomics_general_tpu/kernels/counts.py:36"),
+    "pair_counts_v2": ("pair_v3.cu",
+                       "genomics_general_tpu/kernels/pairdist.py:288"),
 }
 SOURCES = ("pair_v3", "counts", "abba", "pair4", "window_stats")
 # H100 SXM data-sheet rates (the bound's denominators); a card set below
@@ -131,6 +155,14 @@ N_SITES_B = 100_000                   # run B's depth (32,896 d_ columns)
 # distMat's finalize walks 256^2 individual blocks per window on the host
 N_SITES_F, SCAFFOLD_F = 5_000, 100_000
 N_SITES_G, WINDOWS_G = 80_000, 128     # run G: the entry() step's batch
+# run I: sfs needs complete sites, so its cohort has 0.5 % missing
+# genotypes (5 % leaves no site complete in 384 haplotypes); cut to 200,000
+# sites on 4 x 4 Mb (the popDist density) to bound the second cohort's
+# generation
+N_SITES_I, SCAFFOLD_I, MISSING_I = 200_000, 4_000_000, 0.005
+# run J: the popDist cohort's first 4,000 sites — filterGenotypes
+# assembles ~256 output columns per site in Python (~2 ms a site at H = 512)
+N_SITES_J = 4_000
 K10_RTOL = 1e-6                       # K10 vs its plain version (float32)
 G_RTOL, G_FST_RTOL, G_FST_ATOL = 2e-5, 2e-4, 2e-5  # run G vs float64
 QUANTUM = 1e-4                        # one --roundTo 4 rounding step
@@ -495,6 +527,115 @@ def counts_parity(counts, transfer, native, a, mask, dev, block=1024):
     check_equal(f"site_pop_counts P={P} vs C counter", out,
                 torch.from_numpy(full))
     torch.cuda.synchronize()
+
+
+def raw_counts_parity(counts, transfer, pair, dev):
+    """K12 against its plain version on a messy input: H = 77, S = 5,003
+    (not a multiple of 4), codes outside 0..3 and below -1, rows read
+    through a stride (an offset view of a wider matrix), blocks that start
+    anywhere, uint16 and int32 out, 10 groups and the classes of a 10-row
+    overlapping mask; and K12 equal to K6 on the same alleles."""
+    import torch
+    rng = np.random.default_rng(12)
+    H, S, P = 77, 5003, 10
+    a = rng.integers(-1, 4, size=(H, S)).astype(np.int8)
+    hit = rng.random((H, S))
+    a[hit < 0.02] = 5
+    a[(hit >= 0.02) & (hit < 0.03)] = -7
+    wide = torch.full((H, S + 13), -1, dtype=torch.int8, device=dev)
+    wide[:, 3:S + 3] = torch.from_numpy(a).to(dev)
+    al = wide[:, 3:S + 3]
+    part = np.zeros((P, H))
+    part[rng.integers(0, P, size=H), np.arange(H)] = 1.0
+    over = (rng.random((P, H)) < 0.3).astype(np.float64)
+    over[P - 1] = 1.0
+    classes = counts.MaskClasses(over, dev)
+    bounds_ = [0, 3, 1000, 1001, 4096, S]
+    for kind, groups in (("groups", pair.PopGroups(part, dev)),
+                         ("classes", classes.groups)):
+        want = counts.site_pop_counts_raw_plain(al, 0, S, groups.mask)
+        for dt in (torch.uint16, torch.int32):
+            out = torch.empty((S, groups.P, 4), dtype=dt, device=dev)
+            for s0, s1 in zip(bounds_[:-1], bounds_[1:]):
+                counts.site_pop_counts_raw(al, s0, s1, groups, out[s0:s1])
+            check_equal(f"site_pop_counts_raw ({kind}, {dt}) vs plain", out,
+                        want)
+    check_equal("site_pop_counts_raw classes combined vs the mask's plain",
+                torch.from_numpy(classes.combine(out.cpu().numpy())),
+                counts.site_pop_counts_raw_plain(al, 0, S,
+                                                 torch.from_numpy(over)))
+    b = np.where((a < 0) | (a > 3), -1, a).astype(np.int8)
+    buf, Sp = transfer.pack_span(b)
+    groups = pair.PopGroups(part, dev)
+    check_equal("site_pop_counts_raw vs site_pop_counts (raw vs packed)",
+                counts.count_raw(torch.from_numpy(b).to(dev), S, groups,
+                                 block=1000),
+                counts.count_span(torch.from_numpy(buf).to(dev), Sp, H, S,
+                                  groups, block=1000))
+    torch.cuda.synchronize()
+
+
+def v2_parity(pair, a, first, n, dev, masks, min_sites, het_rows=None,
+              nwin=None):
+    """K13 + K2 and the tails on wire v2 for windows [0, nwin) of one flush
+    (default: its first chunk): K13 equal to its plain version (also from
+    window 1), K13 + K2 equal to plain K13 + plain K2 and to K1 + K2 on the
+    wire-v3 buffer of the same flush, and K4, K3 on each mask and K5 on
+    ``het_rows`` equal on the two wires (K3's f64 blocks bit for bit).
+    Returns (wire, nwin, u16) of the v2 flush."""
+    import torch
+    v2 = pair._v2_flush_args(a, first, n)
+    v3 = pair._v3_flush_args(a, first, n)
+    W, H = first.shape[0], a.shape[0]
+    nwin = min(nwin or v2.chunk, W)
+    w2 = v2.wire(torch.from_numpy(v2.buf).to(dev))
+    w3 = v3.wire(torch.from_numpy(v3.buf).to(dev))
+    m, s = pair.pair_counts_v2(w2, 0, nwin)
+    mp, sp = pair.pair_counts_v2_plain(w2, 0, nwin)
+    check_equal("pair_counts_v2 m vs plain", m, mp)
+    check_equal("pair_counts_v2 s vs plain", s, sp)
+    if W > 2:
+        k = min(nwin, W - 1)
+        m1, s1 = pair.pair_counts_v2(w2, 1, k)
+        m1p, s1p = pair.pair_counts_v2_plain(w2, 1, k)
+        check_equal("pair_counts_v2 m (w0=1) vs plain", m1, m1p)
+        check_equal("pair_counts_v2 s (w0=1) vs plain", s1, s1p)
+        del m1, s1, m1p, s1p
+    pair.exception_patch(m, s, w2, 0)
+    pair.exception_patch_plain(mp, sp, w2, 0)
+    check_equal("K13 + K2 m vs plain", m, mp)
+    check_equal("K13 + K2 s vs plain", s, sp)
+    del mp, sp
+    m3, s3 = pair.pair_counts_v3(w3, 0, nwin)
+    pair.exception_patch(m3, s3, w3, 0)
+    check_equal("K13 + K2 m vs K1 + K2", m, m3)
+    check_equal("K13 + K2 s vs K1 + K2", s, s3)
+    T = H * (H + 1) // 2
+    dt = torch.uint16 if v2.u16 else torch.int32
+    tri2 = torch.empty((nwin, 2 * T), dtype=dt, device=dev)
+    tri3 = torch.empty_like(tri2)
+    pair.tri_pack(m, s, tri2)
+    pair.tri_pack(m3, s3, tri3)
+    check_equal("tri_pack on K13 vs on K1 counts", tri2, tri3)
+    for mask in masks:
+        groups = pair.PopGroups(mask, dev)
+        b2 = torch.empty((nwin, 2, groups.P, groups.P), dtype=torch.float64,
+                         device=dev)
+        b3 = torch.empty_like(b2)
+        pair.blocks_tail(m, s, groups, min_sites, b2)
+        pair.blocks_tail(m3, s3, groups, min_sites, b3)
+        check_same(f"blocks_tail (P={groups.P}) on K13 vs on K1 counts", b2,
+                   b3)
+    if het_rows is not None:
+        r1, r2 = pair._het_rows(het_rows, H, dev)
+        h2 = torch.empty((nwin, r1.shape[0], 2), dtype=torch.float64,
+                         device=dev)
+        h3 = torch.empty_like(h2)
+        pair.het_pairs(m, s, r1, r2, h2)
+        pair.het_pairs(m3, s3, r1, r2, h3)
+        check_equal("het_pairs on K13 vs on K1 counts", h2, h3)
+    torch.cuda.synchronize()
+    return w2, nwin, v2.u16
 
 
 def abba_input(H: int = 160, S: int = 5003, seed: int = 7):
@@ -1033,6 +1174,100 @@ def time_stats(ws, g_inputs, g_out, dev) -> dict:
     return {"window_stats_tail": k10, "window_pop_counts": k11}
 
 
+def time_k12(counts, transfer, flush, dev):
+    """K12 over the first launch block of run H's largest span, from its
+    raw upload (the bucket-padded int8 matrix read through its [:, :S]
+    view), on the 10-row mask's classes: equal to its plain version and to
+    K6 on the same alleles; a bf16 ``torch.matmul`` of the mask with a
+    one-hot beside it."""
+    import torch
+    a, mask = flush[:2]
+    H, S = a.shape
+    al = transfer.upload_span(a, dev)[:, :S]
+    classes = counts.MaskClasses(mask, dev)
+    groups = classes.groups
+    s1 = min(S, counts.DEFAULT_SITE_BLOCK)
+    C = groups.P
+    dt = counts.count_dtype(H)
+    out = torch.empty((s1, C, 4), dtype=dt, device=dev)
+    counts.site_pop_counts_raw(al, 0, s1, groups, out)
+    err = check_equal("site_pop_counts_raw (run H span) vs plain", out,
+                      counts.site_pop_counts_raw_plain(al, 0, s1,
+                                                       groups.mask))
+    buf, Sp = transfer.pack_span(a)
+    dbuf = torch.from_numpy(buf).to(dev)
+    k6 = torch.empty_like(out)
+    counts.site_pop_counts(dbuf, Sp, H, 0, s1, groups, k6)
+    check_equal("site_pop_counts_raw vs site_pop_counts (run H span)", out,
+                k6)
+    onehot = (al[:, :s1, None] == torch.arange(4, device=dev,
+                                               dtype=torch.int8)
+              ).to(torch.bfloat16).reshape(H, s1 * 4)
+    mask_bf = torch.from_numpy(np.asarray(mask, np.float32)).to(
+        dev, torch.bfloat16)
+    res = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: counts.site_pop_counts_raw(
+               al, 0, s1, groups, out), 20),
+           "plain_ms": cuda_ms(lambda: counts.site_pop_counts_raw_plain(
+               al, 0, s1, groups.mask), 3, 1),
+           "k6_ms": cuda_ms(lambda: counts.site_pop_counts(
+               dbuf, Sp, H, 0, s1, groups, k6), 20),
+           "library_ms": cuda_ms(lambda: torch.matmul(mask_bf, onehot), 20)}
+    # each row's block read once, the class counts written
+    res["bound"] = bound(H * s1 + 4 * out.element_size() * s1 * C)
+    res["shape"] = (f"{s1} sites, H={H}, {mask.shape[0]} mask rows as C={C} "
+                    "classes")
+    del onehot
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_k13(pair, transfer, flush, dev, sm_count: int, clk_hz: float):
+    """K13 at the popDist run's largest chunk (its wire-v2 flush), after
+    :func:`v2_parity` there; K1 on the same chunk's wire-v3 flush and three
+    bf16 Gram ``torch.matmul``s of the gathered called / alt factors
+    beside it."""
+    import torch
+    a, first, n, mask, min_sites = flush
+    w2, nwin, _ = v2_parity(pair, a, first, n, dev, [mask], min_sites)
+    H = a.shape[0]
+    v3 = pair._v3_flush_args(a, first, n)
+    w3 = v3.wire(torch.from_numpy(v3.buf).to(dev))
+    code2, fi, ns, _, _ = transfer.unpack_pair_wire(w2)
+    c = pair._gather_bits(code2 & 1, fi[:nwin], ns[:nwin]).to(torch.bfloat16)
+    ca = pair._gather_bits(code2 >> 1, fi[:nwin], ns[:nwin]).to(
+        torch.bfloat16)
+    del code2
+
+    def grams():
+        torch.matmul(c, c.transpose(1, 2))
+        torch.matmul(ca, ca.transpose(1, 2))
+        torch.matmul(ca, c.transpose(1, 2))
+    res = {"max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: pair.pair_counts_v2(w2, 0, nwin), 20),
+           "plain_ms": cuda_ms(lambda: pair.pair_counts_v2_plain(
+               w2, 0, nwin), 3, 1),
+           "k1_ms": cuda_ms(lambda: pair.pair_counts_v3(w3, 0, nwin), 20),
+           "library_ms": cuda_ms(grams, 20)}
+    # popcounts of the upper triangle over each window's words of both
+    # planes; the covered words of both planes read once, m and s written
+    f = first[:nwin].astype(np.int64)
+    k = n[:nwin].astype(np.int64)
+    has = k > 0
+    words = np.where(has, ((f + k - 1) >> 5) - (f >> 5) + 1, 0)
+    covered = int(((f[has] + k[has] - 1) >> 5).max() - (f[has] >> 5).min()
+                  + 1) if has.any() else 0
+    res["bound"] = bound(2 * 4 * H * covered + 8 * nwin
+                         + 8 * nwin * H * H,
+                         2 * int(words.sum()) * (H * (H + 1) // 2),
+                         POPC_PER_CLK_SM * sm_count * clk_hz)
+    res["shape"] = (f"{nwin} windows, H={H}, {int(words.sum())} window "
+                    "words")
+    del c, ca
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------ the CLI
 
 def csv_mismatches(ref_path, ours_path, tol: float) -> int:
@@ -1128,7 +1363,7 @@ def launches_of(mods) -> dict:
 
 
 def make_cohort(testing, work: Path, name: str, n_sites: int,
-                scaffold_len: int):
+                scaffold_len: int, missing: float = 0.05):
     t0 = time.perf_counter()
     # multiallelic=0.01 (a third allele on ~10 % of a site's haplotypes) is
     # a rate chosen so that K2 runs on the path, not one taken from a
@@ -1137,7 +1372,7 @@ def make_cohort(testing, work: Path, name: str, n_sites: int,
     inds = testing.write_geno(str(geno), n_pops=4,
                               inds_per_pop=INDS_PER_POP, n_sites=n_sites,
                               scaffold_len=scaffold_len, n_scaffolds=4,
-                              missing=0.05, seed=2026, multiallelic=0.01)
+                              missing=missing, seed=2026, multiallelic=0.01)
     pops = work / f"{name}.pops.txt"
     testing.write_pops_file(str(pops), inds)
     log(f"[e2e] data {name}: {len(inds)} individuals (H={2 * len(inds)}), "
@@ -1148,6 +1383,29 @@ def make_cohort(testing, work: Path, name: str, n_sites: int,
 
 def short(mod) -> str:
     return mod.__name__.rsplit(".", 1)[-1]
+
+
+@contextlib.contextmanager
+def keeping(record, kept: dict):
+    """While open, each dispatch named in ``record`` (module, attribute,
+    size of a call) keeps in ``kept[attribute]`` a copy of its largest
+    call's arguments (a span is a view of the engine's reused buffer)."""
+    originals = []
+    for mod, attr, size in record:
+        real = getattr(mod, attr)
+        originals.append((mod, attr, real))
+
+        def recording(*a, _real=real, _attr=attr, _size=size, **kw):
+            if _attr not in kept or _size(a) > _size(kept[_attr]):
+                kept[_attr] = tuple(x.copy() if isinstance(x, np.ndarray)
+                                    else x for x in a)
+            return _real(*a, **kw)
+        setattr(mod, attr, recording)
+    try:
+        yield kept
+    finally:
+        for mod, attr, real in originals:
+            setattr(mod, attr, real)
 
 
 def drive(name, mods, clis, native, geno, pops, n_sites, work, record):
@@ -1162,28 +1420,13 @@ def drive(name, mods, clis, native, geno, pops, n_sites, work, record):
     args = ["-g", str(geno), "-f", "phased", *tail, "--popsFile", str(pops),
             "--profile"]
     kept = {}
-    originals = []
-    for mod, attr, size in record:
-        real = getattr(mod, attr)
-        originals.append((mod, attr, real))
-
-        def recording(*a, _real=real, _attr=attr, _size=size):
-            if _attr not in kept or _size(a) > _size(kept[_attr]):
-                # copies: a span is a view of the engine's reused buffer
-                kept[_attr] = tuple(x.copy() if isinstance(x, np.ndarray)
-                                    else x for x in a)
-            return _real(*a)
-        setattr(mod, attr, recording)
-    try:
+    with keeping(record, kept):
         reset(mods)
         wall, err = run_cli(main,
                             args + ["-o", str(work / f"{name}.gpu.csv")],
                             {"GGT_EXEC": "device"})
         launches = launches_of(mods)
         host_flushes = sum(m.HOST_FLUSHES for m in mods)
-    finally:
-        for mod, attr, real in originals:
-            setattr(mod, attr, real)
     log(f"[e2e] {name} kernel path: wall {wall:.3f}s, "
         f"{n_sites / wall:.0f} sites/s, launches {launches}")
     log(f"[e2e] {name} {profile_line(err)}")
@@ -1302,11 +1545,15 @@ def port_clis() -> dict:
     from genomics_general_tpu_torch.cli import abba_windows
     from genomics_general_tpu_torch.cli import dist_mat
     from genomics_general_tpu_torch.cli import dist_paint
+    from genomics_general_tpu_torch.cli import filter_genotypes
     from genomics_general_tpu_torch.cli import four_pop_windows
+    from genomics_general_tpu_torch.cli import freq
     from genomics_general_tpu_torch.cli import popgen_windows
+    from genomics_general_tpu_torch.cli import sfs
     return {"popgen": popgen_windows.main, "abba": abba_windows.main,
             "fourpop": four_pop_windows.main, "distmat": dist_mat.main,
-            "distpaint": dist_paint.main}
+            "distpaint": dist_paint.main, "freq": freq.main, "sfs": sfs.main,
+            "filter": filter_genotypes.main}
 
 
 def same_bytes(paths, what: str) -> None:
@@ -1366,6 +1613,38 @@ def run_e(pair, mods, clis, geno, work):
     return launches, kept["k9"], report
 
 
+def routes_run(name, main, argv_for, routes, mods, record=()):
+    """One CLI once per route, the launch counts reset just before each run
+    and read just after: a route (name, environment, kernels) must launch
+    exactly its kernels and run the host executor exactly when it is
+    GGT_EXEC=host, and every route's output files must be byte-identical
+    to the first route's.  ``argv_for(route)`` gives (argv, output paths);
+    ``record`` keeps the first route's largest calls (:func:`keeping`).
+    Returns ({route: launches}, kept calls, {route_wall_s: ...})."""
+    launches, kept, report, outputs = {}, {}, {}, {}
+    for i, (route, env, need) in enumerate(routes):
+        argv, outputs[route] = argv_for(route)
+        with keeping(record if i == 0 else (), kept):
+            reset(mods)
+            wall, err = run_cli(main, argv, env)
+            got = launches_of(mods)
+            host = sum(m.HOST_FLUSHES for m in mods)
+        ran = {k for k, v in got.items() if v}
+        if ran != set(need) or (env.get("GGT_EXEC") == "host") != (host > 0):
+            raise AssertionError(f"{name} {route}: launched {sorted(ran)}, "
+                                 f"expected {sorted(need)}; host flushes "
+                                 f"{host}")
+        launches[route] = got
+        report[f"{route}_wall_s"] = wall
+        log(f"[e2e] {name} {route} ({env}): wall {wall:.3f}s, launches "
+            f"{ {k: v for k, v in got.items() if v} } {profile_line(err)}")
+    first = outputs[routes[0][0]]
+    for k in range(len(first)):
+        same_bytes([outputs[r][k] for r in outputs],
+                   f"{name} {Path(first[k]).name} across {list(outputs)}")
+    return launches, kept, report
+
+
 def run_f(pair, mods, clis, geno, work):
     """Run F: windowed distMat with --windowDataOutFile at H = 512 on the
     wire-v3 route (K1, K2, K4), again under GGT_PACKED_TRANSFER=0 (K9, K4)
@@ -1373,50 +1652,23 @@ def run_f(pair, mods, clis, geno, work):
     Returns (launches of the v3 run, its largest flush, report)."""
     args = ["-g", str(geno), "-f", "phased", *DISTMAT_ARGS["run_F"],
             "--profile"]
-    routes = (
-        ("v3", {"GGT_EXEC": "device"},
-         ("pair_counts_v3", "exception_patch", "tri_pack"),
-         ("pair_counts_4state",)),
-        ("raw", {"GGT_EXEC": "device", "GGT_PACKED_TRANSFER": "0"},
-         ("pair_counts_4state", "tri_pack"), ("pair_counts_v3",)),
-        ("host", {"GGT_EXEC": "host"}, (), tuple(pair.LAUNCHES)))
-    kept = {}
-    real = pair.window_pair_counts_dispatch
 
-    def recording(alleles, first, n_sites):
-        if "flush" not in kept or first.shape[0] > kept["flush"][1].shape[0]:
-            kept["flush"] = (alleles.copy(), first.copy(), n_sites.copy())
-        return real(alleles, first, n_sites)
-    report, launches = {"rows": 0}, None
-    for route, env, need, forbid in routes:
+    def argv_for(route):
         out, data = work / f"run_F.{route}.phy", work / f"run_F.{route}.tsv"
-        if route == "v3":
-            pair.window_pair_counts_dispatch = recording
-        try:
-            reset(mods)
-            wall, err = run_cli(clis["distmat"], args + [
-                "--windowDataOutFile", str(data), "-o", str(out)], env)
-            got = launches_of(mods)
-        finally:
-            pair.window_pair_counts_dispatch = real
-        bad = [k for k in need if got[k] <= 0] + [k for k in forbid
-                                                  if got[k]]
-        if bad or (route == "host") != (pair.HOST_FLUSHES > 0):
-            raise AssertionError(f"run_F {route}: launches {got}, host "
-                                 f"flushes {pair.HOST_FLUSHES}")
-        if route == "v3":
-            launches = got
-            log(f"[e2e] run_F {profile_line(err)}")
-        log(f"[e2e] run_F {route} ({env}): wall {wall:.3f}s, launches "
-            f"{ {k: v for k, v in got.items() if v} }")
-        report[f"{route}_wall_s"] = wall
-    for suffix in ("phy", "tsv"):
-        same_bytes([work / f"run_F.{r}.{suffix}" for r, *_ in routes],
-                   f"run_F .{suffix} across v3, raw upload, host")
+        return args + ["--windowDataOutFile", str(data), "-o", str(out)], \
+            [out, data]
+    launches, kept, report = routes_run(
+        "run_F", clis["distmat"], argv_for,
+        (("v3", {"GGT_EXEC": "device"},
+          ("pair_counts_v3", "exception_patch", "tri_pack")),
+         ("raw", {"GGT_EXEC": "device", "GGT_PACKED_TRANSFER": "0"},
+          ("pair_counts_4state", "tri_pack")),
+         ("host", {"GGT_EXEC": "host"}, ())), mods,
+        [(pair, "window_pair_counts_dispatch", lambda a: a[1].shape[0])])
     report["rows"] = (work / "run_F.v3.tsv").read_text().count("\n")
     log(f"[e2e] run_F: {report['rows']} windows; matrices and window data "
         "byte-identical on the v3, GGT_PACKED_TRANSFER=0 and host routes")
-    return launches, kept["flush"], report
+    return launches["v3"], kept["window_pair_counts_dispatch"], report
 
 
 def run_g(pair, ws, geno, pops, dev):
@@ -1497,7 +1749,196 @@ def run_g(pair, ws, geno, pops, dev):
                                      "max_rel_err_vs_f64": rel}
 
 
-def goldens(popgen_windows, work: Path):
+def count_routes(route_kernel: str):
+    """The three routes of a count CLI: the span wire (K6), the raw upload
+    (K12) and the host counter."""
+    return (("default", {"GGT_EXEC": "device"}, (route_kernel,)),
+            ("raw", {"GGT_EXEC": "device", "GGT_PACKED_TRANSFER": "0"},
+             ("site_pop_counts_raw",)),
+            ("host", {"GGT_EXEC": "host"}, ()))
+
+
+def run_h(counts, mods, clis, geno, work):
+    """Run H: freq --target derived --minData 0.5 on the popDist cohort
+    with its 256 individuals in 9 populations (eight of 28, one of 32):
+    the 9 masks and the ingroup union, 10 overlapping rows counted on their
+    classes.  Default (K6), raw (K12) and host routes byte-identical, then
+    a traced run.  Returns (launches of the raw route, its largest count
+    span, report)."""
+    inds = [f"pop{p}_ind{j}" for p in range(1, 5)
+            for j in range(1, INDS_PER_POP + 1)]
+    pops9 = work / "cohort.pops9.txt"
+    pops9.write_text("".join(f"{ind}\tq{min(k // 28, 8) + 1}\n"
+                             for k, ind in enumerate(inds)))
+    args = ["-g", str(geno), "-f", "phased",
+            *[x for k in range(1, 10) for x in ("-p", f"q{k}")],
+            "--popsFile", str(pops9), "--target", "derived", "--minData",
+            "0.5", "--profile"]
+
+    def argv_for(route):
+        out = work / f"run_H.{route}.tsv"
+        return args + ["-o", str(out)], [out]
+    launches, kept, report = routes_run(
+        "run_H", clis["freq"], argv_for, count_routes("site_pop_counts"),
+        mods, [(counts, "site_pop_counts_dispatch",
+                lambda a: a[0].shape[1])])
+    report["rows"] = (work / "run_H.default.tsv").read_text().count("\n") - 1
+    report["sites_per_s"] = N_SITES / report["default_wall_s"]
+    log(f"[e2e] run_H: {report['rows']} rows byte-identical on the K6, K12 "
+        f"and host routes; {report['sites_per_s']:.0f} sites/s")
+    report.update(device_busy("freq", args, work, "run_H"))
+    return launches["raw"], kept["site_pop_counts_dispatch"], report
+
+
+def run_i(mods, clis, geno, pops, work):
+    """Run I: sfs --inputType genotypes -p pop1 -p pop2 -p pop3 --doPairs
+    (folded) on the 0.5 %-missing cohort: the six spectra byte-identical
+    on the K6, K12 and host routes, and not empty."""
+    args = ["-i", str(geno), "--inputType", "genotypes", "-p", "pop1",
+            "-p", "pop2", "-p", "pop3", "--popsFile", str(pops), "--doPairs",
+            "--profile"]
+    names = ["pop1", "pop2", "pop3", "pop1_pop2", "pop1_pop3", "pop2_pop3"]
+
+    def argv_for(route):
+        pref = f"{work}/run_I.{route}."
+        return args + ["--pref", pref, "--suff", ".sfs"], \
+            [Path(f"{pref}{n}.sfs") for n in names]
+    launches, _, report = routes_run("run_I", clis["sfs"], argv_for,
+                                     count_routes("site_pop_counts"), mods)
+    sites = sum(int(ln.split()[-1]) for ln in
+                (work / "run_I.default.pop1.sfs").read_text().splitlines()
+                if ln.strip())
+    if sites <= 0:
+        raise AssertionError("run_I: the pop1 spectrum is empty")
+    report.update(complete_sites=sites,
+                  sites_per_s=N_SITES_I / report["default_wall_s"])
+    log(f"[e2e] run_I: 6 spectra byte-identical on the K6, K12 and host "
+        f"routes; {sites} complete sites in the pop1 spectrum")
+    return launches["raw"], None, report
+
+
+def run_j(mods, clis, geno, pops, work):
+    """Run J: filterGenotypes -of coded -p pop1..pop4 --minCalls 200
+    --minAlleles 2 --maxAlleles 2 --minPopCalls 20 on the popDist cohort's
+    first N_SITES_J sites: byte-identical on the K6, K12 and host routes."""
+    import gzip
+    geno_j = work / "cohort_j.geno.gz"
+    with gzip.open(geno, "rt") as src, \
+            gzip.open(geno_j, "wt", compresslevel=1) as dst:
+        for k, line in enumerate(src):
+            if k > N_SITES_J:
+                break
+            dst.write(line)
+    args = ["-i", str(geno_j), "-if", "phased", "-of", "coded", *POPS4,
+            "--popsFile", str(pops), "--minCalls", "200", "--minAlleles", "2",
+            "--maxAlleles", "2", "--minPopCalls", "20"]
+
+    def argv_for(route):
+        out = work / f"run_J.{route}.geno"
+        return args + ["-o", str(out)], [out]
+    launches, _, report = routes_run("run_J", clis["filter"], argv_for,
+                                     count_routes("site_pop_counts"), mods)
+    report["rows"] = (work / "run_J.default.geno").read_text().count("\n") - 1
+    report["sites_per_s"] = N_SITES_J / report["default_wall_s"]
+    log(f"[e2e] run_J: {report['rows']} of {N_SITES_J} sites kept, "
+        "byte-identical on the K6, K12 and host routes")
+    return launches["raw"], None, report
+
+
+def run_k(mods, clis, cohorts, work):
+    """Run K: the popDist, A and B runs again under GGT_WIRE=2: each must
+    launch its path's kernels with K13 in place of K1, and nothing else,
+    and write the bytes of its wire-v3 run.  Returns (launches of the
+    popDist rerun, None, report)."""
+    report, first = {}, None
+    for name in ("popDist", "run_A", "run_B"):
+        geno, pops = cohorts[name]
+        _, tail, need, _ = RUNS[name]
+        out = work / f"{name}.wire2.csv"
+        reset(mods)
+        wall, _ = run_cli(clis["popgen"], ["-g", str(geno), "-f", "phased",
+                                           *tail, "--popsFile", str(pops),
+                                           "-o", str(out)],
+                          {"GGT_EXEC": "device", "GGT_WIRE": "2"})
+        got = launches_of(mods)
+        want = {"pair_counts_v2" if k == "pair_counts_v3" else k
+                for k in need}
+        ran = {k for k, v in got.items() if v}
+        if ran != want:
+            raise AssertionError(f"run_K {name}: launched {sorted(ran)}, "
+                                 f"expected {sorted(want)}")
+        same_bytes([work / f"{name}.gpu.csv", out],
+                   f"run_K {name} GGT_WIRE=2 vs wire v3")
+        first = first or got
+        report[f"{name}_wall_s"] = wall
+        log(f"[e2e] run_K {name} under GGT_WIRE=2: wall {wall:.3f}s, "
+            f"launches { {k: v for k, v in got.items() if v} }; "
+            "byte-identical to its wire-v3 run")
+    return first, None, report
+
+
+def run_l(counts, transfer, mods, clis, geno, pops, work):
+    """Run L: GGT_PACKED_TRANSFER=0 reruns, each byte-identical to its
+    packed run: run A (K9 + K4 for the pair counts and K12 for the site
+    counts, from one raw upload per flush), run C on its kernel route (the
+    flush buffer: K6, K7, K8) and run C under GGT_ABBA_HOST=1 (K12)."""
+    raw = {"GGT_EXEC": "device", "GGT_PACKED_TRANSFER": "0"}
+    cases = (("run_A", "gpu", {}, ("pair_counts_4state", "tri_pack",
+                                   "site_pop_counts_raw")),
+             ("run_C", "gpu", {}, ABBA_KERNELS),
+             ("run_C", "counts", {"GGT_ABBA_HOST": "1"},
+              ("site_pop_counts_raw",)))
+    report = {}
+    uploads, tensors = [], []
+    real_up, real_counts = transfer.upload_span, counts.site_pop_counts_dispatch
+
+    def up(span, *a, **kw):
+        uploads.append(span.shape)
+        return real_up(span, *a, **kw)
+
+    def count(alleles, *a, **kw):
+        tensors.append(not isinstance(alleles, np.ndarray))
+        return real_counts(alleles, *a, **kw)
+    for name, ref, env, need in cases:
+        cli, tail, _, _ = RUNS[name]
+        out = work / f"{name}.{ref}.raw.csv"
+        uploads.clear()
+        tensors.clear()
+        transfer.upload_span, counts.site_pop_counts_dispatch = up, count
+        try:
+            reset(mods)
+            wall, _ = run_cli(clis[cli], ["-g", str(geno), "-f", "phased",
+                                          *tail, "--popsFile", str(pops),
+                                          "-o", str(out)], {**raw, **env})
+            got = launches_of(mods)
+        finally:
+            transfer.upload_span = real_up
+            counts.site_pop_counts_dispatch = real_counts
+        ran = {k for k, v in got.items() if v}
+        if ran != set(need):
+            raise AssertionError(f"run_L {name} {env}: launched "
+                                 f"{sorted(ran)}, expected {sorted(need)}")
+        if name == "run_A" and not (uploads and all(tensors)
+                                    and len(tensors) == len(uploads)):
+            raise AssertionError(f"run_L run_A: {len(uploads)} raw uploads "
+                                 f"for {len(tensors)} count dispatches, not "
+                                 "one shared upload per flush")
+        same_bytes([work / f"{name}.{ref}.csv", out],
+                   f"run_L {name} {env} raw vs packed")
+        key = f"{name}{'_abba_host' if env else ''}_wall_s"
+        report[key] = wall
+        log(f"[e2e] run_L {name} {env} under GGT_PACKED_TRANSFER=0: wall "
+            f"{wall:.3f}s, launches { {k: v for k, v in got.items() if v} }"
+            f"{f', {len(uploads)} shared raw uploads' if uploads else ''}; "
+            "byte-identical to the packed run")
+    return report
+
+
+def goldens(popgen_windows, pair, work: Path):
+    """The popgen goldens through the port's CLI on the card within one
+    quantum, each again under GGT_WIRE=2 (K13 in place of K1) byte-equal
+    to its wire-v3 run; then the fused individual-blocks route against
+    GGT_HOST_DIST_FINALIZE=1."""
     D = REPO / "tests" / "data"
     G = REPO / "tests" / "golden"
     pops = [*POPS4, "--popsFile", str(D / "sim1.pops.txt")]
@@ -1531,13 +1972,21 @@ def goldens(popgen_windows, work: Path):
              "--addWindowID"], "popgen_coord.csv"),
     }
     for name, (args, golden) in cases.items():
-        out = work / f"{name}.csv"
+        out, out2 = work / f"{name}.csv", work / f"{name}.wire2.csv"
         run_cli(popgen_windows.main, args + ["-o", str(out)],
                 {"GGT_EXEC": "device"})
         exact = csv_mismatches(G / golden, out, 0.0)
         beyond = csv_mismatches(G / golden, out, QUANTUM + 1e-12)
+        pair.reset_launches()
+        run_cli(popgen_windows.main, args + ["-o", str(out2)],
+                {"GGT_EXEC": "device", "GGT_WIRE": "2"})
+        if pair.LAUNCHES["pair_counts_v2"] <= 0 or \
+                pair.LAUNCHES["pair_counts_v3"]:
+            raise AssertionError(f"golden {name} under GGT_WIRE=2: "
+                                 f"launches {pair.LAUNCHES}")
+        same_bytes([out, out2], f"golden {name} GGT_WIRE=2 vs wire v3")
         log(f"[golden] {name}: {exact} cells differ at tol 0, "
-            f"{beyond} beyond one quantum")
+            f"{beyond} beyond one quantum; GGT_WIRE=2 byte-identical")
         if beyond:
             raise AssertionError(f"golden {name}: {beyond} cells beyond "
                                  f"{QUANTUM}")
@@ -1631,6 +2080,68 @@ def dist_goldens(clis, pair, work: Path):
                 f"{pair.LAUNCHES[kernel]})")
 
 
+def count_goldens(clis, counts, work: Path):
+    """The freq (2), sfs (9) and filterGenotypes (5) goldens through the
+    port's CLIs on the card at tol 0.  Each run but freq's default counts
+    mode (the C row formatter, as in the JAX CLI) must launch K6; that one
+    again under GGT_HOST_FREQ_ROWS=0 does."""
+    D = REPO / "tests" / "data"
+    G = REPO / "tests" / "golden"
+    sim1_pops = ["--popsFile", str(D / "sim1.pops.txt")]
+    freq = ["-g", str(D / "sim1.geno.gz"), "-f", "phased", *POPS4,
+            *sim1_pops]
+    sfs = ["-i", str(D / "sim1.geno.gz"), "--inputType", "genotypes",
+           "--genoFormat", "phased", *sim1_pops, "-p", "pop1", "-p", "pop2"]
+    cases = [
+        ("freq", freq, {}, ["freq_counts.tsv"], False),
+        ("freq", freq, {"GGT_HOST_FREQ_ROWS": "0"}, ["freq_counts.tsv"],
+         True),
+        ("freq", freq + ["--target", "derived", "--minData", "2"], {},
+         ["freq_derived.tsv"], True),
+    ]
+    for tag, extra in (("folded", ["--doPairs"]),
+                       ("pol", ["-p", "pop4", "--polarized"]),
+                       ("sub", ["--subsample", "6", "--seed", "42"]),
+                       ("reg", ["--regions", "scaf1:1-400000",
+                                "scaf1:400001-900000", "scaf2:1-500000"])):
+        names = ["pop1", "pop2"] + (["pop1_pop2"] if tag == "folded" else [])
+        cases.append(("sfs", sfs + extra, {},
+                      [f"sfs_{tag}_{n}.sfs" for n in names], True))
+    filt = {
+        "basic": ["--minCalls", "15", "--minAlleles", "2", "--maxAlleles",
+                  "2"],
+        "diplo": ["-of", "diplo", "--maxHet", "0.6", "--minFreq", "0.1"],
+        "coded": ["-of", "coded", "-p", "pop1", "-p", "pop2", *sim1_pops,
+                  "--minPopCalls", "4", "--nearlyFixedDiff", "0.5"],
+        "thin": ["--thinDist", "500", "--minAlleles", "2"],
+        "count": ["-of", "count", "--minAlleles", "2", "--maxAlleles", "2"],
+    }
+    for name, extra in filt.items():
+        cases.append(("filter", ["-i", str(D / "sim1.geno.gz"), "-if",
+                                 "phased", *extra], {},
+                      [f"filter_{name}.geno"], True))
+    n_files = 0
+    for k, (cli, args, env, files, k6) in enumerate(cases):
+        if cli == "sfs":        # sfs writes {pref}{pops}.sfs per spectrum
+            out = ["--pref", str(work / f"g{k}.")]
+            got = [work / f"g{k}.{f.split('_', 2)[2]}" for f in files]
+        else:
+            got = [work / f"g{k}.{files[0]}"]
+            out = ["-o", str(got[0])]
+        counts.reset_launches()
+        run_cli(clis[cli], args + out, {"GGT_EXEC": "device", **env})
+        if (counts.LAUNCHES["site_pop_counts"] > 0) != k6:
+            raise AssertionError(f"golden {files[0]} {env}: K6 launches "
+                                 f"{counts.LAUNCHES}")
+        for g, f in zip(got, files):
+            if g.read_text() != (G / f).read_text():
+                raise AssertionError(f"golden {f} {env}: differs at tol 0")
+            n_files += 1
+        log(f"[golden] {', '.join(files)} {env}: equal at tol 0 (K6 "
+            f"launches {counts.LAUNCHES['site_pop_counts']})")
+    return n_files
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1702,8 +2213,12 @@ def main() -> int:
                                  "branch")
         for P, pmask in ((1, np.ones((1, H))), (5, mask)):
             counts_parity(counts, transfer, native, a, pmask, dev)
-        log(f"[parity] messy H={H}: K1-K6 == plain; K1 + K2, K4, K5 == host "
-            f"executor; K6 == C site counter (P=1, P=5); max abs err "
+        ind_mask, het_rows = ind_layout(H)
+        v2_parity(pair, a, first, n, dev, [mask, ind_mask], 40, het_rows,
+                  first.shape[0])
+        log(f"[parity] messy H={H}: K1-K6, K13 == plain; K1 + K2, K4, K5 == "
+            f"host executor; K6 == C site counter (P=1, P=5); K13 + K2 == "
+            f"K1 + K2, and K3 (bit for bit), K4, K5 on them; max abs err "
             f"{errs}")
     a, first, n = long_window_input()
     u16, nwin, _ = epilogue_parity(pair, transfer, a, first, n,
@@ -1713,6 +2228,11 @@ def main() -> int:
                              "branch")
     log(f"[parity] K4 int32 branch (one window of {n[0]} sites, "
         f"H={a.shape[0]}): tri_pack == plain == host executor")
+    raw_counts_parity(counts, transfer, pair, dev)
+    log("[parity] K12 messy input (H=77, S=5,003, codes -7..5, strided "
+        "rows, unaligned blocks, uint16 and int32, 10 groups and a 10-row "
+        "overlapping mask's classes) == plain; K12 == K6 on the same "
+        "alleles")
     for k, v in abba_parity(abba, counts, transfer, native, dev).items():
         errs[k] = max(errs[k], v)
     log("[parity] ABBA messy input (3 modes x 2 panels x minData 0.3/0 x "
@@ -1767,6 +2287,16 @@ def main() -> int:
                                 SCAFFOLD_F)
         runs["run_F"] = run_f(pair, mods, clis, geno_f, work)
         runs["run_G"] = run_g(pair, ws, geno, pops, dev)
+        runs["run_H"] = run_h(counts, mods, clis, geno, work)
+        geno_i, pops_i = make_cohort(testing, work, "cohort_i", N_SITES_I,
+                                     SCAFFOLD_I, MISSING_I)
+        runs["run_I"] = run_i(mods, clis, geno_i, pops_i, work)
+        runs["run_J"] = run_j(mods, clis, geno, pops, work)
+        runs["run_K"] = run_k(mods, clis, {"popDist": (geno, pops),
+                                           "run_A": (geno, pops),
+                                           "run_B": (geno_b, pops_b)}, work)
+        runs["run_L"] = (None, None, run_l(counts, transfer, mods, clis,
+                                           geno, pops, work))
         log(f"[time] phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
         # ---- phase 2b: parity and times at the runs' flush shapes
@@ -1803,10 +2333,31 @@ def main() -> int:
             pair, transfer, runs["run_A"][1]["window_pair_counts_dispatch"],
             dev, "run_A")
         res.update(time_stats(ws, *runs["run_G"][1], dev))
+        res["site_pop_counts_raw"] = time_k12(counts, transfer,
+                                              runs["run_H"][1], dev)
+        r = res["site_pop_counts_raw"]
+        log(f"[kernel] site_pop_counts_raw at run H's span: K12 "
+            f"{r['ms']:.4f} ms, K6 on the same block {r['k6_ms']:.4f} ms; "
+            "K12 == K6")
+        res["pair_counts_v2"] = time_k13(
+            pair, transfer, flush, dev, sm_count, clk_mhz * 1e6)
+        r = res["pair_counts_v2"]
+        log(f"[kernel] pair_counts_v2 at the popDist chunk: K13 "
+            f"{r['ms']:.4f} ms, K1 on the same chunk {r['k1_ms']:.4f} ms; "
+            "K13 + K2 + K3 == K1 + K2 + K3")
+        v2_parity(pair, *runs["run_A"][1]["window_pair_counts_dispatch"],
+                  dev, [], 0)
+        a_b, f_b, n_b, ind_b, het_b, gate_b = \
+            runs["run_B"][1]["window_pair_ind_blocks_dispatch"]
+        v2_parity(pair, a_b, f_b, n_b, dev, [ind_b], gate_b, het_b)
+        log("[parity] K13 + K2 + tails == plain == K1 + K2 + tails on run "
+            "A's flush (K4) and run B's individual mask (K3 bit for bit, "
+            "K5)")
         for k in ("tri_pack", "site_pop_counts", "het_pairs",
                   "abba_site_terms", "abba_window_sums",
                   "pair_counts_4state", "window_stats_tail",
-                  "window_pop_counts"):
+                  "window_pop_counts", "site_pop_counts_raw",
+                  "pair_counts_v2"):
             bnd[k] = res[k]["bound"]
             log(f"[parity] {k} at {res[k]['shape']}")
         owner = {"pair_counts_v3": "popDist", "exception_patch": "popDist",
@@ -1814,7 +2365,8 @@ def main() -> int:
                  "site_pop_counts": "run_A", "het_pairs": "run_B",
                  "abba_site_terms": "run_C", "abba_window_sums": "run_C",
                  "pair_counts_4state": "run_E", "window_stats_tail": "run_G",
-                 "window_pop_counts": "run_G"}
+                 "window_pop_counts": "run_G",
+                 "site_pop_counts_raw": "run_H", "pair_counts_v2": "run_K"}
         launches = {k: runs[owner[k]][0][k] for k in KERNELS}
         for k in KERNELS:
             r = res[k]
@@ -1826,9 +2378,12 @@ def main() -> int:
         log(f"[time] phase 2b done at {time.perf_counter() - t_start:.1f}s")
 
         # ---- phase 4: goldens on the card
-        goldens(popgen_windows, work)
+        goldens(popgen_windows, pair, work)
         abba_goldens(clis, mods, work)
         dist_goldens(clis, pair, work)
+        n_files = count_goldens(clis, counts, work)
+        log(f"[golden] freq, sfs and filterGenotypes: {n_files} goldens "
+            "equal at tol 0")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

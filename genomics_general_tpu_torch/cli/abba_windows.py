@@ -7,13 +7,12 @@ and output bytes.  Mirrors ABBABABAwindows.py (wrapper :27-52, header
 flush goes through the fused window reduction of kernels/abba.py (per-site
 counts, site terms and window sums on the device; [W, K] float64 sums
 back); the float64 ratio-of-sums finalize matches the reference.
-``GGT_ABBA_HOST=1`` fetches the per-site counts instead and finalizes
-every window on the host (stats/abbababa.py), byte-identical to the
-reference.
+``GGT_ABBA_HOST=1`` fetches the per-site counts instead (K6, or K12 on
+the raw upload under ``GGT_PACKED_TRANSFER=0``) and finalizes every window
+on the host (stats/abbababa.py), byte-identical to the reference.
 
 One process drives one device: multi-process runs (``GGT_NUM_PROCS>1``)
-raise in parallel/multihost, and the unported raw upload
-(``GGT_PACKED_TRANSFER=0``) raises ``NotImplementedError``.
+raise in parallel/multihost.
 """
 
 from __future__ import annotations
@@ -78,10 +77,6 @@ def main(argv=None, full_panel: bool = False) -> int:
     multihost.maybe_initialize()
     use_device = os.environ.get("GGT_ABBA_HOST") != "1"
     args = build_parser(full_panel).parse_args(argv)
-    if os.environ.get("GGT_PACKED_TRANSFER") == "0":
-        raise NotImplementedError(
-            "GGT_PACKED_TRANSFER=0 (the raw int8 upload) is not ported yet: "
-            "ROADMAP queue 2, row 7")
     get_device()                     # fail fast when the card is missing
     wind = common.resolve_window_args(args, wind_coord_cols=4)
     min_sites = wind["minSites"]

@@ -10,9 +10,9 @@ kernels -> float64 host finalize -> ordered CSV.  Memory is O(flush batch),
 not O(genome).
 
 Every ``--analysis`` and ``--fstMethod`` runs, in one process on one
-device.  Multi-process runs (``GGT_NUM_PROCS>1``) and the JAX package's
-unported wire options raise ``NotImplementedError`` naming the ROADMAP
-item that brings them (:func:`_check_slice`).
+device, with the JAX package's wire options (``GGT_WIRE=2``,
+``GGT_PACKED_TRANSFER=0``).  Multi-process runs (``GGT_NUM_PROCS>1``)
+raise ``NotImplementedError`` in parallel/multihost.
 
 Extension beyond the reference: ``--fstMethod WC`` adds Weir-Cockerham Fst
 columns (the reference only has 1 - pi_s/pi_t, genomics.py:987-993).
@@ -34,6 +34,7 @@ from ..io import writers
 from ..device import get_device
 from ..kernels import counts as counts_k
 from ..kernels import pairdist as pair_k
+from ..kernels import transfer
 from ..stats import popgen
 from . import common
 
@@ -64,27 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_slice() -> None:
-    """Raise NotImplementedError for the JAX package's wire options whose
-    kernels are not ported yet (multi-process runs raise in
-    parallel/multihost; the port has no device mesh: one process drives
-    one device).  The pair counts take the raw upload (K9), but the
-    per-site count routes (kernels/counts.py, kernels/abba.py) do not."""
-    if os.environ.get("GGT_WIRE") == "2":
-        raise NotImplementedError(
-            "GGT_WIRE=2 (the wire-v2 pair kernels) is not ported yet: "
-            "ROADMAP queue 2, row 5")
-    if os.environ.get("GGT_PACKED_TRANSFER") == "0":
-        raise NotImplementedError(
-            "GGT_PACKED_TRANSFER=0 (the raw int8 upload of the per-site "
-            "count routes) is not ported yet: ROADMAP queue 2, row 7")
-
-
 def main(argv=None) -> int:
     from ..parallel import multihost
     multihost.maybe_initialize()
     args = build_parser().parse_args(argv)
-    _check_slice()
     get_device()                     # fail fast when the card is missing
     wind = common.resolve_window_args(args)
     analysis = args.analysis
@@ -232,16 +216,28 @@ def main(argv=None) -> int:
 
     rt = args.roundTo
 
+    # under GGT_PACKED_TRANSFER=0 a run with both pair counts (the tri
+    # route) and site counts uploads the raw span once and hands that
+    # device array to both dispatches, as the JAX CLI does
+    share_upload = (need_dist and not use_blocks and (need_freq or need_wc)
+                    and not transfer.packed_enabled()
+                    and pair_k._exec_choice() != "host")
+
     def dispatch(batch):
         """Pack the flush span and launch all device work asynchronously;
         results are fetched in finalize() — one batch later, so batch k's
-        host finalize overlaps batch k+1's wire+compute.  Where the JAX
-        package shares one span upload between the pair and count kernels,
-        the port ships each its own wire (wire v3 for the pair counts, the
-        2-bit span wire for the site counts): one upload each."""
+        host finalize overlaps batch k+1's wire+compute.  On the packed
+        routes each dispatch ships its own wire (wire v3 or v2 for the pair
+        counts, the 2-bit span wire for the site counts); under
+        ``GGT_PACKED_TRANSFER=0`` one raw upload serves both (K9 and
+        K12)."""
         plan = batch.plan
         span = batch.alleles[:, :batch.needed_end]
         handles = {}
+        dev = None
+        if share_upload and span.shape[1]:
+            with timer.stage("h2d"):
+                dev = transfer.upload_span(span)
         with timer.stage("kernel"):
             if use_blocks and blocks_ind:
                 handles["indblocks"] = pair_k.window_pair_ind_blocks_dispatch(
@@ -261,11 +257,13 @@ def main(argv=None) -> int:
                     plan.n_sites.astype(np.int32), dist_mask, min_sites)
             elif need_dist:
                 handles["pair"] = pair_k.window_pair_counts_dispatch(
-                    span, plan.first.astype(np.int32),
+                    dev if dev is not None else span,
+                    plan.first.astype(np.int32),
                     plan.n_sites.astype(np.int32))
             if (need_freq or need_wc) and span.shape[1]:
                 handles["counts"] = counts_k.site_pop_counts_dispatch(
-                    span, fmask)
+                    dev[:, :span.shape[1]] if dev is not None else span,
+                    fmask)
         return batch, handles
 
     def finalize(batch, handles):

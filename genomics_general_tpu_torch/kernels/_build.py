@@ -29,6 +29,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "pair_v3": {
         "ggt_pair_counts_v3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+        "ggt_pair_counts_v2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
         "ggt_exception_patch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
         "ggt_blocks_tail": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
         "ggt_tri_pack": [_P, _P, _I, _I, _I, _P, _P],
@@ -36,6 +37,7 @@ _SIGNATURES = {
     },
     "counts": {
         "ggt_site_pop_counts": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+        "ggt_site_pop_counts_raw": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P],
     },
     "abba": {
         "ggt_abba_site_terms": [_P, _I, _I, _I, _P, _P, _D, _D, _D, _D, _D,

@@ -3,9 +3,10 @@ fourPopWindows.
 
 The port of genomics_general_tpu/kernels/abba.py.  One flush ships as one
 wire buffer (transfer.pack_flush_buffer: the 2-bit span wire, then the
-windows' ``first`` and ``n_sites``) and three CUDA kernels reduce it to
-[W, K] float64 window sums, the only thing fetched (reference semantics:
-genomics.py:1647-1695, 1585-1643):
+windows' ``first`` and ``n_sites``; under ``GGT_PACKED_TRANSFER=0`` too,
+as the JAX fused route ships it, abba.py:411, :427) and three CUDA kernels
+reduce it to [W, K] float64 window sums, the only thing fetched (reference
+semantics: genomics.py:1647-1695, 1585-1643):
 
 * K6 ``site_pop_counts`` (kernels/csrc/counts.cu) counts each site's
   alleles on the membership-class partition of the overlapping P1, P2, P3,
@@ -484,10 +485,6 @@ def window_abba_sums_dispatch(alleles: np.ndarray, first: np.ndarray,
     H, S = alleles.shape
     if W == 0 or H == 0:
         return AbbaSumsHandle(W, channels)
-    if not transfer.packed_enabled():
-        raise NotImplementedError(
-            "ABBA sums with GGT_PACKED_TRANSFER=0 (the raw int8 upload) are "
-            "not ported yet: ROADMAP queue 2, row 7")
     if ((n_sites > 0) & ((first < 0) | (first + n_sites > S))).any():
         raise ValueError(f"a window's range leaves the span of {S} sites")
     if _exec_choice() == "host":

@@ -6,20 +6,25 @@ Replaces the reference's per-site Python loops (``binBaseFreqs`` /
 
     counts[s, p, a] = sum_h pop_mask[p, h] * (alleles[h, s] == a)
 
-The flush span ships as the 2-bit span wire (transfer.pack_span: 2-bit
+A host span ships as the 2-bit span wire (transfer.pack_span: 2-bit
 codes [H, Sp/4], then the missing-bit plane [H, Sp/8]) and the CUDA kernel
 :func:`site_pop_counts` (K6, kernels/csrc/counts.cu) counts from it in
-place: there is no device-side unpack.  Counts come back uint16 while
-H < 2^16 (a count never exceeds H), else int32, and widen to int32 on the
-host; every downstream statistic derives from them in float64 on the host.
-K6 takes a partition of the haplotype rows; a mask whose rows overlap
-(ABBA's P1, P2, P3, O and their union) is counted on the partition by
-membership code (:class:`MaskClasses`), and each mask's counts are exact
-integer sums of its classes'.
+place: there is no device-side unpack.  Under ``GGT_PACKED_TRANSFER=0`` the
+span ships as the raw int8 matrix padded to the site bucket
+(transfer.upload_span), and an int8 tensor (a device array) is counted
+where it lies: :func:`site_pop_counts_raw` (K12) reads those rows through
+their stride.  Counts come back uint16 while H < 2^16 (a count never
+exceeds H), else int32, and widen to int32 on the host; every downstream
+statistic derives from them in float64 on the host.  K6 and K12 take a
+partition of the haplotype rows; any other 0/1 mask (rows that overlap,
+as ABBA's P1, P2, P3, O and their union, or rows in no mask) is counted
+on the partition of its distinct membership columns
+(:class:`MaskClasses`), and each mask's counts are exact integer sums of
+its classes'.
 
-The wrapper launches K6 for CUDA tensors (counting the launch in
-``LAUNCHES``) and runs :func:`site_pop_counts_plain` only for CPU tensors.
-``GGT_EXEC=host`` counts on the host instead: the C counter
+Each wrapper launches its kernel for CUDA tensors (counting the launch in
+``LAUNCHES``) and runs its plain version only for CPU tensors.
+``GGT_EXEC=host`` counts a host span on the host instead: the C counter
 (io/native.site_pop_counts_host, copied from the JAX package) for up to 8
 masks, numpy above that.
 """
@@ -40,14 +45,15 @@ DEFAULT_SITE_BLOCK = 1 << 18
 
 # launches of the CUDA kernel since the last reset (the plain version and
 # the host counters never count)
-LAUNCHES = {"site_pop_counts": 0}
+LAUNCHES = {"site_pop_counts": 0, "site_pop_counts_raw": 0}
 # flushes counted on the host (GGT_EXEC=host)
 HOST_FLUSHES = 0
 
 
 def reset_launches() -> None:
     global HOST_FLUSHES
-    LAUNCHES["site_pop_counts"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
     HOST_FLUSHES = 0
 
 
@@ -89,16 +95,22 @@ def site_pop_counts(buf: torch.Tensor, sp: int, h: int, s0: int, s1: int,
     LAUNCHES["site_pop_counts"] += 1
 
 
-def site_pop_counts_plain(buf: torch.Tensor, sp: int, h: int, s0: int,
-                          s1: int, pop_mask: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K6 (the JAX form): unpack the span, then one float64
-    matmul of the [P, H] mask with each allele's 0/1 plane — exact
-    integers.  Returns int32 [s1 - s0, P, 4]."""
-    al = transfer.unpack_span(buf, sp, h)[:, s0:s1]
-    pm = pop_mask.to(buf.device, torch.float64)
+def _onehot_counts(al: torch.Tensor, pop_mask: torch.Tensor) -> torch.Tensor:
+    """The JAX form on int8 alleles [H, S]: one float64 matmul of the
+    [P, H] mask with each allele's 0/1 plane — exact integers.  Returns
+    int32 [S, P, 4]."""
+    pm = pop_mask.to(al.device, torch.float64)
     counts = torch.stack([pm @ (al == a).to(torch.float64)
                           for a in range(4)], dim=-1)     # [P, S, 4]
     return counts.permute(1, 0, 2).to(torch.int32)
+
+
+def site_pop_counts_plain(buf: torch.Tensor, sp: int, h: int, s0: int,
+                          s1: int, pop_mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K6 (the JAX form): unpack the span, then the one-hot
+    matmul.  Returns int32 [s1 - s0, P, 4]."""
+    return _onehot_counts(transfer.unpack_span(buf, sp, h)[:, s0:s1],
+                          pop_mask)
 
 
 def count_span(buf: torch.Tensor, sp: int, h: int, S: int,
@@ -113,32 +125,90 @@ def count_span(buf: torch.Tensor, sp: int, h: int, S: int,
     return out
 
 
-# ------------------------------------------- overlapping masks (ABBA)
+# ---------------------------------------------------- K12 raw counts
+
+def site_pop_counts_raw(alleles: torch.Tensor, s0: int, s1: int,
+                        groups: PopGroups, out: torch.Tensor) -> None:
+    """Write the counts of sites s0 .. s1 - 1 of an int8 [H, S] allele
+    matrix (codes 0..3, below 0 missing; rows may be strided, sites
+    contiguous) into ``out`` [s1 - s0, P, 4] (uint16 or int32).  Replaces
+    the JAX ``counts.site_pop_counts`` / ``_site_pop_counts_u16`` on a raw
+    upload or a device array."""
+    P = groups.P
+    if alleles.dim() != 2 or alleles.dtype != torch.int8:
+        raise ValueError("alleles must be int8 [H, S]")
+    if not 0 <= s0 <= s1 <= alleles.shape[1]:
+        raise ValueError(f"site block {s0}..{s1} outside "
+                         f"{alleles.shape[1]} sites")
+    if out.shape != (s1 - s0, P, 4) or \
+            out.dtype not in (torch.uint16, torch.int32):
+        raise ValueError(f"out must be uint16 or int32 {(s1 - s0, P, 4)}")
+    if not alleles.is_cuda:
+        out.copy_(site_pop_counts_raw_plain(alleles, s0, s1, groups.mask))
+        return
+    if alleles.stride(1) != 1:
+        raise ValueError("alleles must have contiguous sites")
+    _check_cuda(groups.perm, groups.offs, out)
+    if s1 == s0:
+        return
+    code = _build.lib("counts").ggt_site_pop_counts_raw(
+        alleles.data_ptr(), alleles.stride(0), s0, s1,
+        groups.perm.data_ptr(), groups.offs.data_ptr(), P,
+        int(out.dtype == torch.uint16), out.data_ptr(), _stream_ptr(alleles))
+    _build.check(code, "site_pop_counts_raw")
+    LAUNCHES["site_pop_counts_raw"] += 1
+
+
+def site_pop_counts_raw_plain(alleles: torch.Tensor, s0: int, s1: int,
+                              pop_mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K12 (the JAX form): the one-hot matmul of sites
+    s0 .. s1 - 1.  Returns int32 [s1 - s0, P, 4]."""
+    return _onehot_counts(alleles[:, s0:s1], pop_mask)
+
+
+def count_raw(alleles: torch.Tensor, S: int, groups: PopGroups,
+              block: int = DEFAULT_SITE_BLOCK) -> torch.Tensor:
+    """K12 over sites 0 .. S - 1, ``block`` sites per launch."""
+    out = torch.empty((S, groups.P, 4), dtype=count_dtype(alleles.shape[0]),
+                      device=alleles.device)
+    for s0 in range(0, S, block):
+        s1 = min(s0 + block, S)
+        site_pop_counts_raw(alleles, s0, s1, groups, out[s0:s1])
+    return out
+
+
+# ------------------------------------------------------- any 0/1 mask
 
 class MaskClasses:
-    """A 0/1 mask [P, H] (P <= 8) whose rows may overlap (ABBA's P1, P2,
-    P3, O and their union), as the partition K6 takes: the haplotype rows
-    grouped by their membership code (:func:`membership_bits`), one group
-    per code that occurs, rows in no mask included.
+    """Any 0/1 mask [P, H] (rows may overlap, as ABBA's P1, P2, P3, O and
+    their union or freq's ingroup union; rows may lie in no mask) as the
+    partition K6 and K12 take: the haplotype rows grouped by their
+    membership column ``mask[:, h]``, one class per distinct column.
 
-    ``groups`` is the PopGroups of the C classes, ``codes`` int32 [C] each
-    class's code (ascending; on ``device``), ``bits`` int64 [C, P] its 0/1
-    membership (host).  A mask's counts are the exact integer sum of the
-    counts of the classes whose code has its bit (:meth:`combine`)."""
+    ``groups`` is the PopGroups of the C classes, ``bits`` int64 [C, P]
+    each class's 0/1 membership (host), in ascending order of the code
+    ``sum_p bits[c, p] << p``; ``codes`` int32 [C] those codes on
+    ``device`` (for K7, which only ever has P = 5; None above P = 31).  A
+    mask's counts are the exact integer sum of the counts of the classes
+    in it (:meth:`combine`)."""
 
     def __init__(self, pop_mask: np.ndarray, device: torch.device):
         mask = np.asarray(pop_mask, dtype=np.float64)
-        if mask.ndim != 2 or not np.isin(mask, (0.0, 1.0)).all() \
-                or mask.shape[0] > 8:
-            raise ValueError("MaskClasses needs a 0/1 mask [P, H], P <= 8")
+        if mask.ndim != 2 or not np.isin(mask, (0.0, 1.0)).all():
+            raise ValueError("MaskClasses needs a 0/1 mask [P, H]")
         self.P, H = mask.shape
-        codes, cls = np.unique(membership_bits(mask), return_inverse=True)
-        onehot = np.zeros((codes.size, H))
+        # last mask row first: the lexicographic order of the columns is
+        # the ascending order of their codes
+        cols, cls = np.unique(mask.T[:, ::-1] > 0, axis=0,
+                              return_inverse=True)
+        self.bits = cols[:, ::-1].astype(np.int64)
+        onehot = np.zeros((cols.shape[0], H))
         onehot[cls.reshape(-1), np.arange(H)] = 1.0
         self.groups = PopGroups(onehot, device)
-        self.codes = torch.from_numpy(codes.astype(np.int32)).to(device)
-        self.bits = (codes.astype(np.int64)[:, None]
-                     >> np.arange(self.P)) & 1
+        self.codes = None
+        if self.P <= 31:
+            codes = (self.bits << np.arange(self.P)).sum(axis=1)
+            self.codes = torch.from_numpy(codes.astype(np.int32)).to(device)
 
     def combine(self, class_counts: np.ndarray) -> np.ndarray:
         """int [S, C, 4] class counts -> int32 [S, P, 4] mask counts."""
@@ -188,9 +258,10 @@ def _host_site_pop_counts(alleles: np.ndarray,
             c = np.concatenate(
                 [c, np.zeros((S, P - c.shape[1], 4), c.dtype)], axis=1)
         return c[:, :P].astype(np.int32)
-    pm = (np.asarray(pop_mask) > 0).astype(np.int64)
-    return np.stack([(pm @ (alleles == a)).T for a in range(4)],
-                    axis=-1).astype(np.int32)
+    # float64 products of 0/1 factors are exact integers (and take BLAS)
+    pm = (np.asarray(pop_mask) > 0).astype(np.float64)
+    return np.stack([(pm @ (alleles == a).astype(np.float64)).T
+                     for a in range(4)], axis=-1).astype(np.int32)
 
 
 # ------------------------------------------------------------ dispatch
@@ -216,37 +287,42 @@ class SitePopCountsHandle:
 
 def site_pop_counts_dispatch(alleles, pop_mask: np.ndarray,
                              block: int = DEFAULT_SITE_BLOCK):
-    """Dispatch per-site counting of a host int8 [H, S] span without
-    fetching.  ``pop_mask``: 0/1 [P, H].  When every row lies in exactly
-    one group (popgenWindows' mask puts ungrouped rows in the "" group) K6
-    counts the groups; when rows overlap (ABBA's P1, P2, P3, O and union)
-    K6 counts the membership classes (:class:`MaskClasses`) and the host
-    sums them per mask.  The span ships once as the 2-bit span wire; K6
-    counts ``block`` sites per launch (a multiple of 8)."""
-    if not isinstance(alleles, np.ndarray) or not transfer.packed_enabled():
-        raise NotImplementedError(
-            "site counts of a device-array span or with "
-            "GGT_PACKED_TRANSFER=0 are not ported yet: ROADMAP queue 2, "
-            "rows 7 and 13")
+    """Dispatch per-site counting of an int8 [H, S] span without fetching.
+    ``alleles`` is a host array or an int8 tensor (a device array, or a
+    strided view of one such as ``dev[:, :S]``); ``pop_mask``: any 0/1
+    [P, H].  When every row lies in exactly one group (popgenWindows' mask
+    puts ungrouped rows in the "" group) the kernels count the groups;
+    otherwise they count the membership classes (:class:`MaskClasses`) and
+    the host sums them per mask.  A host span ships once: as the 2-bit span
+    wire, counted by K6, or under ``GGT_PACKED_TRANSFER=0`` as the raw
+    bucket-padded upload (:func:`transfer.upload_span`), counted by K12 as
+    a tensor is where it lies.  Each launch counts ``block`` sites (a
+    multiple of 8)."""
     if block % 8:
         raise ValueError(f"block {block} is not a multiple of 8")
     H, S = alleles.shape
     P = pop_mask.shape[0]
     if S == 0:
         return SitePopCountsHandle(S, P)
-    if _exec_choice() == "host":
+    on_host = isinstance(alleles, np.ndarray)
+    if on_host and _exec_choice() == "host":
         return _ReadyHandle(lambda: _host_site_pop_counts(alleles, pop_mask))
-    dev = get_device()
-    buf, Sp = transfer.pack_span(alleles)
+    dev = get_device() if on_host else alleles.device
     classes = None
     if is_partition(pop_mask):
         groups = _pop_groups(pop_mask, dev)
     else:
         classes = _mask_classes(pop_mask, dev)
         groups = classes.groups
-    return SitePopCountsHandle(S, P, transfer.run_on_device(
-        buf, dev, lambda b: count_span(b, Sp, H, S, groups, block)),
-        classes)
+    if on_host and transfer.packed_enabled():
+        buf, Sp = transfer.pack_span(alleles)
+        return SitePopCountsHandle(S, P, transfer.run_on_device(
+            buf, dev, lambda b: count_span(b, Sp, H, S, groups, block)),
+            classes)
+    if on_host:
+        alleles = transfer.upload_span(alleles, dev)
+    return SitePopCountsHandle(S, P, transfer.fetch(
+        count_raw(alleles, S, groups, block), keep=(alleles,)), classes)
 
 
 def site_pop_counts_chunked(alleles, pop_mask: np.ndarray,

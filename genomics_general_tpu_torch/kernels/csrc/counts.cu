@@ -1,5 +1,6 @@
-// Per-site, per-population allele counts for Hopper (sm_90a), read in place
-// from the 2-bit span wire of popgenWindows' popFreq / WC Fst path.
+// Per-site, per-population allele counts for Hopper (sm_90a): K6 reads the
+// 2-bit span wire in place, K12 an int8 allele matrix (the raw upload, or a
+// view of a device array).
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/counts.py).  The launch goes on the caller's stream, does not
@@ -75,6 +76,67 @@ site_pop_counts_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+// ---------------------------------------------------------------- K12
+// site_pop_counts_raw — replaces genomics_general_tpu/kernels/counts.py
+// site_pop_counts / _site_pop_counts_u16 on an int8 [H, S] allele matrix:
+//   out[s - s0, p, a] = #rows r of group p with alleles[r, s] == a
+// for s in [s0, s1) and a in 0..3, the JAX one-hot matmul for a partition
+// (perm / offs as in K6).  A code below 0 is missing and a code above 3
+// counts nowhere, as in the JAX one-hot.
+//
+// Bound: bytes — one byte per (row, site) read against a few integer
+// operations.  Design: K6's on bytes: one thread per 4 consecutive sites
+// walks the rows group by group with 16 register counters, so a warp reads
+// 128 consecutive bytes of one row per step.  Rows are read through their
+// stride (the bucket-padded raw upload and dev[:, :S] views need no copy)
+// and start at any alignment: the 4 bytes are one 32-bit load where the
+// row's address is 4-byte aligned (the same for every thread of the warp,
+// since it depends only on the row) and all 4 sites lie below s1, else 4
+// byte loads.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
+                           long long row_stride, int s0, int s1,
+                           const int32_t* __restrict__ perm,
+                           const int32_t* __restrict__ offs, int P,
+                           T* __restrict__ out) {
+  const int site0 = s0 + 4 * (blockIdx.x * kThreads + threadIdx.x);
+  if (site0 >= s1) return;
+  const int nk = min(4, s1 - site0);
+  for (int p = 0; p < P; ++p) {
+    int cnt[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) cnt[k][a] = 0;
+    const int r_end = offs[p + 1];
+    for (int r = offs[p]; r < r_end; ++r) {
+      const int8_t* src = alleles + (long long)perm[r] * row_stride + site0;
+      int c[4];
+      if (nk == 4 && ((uintptr_t)src & 3u) == 0) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) c[k] = (int8_t)(v >> (8 * k));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) c[k] = k < nk ? (int)src[k] : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) cnt[k][x] += (c[k] == x);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < nk) {
+        T* o = out + ((size_t)(site0 + k - s0) * P + p) * 4;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) o[a] = (T)cnt[k][a];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -99,6 +161,28 @@ int ggt_site_pop_counts(const void* buf, int h, int sp, int s0, int s1,
     site_pop_counts_kernel<int32_t><<<blocks, kThreads, 0,
                                       (cudaStream_t)stream>>>(
         codes, miss, c4, m8, s0, s1, (const int32_t*)perm,
+        (const int32_t*)offs, P, (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// alleles: int8 rows of row_stride bytes (sites contiguous); out:
+// [s1 - s0, P, 4] for sites s0 .. s1-1, uint16 when u16 != 0, else int32.
+int ggt_site_pop_counts_raw(const void* alleles, long long row_stride,
+                            int s0, int s1, const void* perm,
+                            const void* offs, int P, int u16, void* out,
+                            void* stream) {
+  const int nquad = (s1 - s0 + 3) / 4;
+  const unsigned blocks = (unsigned)((nquad + kThreads - 1) / kThreads);
+  if (u16) {
+    site_pop_counts_raw_kernel<uint16_t><<<blocks, kThreads, 0,
+                                           (cudaStream_t)stream>>>(
+        (const int8_t*)alleles, row_stride, s0, s1, (const int32_t*)perm,
+        (const int32_t*)offs, P, (uint16_t*)out);
+  } else {
+    site_pop_counts_raw_kernel<int32_t><<<blocks, kThreads, 0,
+                                          (cudaStream_t)stream>>>(
+        (const int8_t*)alleles, row_stride, s0, s1, (const int32_t*)perm,
         (const int32_t*)offs, P, (int32_t*)out);
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-// Wire-v3 pairwise kernels for Hopper (sm_90a): per-window masked-Hamming
-// pair counts, the multi-allelic exception patch, and the epilogues of
+// Pairwise kernels for Hopper (sm_90a): per-window masked-Hamming pair
+// counts from the wire-v3 (K1) and wire-v2 (K13) bit planes, the
+// multi-allelic exception patch, and the epilogues of
 // popgenWindows' distance analyses: per-block float64 sums, each
 // individual's own pair, and the packed upper triangles.
 //
@@ -8,23 +9,127 @@
 // synchronise, allocates nothing, and returns cudaGetLastError() so the
 // wrapper can raise on a refused launch.
 //
-// Wire layout (kernels/transfer.py): four bit planes, each [h, Sp/32]
+// Wire layouts (kernels/transfer.py).  v3: four bit planes, each [h, Sp/32]
 // little-endian 32-bit words, site 32q + t in bit t of word q; per-window
 // class ranges meta int32 [7, wp] = firstB, nB, firstC, nC, firstD, nD,
-// nconst; exception section ex_w int32 [ep] (== wp for padding entries) and
-// ex_codes int8 [ep, h].
+// nconst.  v2: the called and alt planes in the same word layout, then
+// first, n_sites int32 [wp].  Both end with the exception section ex_w
+// int32 [ep] (== wp for padding entries) and ex_codes int8 [ep, h].
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;        // K1 pair tile: 32 x 32 haplotype pairs
-constexpr int kWords = 32;       // K1 words staged per plane per step
+constexpr int kTile = 32;        // K1/K13 pair tile: 32 x 32 pairs
+constexpr int kWords = 32;       // words staged per plane per step
 constexpr int kThreads = 256;    // 8 warps; warp y owns tile rows y + 8r
 constexpr int kRowsPerThread = kTile / (kThreads / kTile);
 constexpr int kExRows = 8;       // K2 rows of the pair matrix per block
 constexpr int kTailThreads = 256;
+
+// One class range of a pair tile, shared by K1 and K13: adds to the
+// thread's accumulators, for its rows of the 32 x 32 tile (i0.., j0..), the
+// popcounts over the words of [first, first + n) of the planes p0 (and p1),
+// rows of row_words words:
+//   kind 0: shared   += popc(p0_i & p0_j)
+//   kind 1: mismatch += popc(p0_i ^ p0_j)
+//   kind 2: shared   += popc(p0_i & p0_j),
+//           mismatch += popc((p1_i ^ p1_j) & p0_i & p0_j)
+// A range starts at any bit.  AND, XOR and popcount act per bit, so no
+// alignment is needed: the words that overlap the range are read in place
+// and the bits outside it are masked off in the first and last word
+// (all-ones mask elsewhere).  n <= 0 adds nothing.  Every thread of the
+// block calls it with the same range (it synchronises).  The block stages
+// kWords words of its 32 row and 32 column haplotypes per plane in shared
+// memory (padded rows: conflict-free column reads, broadcast row reads), so
+// each word loaded from device memory feeds 32 pairs.
+__device__ __forceinline__ void tile_range(
+    int kind, const uint32_t* __restrict__ p0,
+    const uint32_t* __restrict__ p1, int row_words, int first, int n, int h,
+    int i0, int j0, uint32_t (&si)[2][kTile][kWords + 1],
+    uint32_t (&sj)[2][kTile][kWords + 1], int (&acc_s)[kRowsPerThread],
+    int (&acc_m)[kRowsPerThread]) {
+  if (n <= 0) return;
+  const int tx = threadIdx.x % kTile;
+  const int ty = threadIdx.x / kTile;
+  const int q_first = first >> 5;
+  const int q_last = (first + n - 1) >> 5;
+  const uint32_t head = ~0u << (first & 31);
+  const int tail_bits = (first + n) & 31;
+  const uint32_t tail = tail_bits ? (1u << tail_bits) - 1u : ~0u;
+
+  for (int qb = q_first; qb <= q_last; qb += kWords) {
+    const int nq = min(kWords, q_last - qb + 1);
+    for (int idx = threadIdx.x; idx < kTile * kWords; idx += kThreads) {
+      const int r = idx / kWords;
+      const int k = idx % kWords;
+      const int q = qb + k;
+      uint32_t mask = 0;
+      if (k < nq) {
+        mask = ~0u;
+        if (q == q_first) mask &= head;
+        if (q == q_last) mask &= tail;
+      }
+      const int gi = i0 + r;
+      const int gj = j0 + r;
+      uint32_t vi0 = 0, vi1 = 0, vj0 = 0, vj1 = 0;
+      if (mask) {
+        if (gi < h) {
+          vi0 = p0[(size_t)gi * row_words + q] & mask;
+          if (p1) vi1 = p1[(size_t)gi * row_words + q] & mask;
+        }
+        if (gj < h) {
+          vj0 = p0[(size_t)gj * row_words + q] & mask;
+          if (p1) vj1 = p1[(size_t)gj * row_words + q] & mask;
+        }
+      }
+      si[0][r][k] = vi0;
+      si[1][r][k] = vi1;
+      sj[0][r][k] = vj0;
+      sj[1][r][k] = vj1;
+    }
+    __syncthreads();
+    for (int k = 0; k < nq; ++k) {
+      const uint32_t b0 = sj[0][tx][k];
+      const uint32_t b1 = sj[1][tx][k];
+#pragma unroll
+      for (int rr = 0; rr < kRowsPerThread; ++rr) {
+        const int r = ty + rr * (kThreads / kTile);
+        const uint32_t a0 = si[0][r][k];
+        if (kind == 0) {
+          acc_s[rr] += __popc(a0 & b0);
+        } else if (kind == 1) {
+          acc_m[rr] += __popc(a0 ^ b0);
+        } else {
+          const uint32_t both = a0 & b0;
+          acc_s[rr] += __popc(both);
+          acc_m[rr] += __popc((si[1][r][k] ^ b1) & both);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Writes the thread's rows of the pair tile into window wl of the
+// [nwin, h, h] counts (shared plus a per-window constant).
+__device__ __forceinline__ void tile_store(
+    int wl, int h, int i0, int j0, int nconst,
+    const int (&acc_s)[kRowsPerThread], const int (&acc_m)[kRowsPerThread],
+    int32_t* __restrict__ m_out, int32_t* __restrict__ s_out) {
+  const int j = j0 + threadIdx.x % kTile;
+  const int ty = threadIdx.x / kTile;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerThread; ++rr) {
+    const int i = i0 + ty + rr * (kThreads / kTile);
+    if (i < h && j < h) {
+      const size_t o = ((size_t)wl * h + i) * h + j;
+      m_out[o] = acc_m[rr];
+      s_out[o] = acc_s[rr] + nconst;
+    }
+  }
+}
 
 // ---------------------------------------------------------------- K1
 // pair_counts_v3 — replaces genomics_general_tpu/kernels/pairdist.py
@@ -32,26 +137,19 @@ constexpr int kTailThreads = 256;
 // unpack_pair_wire_v3.  For window w and haplotypes i, j:
 //   shared   = nconst[w] + popc(cB_i & cB_j) + popc(cD_i & cD_j)
 //   mismatch = popc(aC_i ^ aC_j) + popc((aD_i ^ aD_j) & cD_i & cD_j)
-// summed over the words of the window's class ranges.  Because aD is a
-// subset of cD these equal the JAX kernel's bf16 Gram forms
-// (rC_i + rC_j - 2 aC.aC^T, aD.cD^T + (aD.cD^T)^T - 2 aD.aD^T) exactly,
-// with no 2^24 bound on the window length.
-//
-// A window's range [first, first + n) starts at any bit.  AND, XOR and
-// popcount act per bit, so no alignment is needed: the words that overlap
-// the range are read in place and the bits outside it are masked off in
-// the first and last word (all-ones mask elsewhere).  n == 0 skips the
-// class; an all-monomorphic window only writes nconst.
+// summed over the words of the window's class ranges (tile_range kinds 0,
+// 1, 2).  Because aD is a subset of cD these equal the JAX kernel's bf16
+// Gram forms (rC_i + rC_j - 2 aC.aC^T, aD.cD^T + (aD.cD^T)^T - 2 aD.aD^T)
+// exactly, with no 2^24 bound on the window length.  An all-monomorphic
+// window only writes nconst.
 //
 // Bound: popcounts.  Each pair reads each word of its window once, so the
 // work is h^2 * (wordsB + wordsC + 2 wordsD) popcounts per window against
 // 8 bytes of output per pair; at the main path's h = 512 that is far above
 // the card's popcount:byte balance.  Design: a block owns one window and a
-// 32 x 32 pair tile and stages kWords words of its 32 row and 32 column
-// haplotypes per plane in shared memory (padded rows: conflict-free column
-// reads, broadcast row reads), so each word loaded from device memory
-// feeds 32 pairs.  Simple first version: it computes the full symmetric
-// matrix (twice the needed popcounts) and stages with plain loads.
+// 32 x 32 pair tile (tile_range stages the words).  Simple first version:
+// it computes the full symmetric matrix (twice the needed popcounts) and
+// stages with plain loads.
 __global__ void __launch_bounds__(kThreads)
 pair_counts_v3_kernel(const uint32_t* __restrict__ planes,
                       const int32_t* __restrict__ meta,
@@ -64,8 +162,6 @@ pair_counts_v3_kernel(const uint32_t* __restrict__ planes,
   const int w = w0 + wl;
   const int i0 = blockIdx.y * kTile;
   const int j0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % kTile;
-  const int ty = threadIdx.x / kTile;
 
   const uint32_t* cB = planes;
   const uint32_t* aC = cB + (size_t)h * wb;
@@ -74,84 +170,49 @@ pair_counts_v3_kernel(const uint32_t* __restrict__ planes,
 
   int acc_s[kRowsPerThread] = {0};
   int acc_m[kRowsPerThread] = {0};
+  tile_range(0, cB, nullptr, wb, meta[w], meta[wp + w], h, i0, j0, si, sj,
+             acc_s, acc_m);
+  tile_range(1, aC, nullptr, wc, meta[2 * wp + w], meta[3 * wp + w], h, i0,
+             j0, si, sj, acc_s, acc_m);
+  tile_range(2, cD, aD, wd, meta[4 * wp + w], meta[5 * wp + w], h, i0, j0,
+             si, sj, acc_s, acc_m);
+  tile_store(wl, h, i0, j0, meta[6 * wp + w], acc_s, acc_m, m_out, s_out);
+}
 
-  for (int cls = 0; cls < 3; ++cls) {
-    const int first = meta[(2 * cls) * wp + w];
-    const int n = meta[(2 * cls + 1) * wp + w];
-    if (n <= 0) continue;
-    const uint32_t* p0 = cls == 0 ? cB : (cls == 1 ? aC : cD);
-    const uint32_t* p1 = cls == 2 ? aD : nullptr;
-    const int row_words = cls == 0 ? wb : (cls == 1 ? wc : wd);
-    const int q_first = first >> 5;
-    const int q_last = (first + n - 1) >> 5;
-    const uint32_t head = ~0u << (first & 31);
-    const int tail_bits = (first + n) & 31;
-    const uint32_t tail = tail_bits ? (1u << tail_bits) - 1u : ~0u;
-
-    for (int qb = q_first; qb <= q_last; qb += kWords) {
-      const int nq = min(kWords, q_last - qb + 1);
-      for (int idx = threadIdx.x; idx < kTile * kWords; idx += kThreads) {
-        const int r = idx / kWords;
-        const int k = idx % kWords;
-        const int q = qb + k;
-        uint32_t mask = 0;
-        if (k < nq) {
-          mask = ~0u;
-          if (q == q_first) mask &= head;
-          if (q == q_last) mask &= tail;
-        }
-        const int gi = i0 + r;
-        const int gj = j0 + r;
-        uint32_t vi0 = 0, vi1 = 0, vj0 = 0, vj1 = 0;
-        if (mask) {
-          if (gi < h) {
-            vi0 = p0[(size_t)gi * row_words + q] & mask;
-            if (p1) vi1 = p1[(size_t)gi * row_words + q] & mask;
-          }
-          if (gj < h) {
-            vj0 = p0[(size_t)gj * row_words + q] & mask;
-            if (p1) vj1 = p1[(size_t)gj * row_words + q] & mask;
-          }
-        }
-        si[0][r][k] = vi0;
-        si[1][r][k] = vi1;
-        sj[0][r][k] = vj0;
-        sj[1][r][k] = vj1;
-      }
-      __syncthreads();
-      for (int k = 0; k < nq; ++k) {
-        const uint32_t b0 = sj[0][tx][k];
-        const uint32_t b1 = sj[1][tx][k];
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerThread; ++rr) {
-          const int r = ty + rr * (kThreads / kTile);
-          const uint32_t a0 = si[0][r][k];
-          if (cls == 0) {
-            acc_s[rr] += __popc(a0 & b0);
-          } else if (cls == 1) {
-            acc_m[rr] += __popc(a0 ^ b0);
-          } else {
-            const uint32_t both = a0 & b0;
-            acc_s[rr] += __popc(both);
-            acc_m[rr] += __popc((si[1][r][k] ^ b1) & both);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  const int nconst = meta[6 * wp + w];
-  const int j = j0 + tx;
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerThread; ++rr) {
-    const int i = i0 + ty + rr * (kThreads / kTile);
-    if (i < h && j < h) {
-      const size_t o = ((size_t)wl * h + i) * h + j;
-      m_out[o] = acc_m[rr];
-      s_out[o] = acc_s[rr] + nconst;
-    }
-  }
+// ---------------------------------------------------------------- K13
+// pair_counts_v2 — replaces genomics_general_tpu/kernels/pairdist.py
+// _fused_flush_pair_v2's count stage (_pair_counts_v2 with
+// gather_window_code2) and kernels/transfer.py unpack_pair_wire.  For
+// window w and haplotypes i, j, over the words of [first[w], first[w] +
+// n_sites[w]) of the called (c) and alt (a) planes:
+//   shared   = popc(c_i & c_j)
+//   mismatch = popc((a_i ^ a_j) & c_i & c_j)
+// K1's class-D term over one plane pair (tile_range kind 2).  The alt bits
+// lie inside the called bits, so these equal the JAX bf16 Gram forms
+// (c.c^T, ca.c^T + (ca.c^T)^T - 2 ca.ca^T) exactly.
+//
+// Bound: popcounts, h^2 * 2 * (words of the window) per window.  Design:
+// K1's block per (window, 32 x 32 pair tile).  Unlike wire v3, wire v2
+// ships every site of a window in both planes (v3 skips the constant
+// class), so K13 does more popcounts than K1 on the same flush.
+__global__ void __launch_bounds__(kThreads)
+pair_counts_v2_kernel(const uint32_t* __restrict__ called,
+                      const uint32_t* __restrict__ alt,
+                      const int32_t* __restrict__ first,
+                      const int32_t* __restrict__ n_sites, int h, int words,
+                      int w0, int32_t* __restrict__ m_out,
+                      int32_t* __restrict__ s_out) {
+  __shared__ uint32_t si[2][kTile][kWords + 1];
+  __shared__ uint32_t sj[2][kTile][kWords + 1];
+  const int wl = blockIdx.z;
+  const int w = w0 + wl;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  int acc_s[kRowsPerThread] = {0};
+  int acc_m[kRowsPerThread] = {0};
+  tile_range(2, called, alt, words, first[w], n_sites[w], h, i0, j0, si, sj,
+             acc_s, acc_m);
+  tile_store(wl, h, i0, j0, 0, acc_s, acc_m, m_out, s_out);
 }
 
 // ---------------------------------------------------------------- K2
@@ -323,6 +384,20 @@ int ggt_pair_counts_v3(const void* planes, const void* meta, int h, int wb,
   pair_counts_v3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)planes, (const int32_t*)meta, h, wb, wc, wd, wp, w0,
       (int32_t*)m_out, (int32_t*)s_out);
+  return (int)cudaGetLastError();
+}
+
+// called, alt: [h, words] 32-bit words; first, n_sites: int32 [wp];
+// m_out, s_out: int32 [nwin, h, h] for windows w0 .. w0 + nwin - 1.
+int ggt_pair_counts_v2(const void* called, const void* alt, const void* first,
+                       const void* n_sites, int h, int words, int w0,
+                       int nwin, void* m_out, void* s_out, void* stream) {
+  const int tiles = (h + kTile - 1) / kTile;
+  dim3 grid(tiles, tiles, nwin);
+  pair_counts_v2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)called, (const uint32_t*)alt, (const int32_t*)first,
+      (const int32_t*)n_sites, h, words, w0, (int32_t*)m_out,
+      (int32_t*)s_out);
   return (int)cudaGetLastError();
 }
 

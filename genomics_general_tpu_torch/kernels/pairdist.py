@@ -13,8 +13,11 @@ CUDA kernels (kernels/csrc/pair_v3.cu) do the device work of a flush,
 window chunk by window chunk so the [chunk, H, H] int32 scratch stays
 bounded at large H:
 
-* :func:`pair_counts_v3` (K1) — counts from the wire-v3 bit planes,
-* :func:`exception_patch` (K2) — multi-allelic sites' contributions,
+* :func:`pair_counts_v3` (K1) — counts from the wire-v3 bit planes, or
+  under ``GGT_WIRE=2`` :func:`pair_counts_v2` (K13) from the wire-v2
+  called / alt planes,
+* :func:`exception_patch` (K2) — multi-allelic sites' contributions (the
+  two wires lay out their exception sections alike),
 
 then one of three epilogues, the modes of the JAX ``_modes_tail``:
 
@@ -62,7 +65,8 @@ from . import transfer
 # launches of each CUDA kernel since the last reset (the plain versions
 # and the host executor never count)
 LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0,
-            "tri_pack": 0, "het_pairs": 0, "pair_counts_4state": 0}
+            "tri_pack": 0, "het_pairs": 0, "pair_counts_4state": 0,
+            "pair_counts_v2": 0}
 # flushes run by the host C executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 # pair cells the plain K2 materializes per slab of exception entries
@@ -154,13 +158,58 @@ def pair_counts_v3_plain(wire: transfer.PairWireV3, w0: int, nwin: int):
     return m.to(torch.int32), s.to(torch.int32)
 
 
+# ------------------------------------------------------ K13 pair counts
+
+def pair_counts_v2(wire: transfer.PairWireV2, w0: int, nwin: int):
+    """Mismatch/shared int32 [nwin, H, H] of windows w0 .. w0 + nwin - 1
+    from the wire-v2 called / alt planes (exception sites not included: K2
+    adds them).
+
+    Replaces the JAX ``_fused_flush_pair_v2`` count stage with its
+    ``unpack_pair_wire``, ``gather_window_code2`` and ``_pair_counts_v2``."""
+    if not wire.buf.is_cuda:
+        return pair_counts_v2_plain(wire, w0, nwin)
+    h, wp = wire.h, wire.wp
+    if w0 < 0 or w0 + nwin > wp:
+        raise ValueError(f"windows {w0}..{w0 + nwin} outside wp={wp}")
+    _check_cuda(wire.buf)
+    m = torch.empty((nwin, h, h), dtype=torch.int32, device=wire.buf.device)
+    s = torch.empty_like(m)
+    if nwin == 0:
+        return m, s
+    code = _build.lib("pair_v3").ggt_pair_counts_v2(
+        wire.called.data_ptr(), wire.alt.data_ptr(), wire.first.data_ptr(),
+        wire.n_sites.data_ptr(), h, wire.called.shape[1], w0, nwin,
+        m.data_ptr(), s.data_ptr(), _stream_ptr(m))
+    _build.check(code, "pair_counts_v2")
+    LAUNCHES["pair_counts_v2"] += 1
+    return m, s
+
+
+def pair_counts_v2_plain(wire: transfer.PairWireV2, w0: int, nwin: int):
+    """Plain PyTorch K13: the JAX Gram forms on the unpacked planes,
+
+        shared   = c . c^T
+        mismatch = ca . c^T + (ca . c^T)^T - 2 ca . ca^T
+
+    with 0/1 float64 factors (exact integers)."""
+    code2, first, n_sites, _, _ = transfer.unpack_pair_wire(wire)
+    sl = slice(w0, w0 + nwin)
+    c = _gather_bits(code2 & 1, first[sl], n_sites[sl])
+    ca = _gather_bits(code2 >> 1, first[sl], n_sites[sl])
+    G3 = torch.einsum("bhs,bgs->bhg", ca, c)
+    m = G3 + G3.transpose(1, 2) - 2.0 * torch.einsum("bhs,bgs->bhg", ca, ca)
+    s = torch.einsum("bhs,bgs->bhg", c, c)
+    return m.to(torch.int32), s.to(torch.int32)
+
+
 # -------------------------------------------------- K2 exception patch
 
-def exception_patch(m: torch.Tensor, s: torch.Tensor,
-                    wire: transfer.PairWireV3, w0: int) -> None:
+def exception_patch(m: torch.Tensor, s: torch.Tensor, wire, w0: int) -> None:
     """Add, in place, the multi-allelic exception entries of windows
-    w0 .. w0 + len(m) - 1 to the chunk's counts.  Padding entries
-    (``ex_w == wp``) are skipped.  Replaces the JAX ``_exception_patch``."""
+    w0 .. w0 + len(m) - 1 of a wire-v3 or wire-v2 flush to the chunk's
+    counts.  Padding entries (``ex_w == wp``) are skipped.  Replaces the
+    JAX ``_exception_patch``."""
     if not m.is_cuda:
         exception_patch_plain(m, s, wire, w0)
         return
@@ -178,8 +227,8 @@ def exception_patch(m: torch.Tensor, s: torch.Tensor,
     LAUNCHES["exception_patch"] += 1
 
 
-def exception_patch_plain(m: torch.Tensor, s: torch.Tensor,
-                          wire: transfer.PairWireV3, w0: int) -> None:
+def exception_patch_plain(m: torch.Tensor, s: torch.Tensor, wire,
+                          w0: int) -> None:
     """Plain PyTorch K2: a segment sum of each entry's both-called /
     unequal pairs into its window, in entry slabs of at most
     ``_EX_SLAB_PAIRS`` pair cells."""
@@ -517,16 +566,29 @@ class V3Flush(NamedTuple):
                                       self.h, self.wp, self.ep)
 
 
+class V2Flush(NamedTuple):
+    """One flush's wire-v2 buffer (``GGT_WIRE=2``) with its static sizes,
+    the window chunk and the ``tri`` output type."""
+    buf: np.ndarray
+    sp: int
+    h: int
+    wp: int
+    chunk: int
+    ep: int
+    u16: bool
+
+    def wire(self, buf: torch.Tensor) -> transfer.PairWireV2:
+        """Typed views of ``buf``, this flush's bytes on some device."""
+        return transfer.pair_wire_v2_views(buf, self.sp, self.h, self.wp,
+                                           self.ep)
+
+
 def _v3_flush_args(alleles: np.ndarray, first: np.ndarray,
                    n_sites: np.ndarray) -> V3Flush:
     """Host-side prep for the wire-v3 kernels: classify + pack the flush
     buffer, choose the window chunk so the [chunk, H, H] count scratch
     stays bounded, and whether the ``tri`` output fits uint16 (every count
     is at most its window's site count)."""
-    if os.environ.get("GGT_WIRE") == "2":
-        raise NotImplementedError(
-            "GGT_WIRE=2 (the wire-v2 kernels) is not ported yet: ROADMAP "
-            "queue 2, row 5")
     W = first.shape[0]
     H = alleles.shape[0]
     wp = _next_pow2(W, 8)
@@ -534,6 +596,27 @@ def _v3_flush_args(alleles: np.ndarray, first: np.ndarray,
         alleles, first, n_sites, wp)
     return V3Flush(buf, SpB, SpC, SpD, H, wp, _window_chunk(W, H), ep,
                    _tri_u16(n_sites))
+
+
+def _v2_flush_args(alleles: np.ndarray, first: np.ndarray,
+                   n_sites: np.ndarray) -> V2Flush:
+    """Host-side prep for the wire-v2 kernels: pack the flush buffer
+    (:func:`transfer.pack_pair_wire`), with the chunk and ``tri`` type of
+    :func:`_v3_flush_args`."""
+    W = first.shape[0]
+    H = alleles.shape[0]
+    wp = _next_pow2(W, 8)
+    buf, Sp, ep = transfer.pack_pair_wire(alleles, first, n_sites, wp)
+    return V2Flush(buf, Sp, H, wp, _window_chunk(W, H), ep,
+                   _tri_u16(n_sites))
+
+
+def _flush_args(alleles: np.ndarray, first: np.ndarray, n_sites: np.ndarray):
+    """The flush's wire: v3, or v2 under ``GGT_WIRE=2`` (the JAX
+    package's switch, pairdist.py:438-445)."""
+    if os.environ.get("GGT_WIRE") == "2":
+        return _v2_flush_args(alleles, first, n_sites)
+    return _v3_flush_args(alleles, first, n_sites)
 
 
 def _window_chunk(W: int, H: int) -> int:
@@ -560,26 +643,29 @@ def _chunks(counts, W: int, chunk: int, epilogue) -> None:
         epilogue(*counts(w0, n), w0, n)
 
 
-def _flush(wire: transfer.PairWireV3, W: int, chunk: int, epilogue) -> None:
-    """Run K1 and K2 over windows 0 .. W-1 of one wire, ``chunk`` windows
-    at a time, on the wire's device, and hand each chunk's counts to
-    ``epilogue(m, s, w0, n)``."""
+def _flush(wire, W: int, chunk: int, epilogue) -> None:
+    """Run K1 (wire v3) or K13 (wire v2), then K2, over windows 0 .. W-1
+    of one wire, ``chunk`` windows at a time, on the wire's device, and
+    hand each chunk's counts to ``epilogue(m, s, w0, n)``."""
+    v2 = isinstance(wire, transfer.PairWireV2)
     if wire.buf.device.type != "cuda" and W:
-        # the plain K1 also holds float64 [chunk, H, s_max] factors
-        s_max = _next_pow2(max(int(wire.meta[1:6:2, :W].max()), 1), 128)
+        # the plain K1 / K13 also hold float64 [chunk, H, s_max] factors
+        longest = wire.n_sites[:W] if v2 else wire.meta[1:6:2, :W]
+        s_max = _next_pow2(max(int(longest.max()), 1), 128)
         while chunk > 8 and chunk * wire.h * s_max > (1 << 26):
             chunk //= 2
+    pair_counts = pair_counts_v2 if v2 else pair_counts_v3
 
     def counts(w0, n):
-        m, s = pair_counts_v3(wire, w0, n)
+        m, s = pair_counts(wire, w0, n)
         exception_patch(m, s, wire, w0)
         return m, s
     _chunks(counts, W, chunk, epilogue)
 
 
-def flush_blocks(wire: transfer.PairWireV3, W: int, chunk: int,
+def flush_blocks(wire, W: int, chunk: int,
                  groups: PopGroups, min_sites: int) -> torch.Tensor:
-    """K1, K2 and K3 over one flush: float64 [W, 2, P, P]."""
+    """K1 (or K13), K2 and K3 over one flush: float64 [W, 2, P, P]."""
     out = torch.empty((W, 2, groups.P, groups.P), dtype=torch.float64,
                       device=wire.buf.device)
     _flush(wire, W, chunk, lambda m, s, w0, n: blocks_tail(
@@ -587,10 +673,11 @@ def flush_blocks(wire: transfer.PairWireV3, W: int, chunk: int,
     return out
 
 
-def flush_blocks_het(wire: transfer.PairWireV3, W: int, chunk: int,
+def flush_blocks_het(wire, W: int, chunk: int,
                      groups: PopGroups, rows, min_sites: int) -> torch.Tensor:
-    """K1, K2, K3 and K5 over one flush into ONE float64 buffer, so one
-    copy brings it back: blocks [W, 2, P, P] then het [W, I, 2], flat."""
+    """K1 (or K13), K2, K3 and K5 over one flush into ONE float64
+    buffer, so one copy brings it back: blocks [W, 2, P, P] then het
+    [W, I, 2], flat."""
     P, n_ind = groups.P, rows[0].shape[0]
     flat = torch.empty(W * 2 * P * P + W * n_ind * 2, dtype=torch.float64,
                        device=wire.buf.device)
@@ -610,9 +697,10 @@ def _tri_out(W: int, h: int, u16: bool, device) -> torch.Tensor:
                        device=device)
 
 
-def flush_tri(wire: transfer.PairWireV3, W: int, chunk: int,
+def flush_tri(wire, W: int, chunk: int,
               u16: bool) -> torch.Tensor:
-    """K1, K2 and K4 over one flush: [W, 2T] uint16 or int32."""
+    """K1 (or K13), K2 and K4 over one flush: [W, 2T] uint16 or
+    int32."""
     out = _tri_out(W, wire.h, u16, wire.buf.device)
     _flush(wire, W, chunk, lambda m, s, w0, n: tri_pack(
         m, s, out[w0:w0 + n]))
@@ -777,11 +865,11 @@ def window_pair_block_stats_dispatch(alleles: np.ndarray, first: np.ndarray,
         return _ReadyHandle(lambda: _host_blocks(
             alleles, first, n_sites, pop_mask, min_sites))
     dev = get_device()
-    v3 = _v3_flush_args(alleles, first, n_sites)
+    fl = _flush_args(alleles, first, n_sites)
     groups = _pop_groups(pop_mask, dev)
     return PairBlockStatsHandle(W, P, transfer.run_on_device(
-        v3.buf, dev, lambda buf: flush_blocks(
-            v3.wire(buf), W, v3.chunk, groups, min_sites)))
+        fl.buf, dev, lambda buf: flush_blocks(
+            fl.wire(buf), W, fl.chunk, groups, min_sites)))
 
 
 class PairBlocksHetHandle:
@@ -832,12 +920,12 @@ def window_pair_ind_blocks_dispatch(alleles: np.ndarray, first: np.ndarray,
         return _ReadyHandle(lambda: _host_blocks_het(
             alleles, first, n_sites, ind_mask, het_rows, min_sites))
     dev = get_device()
-    v3 = _v3_flush_args(alleles, first, n_sites)
+    fl = _flush_args(alleles, first, n_sites)
     groups = _pop_groups(ind_mask, dev)
     rows = _het_rows(het_rows, alleles.shape[0], dev)
     return PairBlocksHetHandle(W, P, n_ind, transfer.run_on_device(
-        v3.buf, dev, lambda buf: flush_blocks_het(
-            v3.wire(buf), W, v3.chunk, groups, rows, min_sites)))
+        fl.buf, dev, lambda buf: flush_blocks_het(
+            fl.wire(buf), W, fl.chunk, groups, rows, min_sites)))
 
 
 class PairCountsHandle:
@@ -869,8 +957,9 @@ def window_pair_counts_dispatch(alleles, first: np.ndarray,
     """Dispatch the pair counts of one flush without fetching them.
 
     ``alleles`` is the flush's int8 [H, S] span.  A host array ships as one
-    wire-v3 buffer: K1 and K2 count each window chunk and K4 packs the
-    upper triangles (uint16 when every window has fewer than 2^16 sites).
+    wire-v3 buffer (wire v2 under ``GGT_WIRE=2``): K1 (K13) and K2 count
+    each window chunk and K4 packs the upper triangles (uint16 when every
+    window has fewer than 2^16 sites).
     Under ``GGT_PACKED_TRANSFER=0`` it ships as the raw int8 matrix with the
     windows (one upload, :func:`transfer.pack_raw_span`), and a tensor (the
     JAX device-array route) is counted where it lies; both of those run the
@@ -885,10 +974,10 @@ def window_pair_counts_dispatch(alleles, first: np.ndarray,
         return _ReadyHandle(lambda: _host_counts(alleles, first, n_sites))
     if on_host and transfer.packed_enabled():
         dev = get_device()
-        v3 = _v3_flush_args(alleles, first, n_sites)
+        fl = _flush_args(alleles, first, n_sites)
         return PairCountsHandle(W, H, transfer.run_on_device(
-            v3.buf, dev, lambda buf: flush_tri(
-                v3.wire(buf), W, v3.chunk, v3.u16)))
+            fl.buf, dev, lambda buf: flush_tri(
+                fl.wire(buf), W, fl.chunk, fl.u16)))
     first = np.ascontiguousarray(first, dtype=np.int32)
     n_sites = np.ascontiguousarray(n_sites, dtype=np.int32)
     _check_windows(first, n_sites, S)

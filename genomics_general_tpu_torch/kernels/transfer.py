@@ -7,10 +7,15 @@ and :func:`unpack_span` is its plain inverse.  The ABBA flush buffer
 (``pack_flush_buffer``, also a copy) appends the window metadata
 ``first, n_sites int32[wp]``; :func:`flush_views` cuts it into typed views
 in place and :func:`unpack_flush_buffer` is its plain inverse.  The general
-4-state pair counts read the int8 matrix itself: :func:`device_alleles`
-and :func:`pack_raw_span` upload the raw bytes.
+4-state pair counts and the raw per-site counts read the int8 matrix
+itself: :func:`device_alleles`, :func:`pack_raw_span` and
+:func:`upload_span` upload the raw bytes.
 
-Wire format v3 of the pairwise kernels follows.
+Wire format v2 of the pairwise kernels (``GGT_WIRE=2``, :func:`pack_pair_wire`,
+a copy of the JAX packer) ships the called and alt bit planes of every site
+with the window ranges and the exception section; :func:`pair_wire_v2_views`
+cuts it into typed views in place and :func:`unpack_pair_wire` is the plain
+counterpart of the JAX device unpack.  Wire format v3 follows.
 
 The host side is a copy of the JAX package's packer
 (genomics_general_tpu/kernels/transfer.py: ``pack_pair_wire_v3`` with its
@@ -105,8 +110,8 @@ def pack_span(alleles: np.ndarray, min_bucket: int = 1 << 16) -> tuple[np.ndarra
 
 def packed_enabled() -> bool:
     """False under ``GGT_PACKED_TRANSFER=0``: the JAX package's raw int8
-    upload instead of a packed wire (the pair counts run K9 on it; the
-    per-site count routes do not take it yet)."""
+    upload instead of a packed wire (the pair counts run K9 on it, the
+    per-site counts K12)."""
     return os.environ.get("GGT_PACKED_TRANSFER", "1") != "0"
 
 
@@ -129,6 +134,19 @@ def device_alleles(alleles: np.ndarray, dev=None) -> torch.Tensor:
     staged = torch.empty(a.shape, dtype=torch.int8, pin_memory=True)
     staged.numpy()[:] = a
     return staged.to(dev, non_blocking=True)
+
+
+def upload_span(alleles: np.ndarray, dev=None,
+                min_bucket: int = 1 << 16) -> torch.Tensor:
+    """The raw route of the JAX ``upload_span`` (``GGT_PACKED_TRANSFER=0``):
+    the int8 [H, S] span padded on the site axis to the site bucket with -1
+    (missing), uploaded to ``dev`` (default ``get_device()``).  Returns the
+    int8 [H, Sp] tensor; callers count its ``[:, :S]`` view."""
+    H, S = alleles.shape
+    Sp = _bucket_sites(max(S, 1), min_bucket)
+    padded = np.full((H, Sp), -1, dtype=np.int8)
+    padded[:, :S] = alleles
+    return device_alleles(padded, dev)
 
 
 def pack_raw_span(alleles: np.ndarray, first: np.ndarray,
@@ -174,6 +192,19 @@ class Pending:
         return host
 
 
+def fetch(out: torch.Tensor, keep=()) -> Pending:
+    """Start bringing a result tensor back: on CUDA an asynchronous copy
+    into pinned memory with an event recorded after it (``keep`` stays
+    alive until then); on the CPU the result itself."""
+    if out.device.type != "cuda":
+        return Pending(out)
+    result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    result.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return Pending(result, event, keep=keep)
+
+
 def run_on_device(buf: np.ndarray, dev: torch.device, run) -> Pending:
     """Upload one uint8 wire buffer and call ``run(device_buf)``, which
     launches the flush's kernels and returns its result tensor.
@@ -186,12 +217,7 @@ def run_on_device(buf: np.ndarray, dev: torch.device, run) -> Pending:
         return Pending(run(torch.from_numpy(buf)))
     staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
     staged.numpy()[:] = buf
-    out = run(staged.to(dev, non_blocking=True))
-    result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    result.copy_(out, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return Pending(result, event, keep=(staged,))
+    return fetch(run(staged.to(dev, non_blocking=True)), keep=(staged,))
 
 
 def unpack_span(buf, sp: int, h: int) -> torch.Tensor:
@@ -248,6 +274,103 @@ def unpack_flush_buffer(buf, sp: int, h: int, wp: int):
         buf = torch.from_numpy(buf)
     span, first, n_sites = flush_views(buf, sp, h, wp)
     return unpack_span(span, sp, h), first, n_sites
+
+
+# -------------------------------------------------------- wire v2
+
+def pack_pair_wire(alleles: np.ndarray, first: np.ndarray,
+                   n_sites: np.ndarray, wp: int, ep_min: int = 4096,
+                   min_bucket: int = 1 << 16):
+    """Wire format v2 for the pairwise kernel: ONE uint8 flush buffer
+
+        [called bits H x Sp/8 | alt bits H x Sp/8 |
+         first int32[wp] | n_sites int32[wp] |
+         ex_w int32[ep] | ex_codes int8[ep, H]]
+
+    ``called``/``alt`` are 1-bit planes (2 bits/site/haplotype vs the 3 of
+    :func:`pack_span`) valid for sites with <= 2 distinct called alleles;
+    multi-allelic *exception* sites are cleared from the planes and shipped
+    as explicit (window, codes) patch entries — one per (window, site) pair
+    for overlapping windows.  Returns (buffer, Sp, ep); ep == 0 when the
+    flush has no exceptions (pad entries carry ex_w == wp and are dropped by
+    the kernel's one-hot scatter).
+    """
+    H, S = alleles.shape
+    Sp = _bucket_sites(max(S, 1), min_bucket)
+    sp8 = Sp // 8
+    W = first.shape[0]
+    planes = np.empty(2 * H * sp8, dtype=np.uint8)
+    called_out = planes[:H * sp8].reshape(H, sp8)
+    alt_out = planes[H * sp8:].reshape(H, sp8)
+
+    res = None
+    if os.environ.get("GGT_NO_NATIVE_PARSER") != "1":
+        from ..io import native
+        res = native.pack_pair_planes_native(alleles, called_out, alt_out, sp8)
+    if res is None:
+        res = _pack_pair_planes_numpy(alleles, called_out, alt_out, sp8)
+    refalt, ex_idx = res
+
+    meta = np.zeros(2 * wp, np.int32)
+    meta[:W] = first
+    meta[wp:wp + W] = n_sites
+
+    ep, ex_buf = _exception_buf(alleles, ex_idx, first, n_sites, wp, ep_min)
+    buf = np.concatenate([planes, meta.view(np.uint8), ex_buf])
+    return buf, Sp, ep
+
+
+class PairWireV2(NamedTuple):
+    """Typed views of one wire-v2 buffer (all share its storage):
+    ``called`` and ``alt`` the bit planes as int32 words [h, Sp/32];
+    ``first`` and ``n_sites`` int32 [wp]; ``ex_w`` int32 [ep] (``== wp``
+    for padding entries) and ``ex_codes`` int8 [ep, h] the exception
+    section, laid out as wire v3's."""
+    buf: torch.Tensor
+    called: torch.Tensor
+    alt: torch.Tensor
+    first: torch.Tensor
+    n_sites: torch.Tensor
+    ex_w: torch.Tensor
+    ex_codes: torch.Tensor
+    h: int
+    wp: int
+
+
+def pair_wire_v2_views(buf, sp: int, h: int, wp: int, ep: int) -> PairWireV2:
+    """Typed views of a :func:`pack_pair_wire` buffer (the uint8 numpy
+    array, or a uint8 tensor holding it on any device), with the static
+    sizes the packer returned.  Sp is a multiple of 32, so each plane row
+    is read as words in place.  No data is copied."""
+    if isinstance(buf, np.ndarray):
+        buf = torch.from_numpy(buf)
+    if buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise ValueError("wire buffer must be a flat uint8 array")
+    if sp % 32:
+        raise ValueError(f"plane width {sp} is not a multiple of 32")
+    p8 = sp // 8
+    base = 2 * h * p8
+    size = base + 8 * wp + 4 * ep + ep * h
+    if buf.numel() != size:
+        raise ValueError(f"wire buffer holds {buf.numel()} bytes, "
+                         f"expected {size}")
+    called = buf[:h * p8].view(torch.int32).view(h, p8 // 4)
+    alt = buf[h * p8:base].view(torch.int32).view(h, p8 // 4)
+    meta = buf[base:base + 8 * wp].view(torch.int32)
+    ex0 = base + 8 * wp
+    ex_w = buf[ex0:ex0 + 4 * ep].view(torch.int32)
+    ex_codes = buf[ex0 + 4 * ep:size].view(torch.int8).view(ep, h)
+    return PairWireV2(buf, called, alt, meta[:wp], meta[wp:], ex_w, ex_codes,
+                      h, wp)
+
+
+def unpack_pair_wire(wire: PairWireV2):
+    """Plain PyTorch inverse of :func:`pack_pair_wire` (the JAX
+    ``transfer.unpack_pair_wire`` contract): (code2 int8 [h, sp] with bit 0
+    = called and bit 1 = alt, first int32 [wp], n_sites int32 [wp], ex_w
+    int32 [ep], ex_codes int8 [ep, h])."""
+    code2 = _bits(wire.called) | (_bits(wire.alt) << 1)
+    return code2, wire.first, wire.n_sites, wire.ex_w, wire.ex_codes
 
 
 # -------------------------------------------------------- wire v3

@@ -267,11 +267,15 @@ def test_wrappers_reject_bad_input(monkeypatch):
         port_abba.window_abba_sums_dispatch(
             al, first, np.array([1301], np.int32), mask, n_pops, 0.3,
             "minor", True)
+    # GGT_PACKED_TRANSFER=0 is no bad input: the kernel route ships the
+    # flush buffer either way, as the JAX fused route does
+    monkeypatch.setenv("GGT_DEVICE", "cpu")
+    args = (al, first, np.array([100], np.int32), mask, n_pops, 0.3, "minor",
+            True)
+    packed = port_abba.window_abba_sums_dispatch(*args).collect()
     monkeypatch.setenv("GGT_PACKED_TRANSFER", "0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_abba.window_abba_sums_dispatch(
-            al, first, np.array([100], np.int32), mask, n_pops, 0.3,
-            "minor", True)
+    np.testing.assert_array_equal(
+        port_abba.window_abba_sums_dispatch(*args).collect(), packed)
 
 
 def test_empty_flush_gives_zero_rows(monkeypatch):

@@ -1,8 +1,9 @@
 """ABBABABAwindows / fourPopWindows through the PyTorch port
 (GGT_DEVICE=cpu: the kernels' plain versions): the ABBA goldens at one
 rounding quantum on the kernel route and at tol 0 under GGT_ABBA_HOST=1,
-the host executor, the jackknife, byte equality with the JAX CLI, and
-NotImplementedError for what is not ported."""
+the host executor, the jackknife, byte equality with the JAX CLI, the
+raw-upload route (GGT_PACKED_TRANSFER=0), and NotImplementedError for
+multi-process runs."""
 
 import numpy as np
 import pytest
@@ -88,7 +89,34 @@ def test_jackknife_kernel_and_host_routes_agree(tmp_path):
                                  {"GGT_PACKED_TRANSFER": "0"}],
                          ids=["multi_process", "raw_upload"])
 def test_port_out_of_slice_raises(env, tmp_path):
+    """Multi-process runs raise.  GGT_PACKED_TRANSFER=0 writes the packed
+    run's bytes (the kernel route ships its flush buffer either way)."""
     golden, module, args = CONFIGS[0]
-    with pytest.raises(AssertionError, match="NotImplementedError"):
-        run_cli(PORT[module], args + ["-o", str(tmp_path / "o.csv")],
-                env_extra={**CPU, **env})
+    if "GGT_NUM_PROCS" in env:
+        with pytest.raises(AssertionError, match="NotImplementedError"):
+            run_cli(PORT[module], args + ["-o", str(tmp_path / "o.csv")],
+                    env_extra={**CPU, **env})
+        return
+    run_cli(PORT[module], args + ["-o", str(tmp_path / "p.csv")],
+            env_extra=CPU)
+    run_cli(PORT[module], args + ["-o", str(tmp_path / "o.csv")],
+            env_extra={**CPU, **env})
+    assert (tmp_path / "o.csv").read_bytes() == \
+        (tmp_path / "p.csv").read_bytes()
+
+
+@pytest.mark.parametrize("golden,module,args", CONFIGS, ids=IDS)
+@pytest.mark.parametrize("env, tol", [
+    ({}, 1.01e-4),                        # the kernel route (K6, K7, K8)
+    ({"GGT_ABBA_HOST": "1"}, 0.0),        # per-site counts through K12
+], ids=["kernel", "abba_host"])
+def test_port_golden_raw_upload(golden, module, args, env, tol, tmp_path):
+    """Under GGT_PACKED_TRANSFER=0: the goldens on both routes, and the
+    bytes of the packed run."""
+    raw, packed = tmp_path / "raw.csv", tmp_path / "packed.csv"
+    run_cli(PORT[module], args + ["-o", str(raw)],
+            env_extra={**CPU, **env, "GGT_PACKED_TRANSFER": "0"})
+    run_cli(PORT[module], args + ["-o", str(packed)],
+            env_extra={**CPU, **env})
+    assert_csv_equal(G / golden, raw, tol=tol)
+    assert raw.read_bytes() == packed.read_bytes()

@@ -1,7 +1,8 @@
-"""The port's per-site count path (kernels/counts.py, plain PyTorch K6 on the
-CPU) against the JAX package on the same span-wire bytes: counts exactly,
-for messy inputs and 1, 5 and 9 groups; and the copied span packers give
-the JAX bytes."""
+"""The port's per-site count path (kernels/counts.py, plain PyTorch K6 and
+K12 on the CPU) against the JAX package: K6 on the same span-wire bytes,
+K12 on the same int8 matrix (raw uploads, device arrays, strided rows),
+counts exactly, for messy inputs, 1 to 12 masks and any 0/1 mask; and the
+copied span packers give the JAX bytes."""
 
 import jax
 import numpy as np
@@ -140,13 +141,125 @@ def test_counts_refuse_overlapping_groups(port_cpu):
 
 
 def test_counts_unported_routes_raise(port_cpu, monkeypatch):
+    """A device-array span and the raw GGT_PACKED_TRANSFER=0 upload count
+    through K12's (plain) path and give the JAX counts."""
     a = _alleles("s_mod8")
     mask = _mask(a.shape[0], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_counts.site_pop_counts_dispatch(torch.from_numpy(a), mask)
+    want = np.asarray(jax_counts.site_pop_counts(a, mask))
+    np.testing.assert_array_equal(port_counts.site_pop_counts_chunked(
+        torch.from_numpy(a), mask), want)
     monkeypatch.setenv("GGT_PACKED_TRANSFER", "0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_counts.site_pop_counts_dispatch(a, mask)
+    np.testing.assert_array_equal(
+        port_counts.site_pop_counts_chunked(a, mask, block=16), want)
+
+
+def _raw_alleles(seed, H, S):
+    """Raw int8 spans with messy codes: -1 and other negatives (missing),
+    codes above 3 (counted nowhere, as the JAX one-hot), all four alleles,
+    and trailing -1 pad sites as transfer.upload_span writes them."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-1, 4, size=(H, S)).astype(np.int8)
+    hit = rng.random((H, S))
+    a[hit < 0.02] = 5
+    a[(hit >= 0.02) & (hit < 0.03)] = -7
+    a[(hit >= 0.03) & (hit < 0.035)] = 127
+    a[:, -9:] = -1
+    return a
+
+
+@pytest.mark.parametrize("H, S", [(13, 1003), (40, 257), (7, 5)])
+@pytest.mark.parametrize("P", [1, 3, 9])
+def test_plain_raw_counts_match_jax(H, S, P):
+    """Plain K12 over site blocks that start anywhere (s0 not a multiple
+    of 8, S not a multiple of 4) == the JAX site_pop_counts of the same
+    int8 matrix, through the wrapper on CPU tensors, in uint16 out."""
+    a = _raw_alleles(H + S, H, S)
+    mask = _mask(H, P, seed=P)
+    want = np.asarray(jax_counts.site_pop_counts(a, mask))
+    at = torch.from_numpy(a)
+    got = port_counts.site_pop_counts_raw_plain(at, 0, S,
+                                                torch.from_numpy(mask))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    groups = port_pair.PopGroups(mask, torch.device("cpu"))
+    out = torch.empty((S, P, 4), dtype=port_counts.count_dtype(H))
+    bounds = [0, 3, 10, 11, S // 2 + 1, S]
+    for s0, s1 in zip(bounds[:-1], bounds[1:]):
+        if s0 <= s1 <= S:
+            port_counts.site_pop_counts_raw(at, s0, s1, groups, out[s0:s1])
+    assert out.dtype == torch.uint16
+    np.testing.assert_array_equal(out.numpy().astype(np.int32), want)
+
+
+def test_raw_counts_device_array_and_strided_rows(port_cpu, monkeypatch):
+    """A tensor span is counted where it lies: a bucket-padded upload read
+    through its [:, :S] view (strided rows), and a row-strided slice of a
+    wider matrix, both equal to JAX on the contiguous alleles; the padded
+    upload holds the bytes of the JAX raw upload_span (-1 pads to the
+    site bucket)."""
+    a = _raw_alleles(3, 21, 1001)
+    H, S = a.shape
+    mask = _mask(H, 4)
+    want = np.asarray(jax_counts.site_pop_counts(a, mask))
+    up = port_transfer.upload_span(a)
+    monkeypatch.setenv("GGT_PACKED_TRANSFER", "0")
+    np.testing.assert_array_equal(up.numpy(),
+                                  np.asarray(jax_transfer.upload_span(a)))
+    monkeypatch.delenv("GGT_PACKED_TRANSFER")
+    wide = torch.full((2 * H, S + 37), -1, dtype=torch.int8)
+    wide[::2, 5:S + 5] = torch.from_numpy(a)
+    for span in (up[:, :S], wide[::2, 5:S + 5]):
+        assert not span.is_contiguous()
+        got = port_counts.site_pop_counts_chunked(span, mask, block=128)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_raw_counts_int32_past_uint16():
+    """H >= 2^16: K12 writes int32 (a count of 2^16 would wrap a uint16),
+    equal to the JAX counts."""
+    H, S = 1 << 16, 6
+    a = np.zeros((H, S), np.int8)
+    a[:, 1] = 3
+    a[:100, 2] = -1
+    a[::2, 4] = 1
+    mask = np.zeros((2, H), np.float32)
+    mask[0] = 1.0
+    want = np.asarray(jax_counts.site_pop_counts(a, mask))
+    groups = port_pair.PopGroups(mask, torch.device("cpu"))
+    out = port_counts.count_raw(torch.from_numpy(a), S, groups, block=8)
+    assert out.dtype == torch.int32 and int(out.max()) == 1 << 16
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_mask_classes_any_mask_matches_jax(port_cpu, monkeypatch):
+    """P = 12 overlapping mask rows (unions, a row of every haplotype, an
+    empty row, rows in no mask): the class counts combined on the host ==
+    the JAX one-hot matmul, on the packed (K6), raw (K12) and host routes;
+    classes come in ascending code order."""
+    a = _alleles("s_mod8")
+    H = a.shape[0]
+    rng = np.random.default_rng(12)
+    mask = (rng.random((12, H)) < 0.3).astype(np.float32)
+    mask[9] = mask[0] + mask[1] > 0
+    mask[10] = 1.0
+    mask[11] = 0.0
+    mask[:, :2] = 0.0
+    classes = port_counts.MaskClasses(mask, torch.device("cpu"))
+    codes = (classes.bits << np.arange(12)).sum(axis=1)
+    assert (np.diff(codes) > 0).all()
+    np.testing.assert_array_equal(classes.codes.numpy(), codes)
+    np.testing.assert_array_equal(
+        classes.bits[classes.groups.mask.numpy().argmax(axis=0)],
+        (mask.T > 0).astype(np.int64))
+    want = np.asarray(jax_counts.site_pop_counts(a, mask))
+    for env in ({}, {"GGT_PACKED_TRANSFER": "0"}, {"GGT_EXEC": "host"}):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        got = port_counts.site_pop_counts_chunked(a, mask, block=64)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        for k in env:
+            monkeypatch.delenv(k)
 
 
 def test_count_dtype_widens_past_uint16():

@@ -16,6 +16,7 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.encoding",
     "genomics_general_tpu_torch.samples",
     "genomics_general_tpu_torch.windows",
+    "genomics_general_tpu_torch.regions",
     "genomics_general_tpu_torch.engine",
     "genomics_general_tpu_torch.testing",
     "genomics_general_tpu_torch.io",
@@ -26,6 +27,9 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.stats.popgen",
     "genomics_general_tpu_torch.stats.abbababa",
     "genomics_general_tpu_torch.stats.jackknife",
+    "genomics_general_tpu_torch.stats.sfs",
+    "genomics_general_tpu_torch.stats.sfs_accum",
+    "genomics_general_tpu_torch.stats.filters",
     "genomics_general_tpu_torch.parallel",
     "genomics_general_tpu_torch.parallel.multihost",
     "genomics_general_tpu_torch.kernels",
@@ -43,6 +47,9 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.cli.four_pop_windows",
     "genomics_general_tpu_torch.cli.dist_mat",
     "genomics_general_tpu_torch.cli.dist_paint",
+    "genomics_general_tpu_torch.cli.freq",
+    "genomics_general_tpu_torch.cli.sfs",
+    "genomics_general_tpu_torch.cli.filter_genotypes",
 ]
 
 _PROBE = """

@@ -159,10 +159,15 @@ def test_dispatch_counts_no_launch_on_cpu(port_cpu):
 
 
 def test_wire_v2_not_ported(port_cpu, monkeypatch):
+    """GGT_WIRE=2 runs the blocks route on wire v2 (K13): the v3 route's
+    sums and counts (tests/test_torch_pair_v2.py holds it against JAX)."""
     a, first, n = _case("disjoint")
+    mask = np.ones((1, a.shape[0]))
+    want = _dispatch(port_pair, a, first, n, mask, 0, "tpu")
     monkeypatch.setenv("GGT_WIRE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _dispatch(port_pair, a, first, n, np.ones((1, a.shape[0])), 0, "tpu")
+    got = _dispatch(port_pair, a, first, n, mask, 0, "tpu")
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, atol=1e-15)
 
 
 @pytest.mark.parametrize("name", ["disjoint", "overlap", "large_h",
@@ -285,13 +290,14 @@ def test_ind_blocks_dispatch_matches_jax_and_host(port_cpu, name, kind):
 
 
 def test_pair_counts_unported_routes_raise(port_cpu, monkeypatch):
-    """The wire-v2 pair kernels (GGT_WIRE=2) raise on the tri route,
-    naming their ROADMAP row; the device-array span and the raw upload
-    run the general 4-state counts (tests/test_torch_pair4.py)."""
+    """The wire-v2 tri route (GGT_WIRE=2) gives the v3 route's integers;
+    the device-array span and the raw upload run the general 4-state counts
+    (tests/test_torch_pair4.py)."""
     a, first, n = _case("disjoint")
+    want = port_pair.window_pair_counts(a, first, n)
     monkeypatch.setenv("GGT_WIRE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, row 5"):
-        port_pair.window_pair_counts_dispatch(a, first, n)
+    for g, w in zip(port_pair.window_pair_counts(a, first, n), want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_het_rows_refuse_out_of_range():

@@ -1,7 +1,8 @@
 """popgenWindows through the PyTorch port (GGT_DEVICE=cpu: the kernels'
 plain versions): the goldens at tol 0, byte equality with the JAX CLI for
 every analysis, the fused routes against the general host finalize and
-the host executor, and NotImplementedError for what is not ported."""
+the host executor, the raw-upload route (GGT_PACKED_TRANSFER=0) against
+the packed one, and NotImplementedError for multi-process runs."""
 
 import pytest
 
@@ -217,11 +218,61 @@ def test_port_whh_cap_bounds_hapstats_flushes(tmp_path, monkeypatch):
     (["--analysis", "popFreq"], {"GGT_PACKED_TRANSFER": "0"}),
 ], ids=["multi_process", "wire_v2", "raw_upload"])
 def test_port_out_of_slice_raises(tmp_path, monkeypatch, extra, env):
+    """Multi-process runs raise, naming their ROADMAP item.  GGT_WIRE=2
+    (K13) and GGT_PACKED_TRANSFER=0 (K9, K12) write the default route's
+    bytes."""
     monkeypatch.setenv("GGT_DEVICE", "cpu")
+    from genomics_general_tpu_torch.cli import popgen_windows
+    args = ["-g", str(D / "sim1.geno.gz"), "-f", "phased", "-w", "50000",
+            *POPS, *extra]
+    if "GGT_NUM_PROCS" not in env:
+        assert popgen_windows.main(args + ["-o", str(tmp_path / "d.csv")]) \
+            == 0
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if "GGT_NUM_PROCS" in env:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            popgen_windows.main(args + ["-o", str(tmp_path / "o.csv")])
+        return
+    assert popgen_windows.main(args + ["-o", str(tmp_path / "o.csv")]) == 0
+    assert (tmp_path / "o.csv").read_bytes() == \
+        (tmp_path / "d.csv").read_bytes()
+
+
+@pytest.mark.parametrize("name", sorted(GOLDENS))
+def test_port_golden_raw_upload(tmp_path, name):
+    """The popgen goldens under GGT_PACKED_TRANSFER=0 (the blocks route
+    ships its wire either way, as the JAX package's does)."""
+    args, golden = GOLDENS[name]
+    out = tmp_path / "o.csv"
+    run_cli(PORT, args + ["--analysis", "popDist", "popPairDist",
+                          "-o", str(out)],
+            env_extra={**CPU, "GGT_PACKED_TRANSFER": "0"})
+    assert_csv_equal(G / golden, out)
+
+
+@pytest.mark.parametrize("analysis", [
+    RUN_A, ["--analysis", "popFreq"], ["--analysis", "hapStats", "popFreq"],
+    ["--analysis", "popDist", "popPairDist", "--fstMethod", "WC"],
+], ids=["run_A", "popFreq", "hapStats_popFreq", "fstWC"])
+def test_port_raw_upload_bytes_equal_packed(tmp_path, monkeypatch, analysis):
+    """GGT_PACKED_TRANSFER=0 with pair and site counts in one run: one raw
+    upload per flush serves both (K9's and K12's plain versions), and the
+    bytes equal the packed run's; the coordinate full panel golden too."""
+    monkeypatch.setenv("GGT_DEVICE", "cpu")
     from genomics_general_tpu_torch.cli import popgen_windows
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        popgen_windows.main(["-g", str(D / "sim1.geno.gz"), "-f", "phased",
-                             "-w", "50000", *POPS, *extra,
-                             "-o", str(tmp_path / "o.csv")])
+    from genomics_general_tpu_torch.kernels import transfer
+    args = SIM1_W + analysis
+    packed, raw = tmp_path / "packed.csv", tmp_path / "raw.csv"
+    assert popgen_windows.main(args + ["-o", str(packed)]) == 0
+    monkeypatch.setenv("GGT_PACKED_TRANSFER", "0")
+    uploads = []
+    real = transfer.upload_span
+
+    def counting(span, *a):
+        uploads.append(span.shape)
+        return real(span, *a)
+    monkeypatch.setattr(transfer, "upload_span", counting)
+    assert popgen_windows.main(args + ["-o", str(raw)]) == 0
+    assert raw.read_bytes() == packed.read_bytes()
+    assert uploads, "the raw route did not upload the span"
