@@ -36,7 +36,15 @@ not build, launch or agree, or an output is wrong):
    overlapping mask's classes) against its plain version, and equal to K6
    on the same alleles; K13 pair_counts_v2 + K2 against their plain
    versions and against K1 + K2 on the same flushes, with K3 (bit for
-   bit), K4 and K5 on both;
+   bit), K4 and K5 on both; K14 pair_counts_4state_rows on row blocks that
+   cut K9's tiles against K9's rows and its plain version (the split path
+   too), and the mesh's data- and tensor-parallel pair counts on two
+   shards of the card against K9 (two-window shards on K9's split path);
+   K15 global_sfs_hist on counts built to tie against its plain version
+   (uint16 and int32); K16 stacked_reduce (sum, min; int64 beyond 2^31,
+   int32) against torch.sum / torch.amin; window_stats_step over 66,000
+   windows (past the 65,535 a K9 or K11 launch takes) equal to its chunks
+   run one at a time;
 3. the runs end to end through the port's CLIs at H = 512 (256 diploid
    individuals in 4 populations of 64), 50 kb windows: popgenWindows
    popDist popPairDist (500,000 sites: K1, K2, K3); run A, popFreq popDist
@@ -66,14 +74,25 @@ not build, launch or agree, or an output is wrong):
    first 4,000 sites.  Run K reruns popDist, A and B under GGT_WIRE=2
    (K13 in place of K1), run L reruns A (K9 + K4 + K12 from one raw upload
    per flush) and C (kernel route K6-K8; GGT_ABBA_HOST=1 through K12)
-   under GGT_PACKED_TRANSFER=0: each byte-identical to its first run;
+   under GGT_PACKED_TRANSFER=0: each byte-identical to its first run.
+   Runs M and N rerun A and C with cli.common.get_mesh patched to a mesh
+   of two shards of the card (M: K9 + K4 on each window slab and K6 on
+   each site slab, no K1; N: K6 + K7 on each replica, K8 on each window
+   slab), every launch inside a shard's call and every shard launching,
+   each byte-identical to its meshless run; run O reruns popDist on that
+   mesh, which takes it off the blocks route (K9 + K4, the host's tri
+   finalize), within one rounding quantum of its blocks run; then the
+   port's dryrun_multichip over every card (K14, K15, K16 launched);
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events,
    beside the bound computed from these inputs (K9 at run E's block and
    at run F's and run A's largest flushes, where the K9 + K4 and K1 + K2 +
    K4 routes are timed side by side; K10 and K11 at run G's shape; K12 at
    run H's span beside K6, K13 at the popDist chunk beside K1, and K13 +
-   K2 + tails against K1 + K2 + tails on run A's and run B's flushes);
+   K2 + tails against K1 + K2 + tails on run A's and run B's flushes;
+   K14 at run A's largest flush on two row shards; K15 and K16 over the
+   500,000-site cohort's first three populations made complete, 129^3
+   bins, against the mesh's sharded_global_sfs on two shards);
 4. the popDist goldens and the full-panel popgen_coord.csv golden of
    tests/golden through the port's CLI on the card, the fused
    individual-blocks route against GGT_HOST_DIST_FINALIZE=1 on four
@@ -135,6 +154,12 @@ KERNELS = {
                             "genomics_general_tpu/kernels/counts.py:36"),
     "pair_counts_v2": ("pair_v3.cu",
                        "genomics_general_tpu/kernels/pairdist.py:288"),
+    "pair_counts_4state_rows": ("pair4.cu",
+                                "genomics_general_tpu/parallel/mesh.py:74"),
+    "global_sfs_hist": ("counts.cu",
+                        "genomics_general_tpu/parallel/mesh.py:134"),
+    "stacked_reduce": ("counts.cu",
+                       "genomics_general_tpu/parallel/multihost.py:161"),
 }
 SOURCES = ("pair_v3", "counts", "abba", "pair4", "window_stats")
 # H100 SXM data-sheet rates (the bound's denominators); a card set below
@@ -166,6 +191,13 @@ N_SITES_J = 4_000
 K10_RTOL = 1e-6                       # K10 vs its plain version (float32)
 G_RTOL, G_FST_RTOL, G_FST_ATOL = 2e-5, 2e-4, 2e-5  # run G vs float64
 QUANTUM = 1e-4                        # one --roundTo 4 rounding step
+# runs M and N: the device mesh as two shards of one card (the chip has
+# one); the K15 phase: the popDist cohort's first three populations (128
+# haplotypes each: 129^3 bins), missing calls filled as in run G
+MESH_SHARDS = 2
+SFS_POPS = ["pop1", "pop2", "pop3"]
+# window_stats_step past K9's and K11's 65,535-window grid axis
+STEP_WINDOWS, STEP_H, STEP_SITES = 66_000, 8, 70_000
 POPS4 = ["-p", "pop1", "-p", "pop2", "-p", "pop3", "-p", "pop4"]
 ABBA_POPS = ["-P1", "pop1", "-P2", "pop2", "-P3", "pop3", "-O", "pop4"]
 ABBA_KERNELS = ("site_pop_counts", "abba_site_terms", "abba_window_sums")
@@ -1043,9 +1075,10 @@ def k9_bound(H: int, in_bytes: float, sites: float, nwin: int):
                  INT8_OPS_PER_S)
 
 
-def gram_yardstick(wa, valid):
-    """The library yardstick of K9: the two bf16 one-hot torch.matmul
-    Grams of the JAX kernel over gathered windows [B, H, s].  torch returns
+def gram_yardstick(wa, valid, rows=slice(None)):
+    """The library yardstick of K9 (and, on a row block ``rows``, of K14):
+    the two bf16 one-hot torch.matmul Grams of the JAX kernel over gathered
+    windows [B, H, s], the left factors cut to ``rows``.  torch returns
     them in bf16 (JAX asks XLA for float32), which rounds counts above
     256, so the yardstick is timed, not compared.  Returns a callable."""
     import torch
@@ -1054,10 +1087,11 @@ def gram_yardstick(wa, valid):
     codes = torch.arange(4, device=wa.device, dtype=torch.int8)
     oh = ((wa[..., None] == codes) & keep[..., None]).to(torch.bfloat16)
     oh = oh.reshape(wa.shape[0], wa.shape[1], -1)
+    called_r, oh_r = called[:, rows], oh[:, rows]
 
     def grams():
-        return (torch.matmul(called, called.transpose(1, 2)),
-                torch.matmul(oh, oh.transpose(1, 2)))
+        return (torch.matmul(called_r, called.transpose(1, 2)),
+                torch.matmul(oh_r, oh.transpose(1, 2)))
     return grams
 
 
@@ -1266,6 +1300,449 @@ def time_k13(pair, transfer, flush, dev, sm_count: int, clk_hz: float):
     del c, ca
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------- K14, K15, K16 and the mesh routes
+
+K14_BLOCKS = {160: [(0, 160), (30, 97), (64, 128), (150, 160)],
+              77: [(0, 77), (5, 70), (63, 65)]}
+
+
+def shard_mesh(pmesh, dev):
+    """The mesh of the mesh checks: MESH_SHARDS shards of one card."""
+    import torch
+    return pmesh.Mesh([torch.device(dev.type, dev.index or 0)] * MESH_SHARDS)
+
+
+def mesh_parity(pair, pmesh, mesh, a, first, n, m, s) -> None:
+    """The mesh's pair counts on ``mesh`` against K9's counts ``m``, ``s``
+    of the same windows: data-parallel over the first four windows (0, 1,
+    777 and 66,000 sites: on two shards each shard's two windows take K9's
+    split, atomic path) and over all of them, and tensor-parallel (K14 on
+    each row shard) over all of them."""
+    import torch
+    s_max = int(n.max())
+    if pair._k9_splits(a.shape[0], 2, s_max, mesh.devices[0])[0] <= 1:
+        raise AssertionError("two-window shards should split K9's sites")
+    want = torch.stack([m, s]).cpu()
+    for w in (4, first.shape[0]):
+        got = pmesh.sharded_window_pair_counts(a, first[:w], n[:w], mesh,
+                                               s_max=s_max)
+        check_equal(f"sharded_window_pair_counts ({w} windows) vs K9",
+                    torch.from_numpy(np.stack(got)), want[:, :w])
+    got = pmesh.sharded_pair_counts_tp(a, first, n, mesh, s_max=s_max)
+    check_equal("sharded_pair_counts_tp vs K9",
+                torch.from_numpy(np.stack(got)), want)
+    torch.cuda.synchronize()
+
+
+def k14_parity(pair, at, f, k, m, s, s_max) -> None:
+    """K14 on row blocks that cut K9's 64-row tiles (K14_BLOCKS) against
+    the rows of K9's counts ``m``, ``s`` of the same windows (0, 1 and
+    66,000 sites among them), one block against its plain version, and
+    the first four windows alone (the split, atomic path)."""
+    import torch
+    H = at.shape[0]
+    for r0, r1 in K14_BLOCKS[H]:
+        mr, sr = pair.pair_counts_4state_rows(at, f, k, r0, r1, s_max)
+        check_equal(f"pair_counts_4state_rows m H={H} rows {r0}..{r1} vs "
+                    "K9", mr, m[:, r0:r1])
+        check_equal(f"pair_counts_4state_rows s H={H} rows {r0}..{r1} vs "
+                    "K9", sr, s[:, r0:r1])
+    r0, r1 = K14_BLOCKS[H][1]
+    mr, sr = pair.pair_counts_4state_rows(at, f, k, r0, r1, s_max)
+    mp, sp = pair.pair_counts_4state_plain(at, f, k, r0, r1)
+    check_equal(f"pair_counts_4state_rows m H={H} vs plain", mr, mp)
+    check_equal(f"pair_counts_4state_rows s H={H} vs plain", sr, sp)
+    for w in range(4):
+        m1, s1 = pair.pair_counts_4state_rows(at, f[w:w + 1], k[w:w + 1], r0,
+                                              r1, int(k[w]))
+        check_equal(f"pair_counts_4state_rows H={H} window {w} alone",
+                    torch.stack([m1, s1]), torch.stack([m, s])[:, w:w + 1,
+                                                               r0:r1])
+    torch.cuda.synchronize()
+
+
+def sfs_parity(counts, dev) -> None:
+    """K15 against its plain version on counts built to tie (complete
+    sites split 8/8 between two alleles, where numpy's argsort and the
+    stable order pick different targets), 9/7 splits, monomorphic sites,
+    8/5/3 three-allele sites and 9/7 sites with a missing call, as uint16
+    and int32; K16 against torch.sum / torch.amin over stacks of 1, 2 and
+    5 rows, int64 beyond 2^31 and int32."""
+    import torch
+    rng = np.random.default_rng(15)
+    n_hap = np.array([6, 6, 4])
+    H, S = int(n_hap.sum()), 20_000
+    a = np.empty((S, H), np.int8)
+    kind = np.arange(S) % 5
+    xyz = np.argsort(rng.random((S, 4)), axis=1)[:, :3].astype(np.int8)
+    order = np.argsort(rng.random((S, H)), axis=1)
+    split = np.array([H // 2, H // 2 + 1, H, H // 2, H // 2 + 1])[kind]
+    a[:] = np.where(order < split[:, None], xyz[:, :1], xyz[:, 1:2])
+    third = (kind == 3)[:, None] & (order >= H - 3)
+    a[third] = np.broadcast_to(xyz[:, 2:3], a.shape)[third]
+    a[(kind == 4)[:, None] & (order == 0)] = -1
+    onehot = (a[:, :, None] == np.arange(4)).astype(np.int32)   # [S, H, 4]
+    c = np.add.reduceat(onehot, np.r_[0, np.cumsum(n_hap)[:-1]], axis=1)
+    for dt in (torch.uint16, torch.int32):
+        ct = torch.from_numpy(c).to(dev, dt)
+        got = counts.global_sfs_hist(ct, n_hap)
+        want = counts.global_sfs_hist_plain(ct, n_hap)
+        check_equal(f"global_sfs_hist ({dt}) vs plain", got, want)
+        if int(got.sum()) != int((kind < 3).sum()):
+            raise AssertionError(f"global_sfs_hist: {int(got.sum())} sites "
+                                 f"binned, {(kind < 3).sum()} pass")
+    for dt, lim in ((torch.int64, 1 << 58), (torch.int32, 1 << 28)):
+        for kk in (1, 2, 5):
+            x = torch.from_numpy(rng.integers(-lim, lim, size=(kk, 1001))).to(
+                dev, dt)
+            x[:, 0] = lim - 1 - torch.arange(kk, device=dev, dtype=dt)
+            for op, ref in (("sum", lambda t: t.sum(dim=0, dtype=dt)),
+                            ("min", lambda t: t.amin(dim=0))):
+                check_equal(f"stacked_reduce {op} {dt} k={kk}",
+                            counts.stacked_reduce(x, op), ref(x))
+    torch.cuda.synchronize()
+
+
+def step_past_grid(pair, ws, dev) -> dict:
+    """window_stats_step over STEP_WINDOWS windows (more than the 65,535 a
+    K9 or K11 launch takes, which K9 refuses): its K9, K10 and K11
+    launches come in STEP_CHUNK chunks, and every output equals the
+    chunks run one at a time (float32 bit for bit)."""
+    import torch
+    rng = np.random.default_rng(16)
+    a = rng.integers(0, 4, size=(STEP_H, STEP_SITES)).astype(np.int8)
+    a[rng.random(a.shape) < 0.05] = -1
+    first = rng.integers(0, STEP_SITES - 8, size=STEP_WINDOWS).astype(
+        np.int32)
+    n = rng.integers(0, 9, size=STEP_WINDOWS).astype(np.int32)
+    pm = np.zeros((2, STEP_H), np.float32)
+    pm[0, :STEP_H // 2] = pm[1, STEP_H // 2:] = 1
+    at, f, k, pmt = (torch.from_numpy(x).to(dev) for x in (a, first, n, pm))
+    try:
+        pair.pair_counts_4state(at, f, k, 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"K9 took {STEP_WINDOWS} windows in one launch")
+    reset((pair, ws))
+    whole = ws.window_stats_step(at, f, k, pmt)
+    launches = {x: v for x, v in launches_of((pair, ws)).items() if v}
+    c = ws.STEP_CHUNK
+    if launches != {kern: -(-STEP_WINDOWS // c) for kern in (
+            "pair_counts_4state", "window_stats_tail", "window_pop_counts")}:
+        raise AssertionError(f"window_stats_step launches {launches}")
+    parts = [ws.window_stats_step(at, f[w0:w0 + c], k[w0:w0 + c], pmt)
+             for w0 in range(0, STEP_WINDOWS, c)]
+    for key, v in whole.items():
+        joined = torch.cat([p[key] for p in parts])
+        if v.dtype == torch.float32:
+            check_same(f"window_stats_step {key} vs its chunks", v, joined)
+        else:
+            check_equal(f"window_stats_step {key} vs its chunks", v, joined)
+    torch.cuda.synchronize()
+    return launches
+
+
+def k14_bound(R: int, H: int, in_bytes: float, sites: float, nwin: int):
+    """K14's least time, K9's over the rectangle of R rows and H columns:
+    the input read once and both [nwin, R, H] count blocks written, over
+    the HBM rate, and the one-hot Gram's work (2 R H 5 sites) at the dense
+    int8 tensor rate."""
+    return bound(in_bytes + 8 * nwin * R * H, 2 * R * H * 5 * sites,
+                 INT8_OPS_PER_S)
+
+
+def time_k14(pair, transfer, flush, dev) -> dict:
+    """K14 at run A's largest flush (all its windows in one launch) on
+    MESH_SHARDS row shards: each shard equal to K9's rows; the first
+    shard's launch timed beside its plain version and the bf16 one-hot
+    Grams of its row block."""
+    import torch
+    a, first, n = flush
+    H, S = a.shape
+    W = first.shape[0]
+    b = torch.from_numpy(transfer.pack_raw_span(a, first, n)).to(dev)
+    al, f, k = transfer.raw_span_views(b, H, S, W)
+    s_max = int(n.max())
+    m, s = pair.pair_counts_4state(al, f, k, s_max)
+    q = -(-H // MESH_SHARDS)
+    shards = [(r, min(r + q, H)) for r in range(0, H, q)]
+    for r0, r1 in shards:
+        mr, sr = pair.pair_counts_4state_rows(al, f, k, r0, r1, s_max)
+        check_equal(f"pair_counts_4state_rows (run A flush, rows {r0}..{r1})"
+                    " m vs K9", mr, m[:, r0:r1])
+        check_equal(f"pair_counts_4state_rows (run A flush, rows {r0}..{r1})"
+                    " s vs K9", sr, s[:, r0:r1])
+    r0, r1 = shards[0]
+    mr, sr = pair.pair_counts_4state_rows(al, f, k, r0, r1, s_max)
+    mp, sp = pair.pair_counts_4state_plain(al, f, k, r0, r1)
+    err = max(check_equal("pair_counts_4state_rows (run A flush) m vs plain",
+                          mr, mp),
+              check_equal("pair_counts_4state_rows (run A flush) s vs plain",
+                          sr, sp))
+    del mr, sr, mp, sp
+    offs = torch.arange(s_max, device=dev)
+    idx = f[:, None].long() + offs[None, :]
+    valid = offs[None, :] < k[:, None]
+    wa = al[:, torch.where(valid, idx, torch.zeros_like(idx))] \
+        .permute(1, 0, 2)
+    grams = gram_yardstick(wa, valid, slice(r0, r1))
+    res = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: pair.pair_counts_4state_rows(
+               al, f, k, r0, r1, s_max), 10),
+           "plain_ms": cuda_ms(lambda: pair.pair_counts_4state_plain(
+               al, f, k, r0, r1), 2, 1),
+           "library_ms": cuda_ms(grams, 5),
+           "k9_ms": cuda_ms(lambda: pair.pair_counts_4state(al, f, k, s_max),
+                            10)}
+    covered = int((first + n).max() - first.min())
+    res["bound"] = k14_bound(r1 - r0, H, H * min(covered, S),
+                             float(n.astype(np.int64).sum()), W)
+    res["shape"] = (f"{W} windows, rows {r0}..{r1} of H={H} "
+                    f"({len(shards)} row shards), longest {s_max} sites")
+    del wa, grams
+    torch.cuda.empty_cache()
+    return res
+
+
+def sfs_full_width(counts, pmesh, mesh, geno, pops, dev) -> dict:
+    """K15 and K16 at full width: the popDist cohort's SFS_POPS (3 x 128
+    haplotypes, 129^3 = 2,146,689 bins) over its 500,000 sites, each
+    missing call filled with an allele of its own site (complete data, as
+    run G).  K15 over all sites equals its plain version, K16's sum of K15
+    over MESH_SHARDS site shards (K12 counts per shard; K16 equal to its
+    plain version on that stack) and the mesh's sharded_global_sfs on
+    ``mesh``; K15's time beside
+    ``torch.bincount`` of the passing sites' precomputed flat indices,
+    K16's beside ``torch.sum``."""
+    import torch
+    from genomics_general_tpu_torch.io import geno as geno_io
+    from genomics_general_tpu_torch.samples import SampleData
+    sd = SampleData.from_pop_args(population_args=[[x] for x in SFS_POPS],
+                                  pops_file=str(pops), geno_format="phased")
+    reader = geno_io.GenoReader(str(geno), sample_data=sd,
+                                geno_format="phased")
+    a = reader.read_all().alleles
+    a = np.ascontiguousarray(np.where(a < 0, a.max(axis=0)[None, :], a))
+    pm = reader.model.pop_mask(SFS_POPS)
+    n_hap = pm.sum(axis=1).astype(np.int64)
+    H, S = a.shape
+    groups = counts.PopGroups(pm, dev)
+    at = torch.from_numpy(a).to(dev)
+    c = counts.count_raw(at, S, groups)
+    hist = counts.global_sfs_hist(c, n_hap)
+    err = check_equal("global_sfs_hist (full width) vs plain", hist,
+                      counts.global_sfs_hist_plain(c, n_hap))
+    parts = []
+    for r0, r1 in [(r, min(r + -(-S // MESH_SHARDS), S))
+                   for r in range(0, S, -(-S // MESH_SHARDS))]:
+        cs = counts.count_raw(at[:, r0:r1].contiguous(), r1 - r0, groups)
+        parts.append(counts.global_sfs_hist(cs, n_hap))
+    stack = torch.stack(parts)
+    k16_err = check_equal("stacked_reduce (full width) vs plain",
+                          counts.stacked_reduce(stack, "sum"),
+                          counts.stacked_reduce_plain(stack, "sum"))
+    check_equal("stacked_reduce of the shards' K15 vs K15 over all sites",
+                counts.stacked_reduce(stack, "sum"), hist)
+    check_equal(f"sharded_global_sfs on {mesh} vs K15 over all sites",
+                torch.from_numpy(pmesh.sharded_global_sfs(a, pm, n_hap, mesh)
+                                 .reshape(-1)), hist)
+    binned = int(hist.sum())
+    # the passing sites' flat bin indices, as the plain version makes them
+    cl = c.to(torch.int64)
+    total = cl.sum(dim=1)
+    nh = torch.from_numpy(n_hap).to(dev)
+    ok = (cl.sum(dim=2) == nh).all(dim=1) & ((total > 0).sum(dim=1) <= 2)
+    tgt = torch.gather(cl, 2, torch.argsort(total, dim=1, stable=True)[
+        :, 2, None, None].expand(-1, cl.shape[1], 1))[:, :, 0]
+    dims = counts.sfs_dims(n_hap)
+    stride = torch.tensor([int(np.prod(dims[p + 1:])) for p in
+                           range(len(dims))], device=dev)
+    flat = (tgt * stride).sum(dim=1)[ok]
+    nbins = int(np.prod(dims))
+    check_equal("torch.bincount yardstick vs K15",
+                torch.bincount(flat, minlength=nbins), hist)
+    del cl, total, tgt
+    k15 = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: counts.global_sfs_hist(c, n_hap), 20),
+           "plain_ms": cuda_ms(lambda: counts.global_sfs_hist_plain(
+               c, n_hap), 3, 1),
+           "library_ms": cuda_ms(lambda: torch.bincount(
+               flat, minlength=nbins), 20),
+           # the counts read once, n_hap, the histogram written
+           "bound": bound(c.numel() * c.element_size() + 4 * len(n_hap)
+                          + 4 * nbins),
+           "shape": (f"{S} sites, P={len(n_hap)}, {nbins} bins, {binned} "
+                     "sites binned")}
+    k16 = {"max_abs_err": k16_err,
+           "ms": cuda_ms(lambda: counts.stacked_reduce(stack, "sum"), 20),
+           "plain_ms": cuda_ms(lambda: counts.stacked_reduce_plain(
+               stack, "sum"), 20),
+           "library_ms": cuda_ms(lambda: torch.sum(stack, dim=0,
+                                                   dtype=stack.dtype), 20),
+           # the stack read once, one row written
+           "bound": bound(stack.numel() * stack.element_size()
+                          + nbins * stack.element_size()),
+           "shape": f"[{stack.shape[0]}, {nbins}] int32, sum"}
+    log(f"[kernel] global_sfs_hist at full width ({k15['shape']}): K15 == "
+        f"plain == {MESH_SHARDS} shards + K16 (== plain) == "
+        f"sharded_global_sfs on {mesh} == torch.bincount")
+    del at, c, flat, stack, parts
+    torch.cuda.empty_cache()
+    return {"global_sfs_hist": k15, "stacked_reduce": k16}
+
+
+@contextlib.contextmanager
+def shard_calls(transfer, mods, dispatches):
+    """While open, each call of a dispatch in ``dispatches`` (module,
+    attribute) opens a group in the list yielded, and each per-shard call
+    of the mesh routes (transfer.fetch_on, transfer.run_on_device; one a
+    shard, in device order) adds to the open group its device and the
+    launches it made."""
+    import torch
+    groups, depth, saved = [], [0], []
+
+    def shard(real):
+        def call(*a, **kw):
+            depth[0] += 1
+            before = launches_of(mods)
+            try:
+                return real(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0 and groups:
+                    after = launches_of(mods)
+                    d = next(x for x in a if isinstance(x, torch.device))
+                    groups[-1].append((str(d), {
+                        x: after[x] - before[x] for x in after
+                        if after[x] != before[x]}))
+        return call
+
+    def dispatch(real):
+        def call(*a, **kw):
+            groups.append([])
+            return real(*a, **kw)
+        return call
+    for mod, attr, wrap in [(transfer, "fetch_on", shard),
+                            (transfer, "run_on_device", shard)] + \
+            [(m, at, dispatch) for m, at in dispatches]:
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, wrap(getattr(mod, attr)))
+    try:
+        yield groups
+    finally:
+        for mod, attr, real in reversed(saved):
+            setattr(mod, attr, real)
+
+
+def mesh_runs(mods, clis, transfer, mesh, geno, pops, n_sites, work):
+    """Runs M, N and O: run A's, run C's and popDist's CLI flags with
+    cli.common.get_mesh patched to ``mesh``.  Each resets the launch
+    counts just before and reads them just after; it must launch exactly
+    its mesh route's kernels (runs M and O: K9 + K4 on each window slab,
+    M also K6 on each site slab, no K1; run N: K6 + K7 on each replica and
+    K8 on each window slab), every launch inside a shard's call, every
+    shard's call launching, a dispatch split over the mesh, every device
+    of the mesh called, and write the bytes of its meshless run
+    (``{base}.gpu.csv`` in ``work``); run O, where the mesh takes
+    popDist off the blocks route, its rows within one rounding quantum.
+    Returns ({run: launches}, report)."""
+    from genomics_general_tpu_torch.cli import common
+    pair, counts, abba = mods
+    cases = (("run_M", "run_A", ("pair_counts_4state", "tri_pack",
+                                 "site_pop_counts"),
+              [(pair, "window_pair_counts_dispatch"),
+               (counts, "site_pop_counts_dispatch")]),
+             ("run_N", "run_C", ABBA_KERNELS,
+              [(abba, "window_abba_sums_dispatch")]),
+             ("run_O", "popDist", ("pair_counts_4state", "tri_pack"),
+              [(pair, "window_pair_counts_dispatch")]))
+    launches, report = {}, {}
+    real_mesh = common.get_mesh
+    common.get_mesh = lambda: mesh
+    try:
+        for name, base, need, dispatches in cases:
+            cli, tail, _, _ = RUNS[base]
+            out = work / f"{name}.csv"
+            with shard_calls(transfer, mods, dispatches) as groups:
+                reset(mods)
+                wall, err = run_cli(clis[cli], [
+                    "-g", str(geno), "-f", "phased", *tail, "--popsFile",
+                    str(pops), "--profile", "-o", str(out)],
+                    {"GGT_EXEC": "device"})
+                got = launches_of(mods)
+            ran = {k for k, v in got.items() if v}
+            if ran != set(need):
+                raise AssertionError(f"{name}: launched {sorted(ran)}, "
+                                     f"expected {sorted(need)}")
+            calls = [c for g in groups for c in g]
+            in_calls = {k: sum(c[1].get(k, 0) for c in calls) for k in need}
+            per_device = {str(d): sum(c[0] == str(d) for c in calls)
+                          for d in dict.fromkeys(mesh.devices)}
+            split = sum(len(g) >= min(mesh.size, 2) for g in groups)
+            if in_calls != {k: got[k] for k in need} or \
+                    not all(c[1] for c in calls) or not split or \
+                    not all(per_device.values()):
+                raise AssertionError(
+                    f"{name}: shard calls {len(calls)} over {len(groups)} "
+                    f"dispatches launched {in_calls} of {got}, calls per "
+                    f"device {per_device}: a shard call without a launch, a "
+                    "launch outside the shards, no dispatch split or a "
+                    "device never called")
+            if base == "popDist":
+                # its blocks route against the mesh's tri route: one
+                # rounding quantum, as against the host executor
+                moved = rows_within_quantum(work / f"{base}.gpu.csv", out,
+                                            f"{name} on the mesh vs {base}")
+                same = f"within {QUANTUM} of {base} ({moved} cells moved)"
+            else:
+                same_bytes([work / f"{base}.gpu.csv", out],
+                           f"{name} on the mesh vs {base}")
+                moved, same = 0, f"byte-identical to {base}"
+            launches[name] = got
+            report[name] = {"wall_s": wall, "sites_per_s": n_sites / wall,
+                            "mesh": str(mesh), "dispatches": len(groups),
+                            "shard_calls": len(calls),
+                            "calls_per_device": per_device,
+                            "dispatches_split": split,
+                            "cells_moved_vs_meshless": moved,
+                            "profile": profile_line(err)}
+            log(f"[e2e] {name} ({base}'s flags on {mesh}): wall {wall:.3f}s, "
+                f"{n_sites / wall:.0f} sites/s, launches "
+                f"{ {k: v for k, v in got.items() if v} }; {len(calls)} "
+                f"shard calls over {len(groups)} dispatches ({split} split), "
+                f"calls per device {per_device}, each launching; {same}")
+            log(f"[e2e] {name} {profile_line(err)}")
+    finally:
+        common.get_mesh = real_mesh
+    return launches, report
+
+
+def dry_run(mods, entry) -> tuple[dict, dict]:
+    """The port's dryrun_multichip over every card (a one-device mesh on
+    one card), the launch counts reset just before and read just after:
+    it must launch K14, K15 and K16 (and the data-parallel and
+    sequence-parallel kernels) and raise on no difference."""
+    import torch
+    n = torch.cuda.device_count()
+    reset(mods)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(n)
+    wall = time.perf_counter() - t0
+    got = launches_of(mods)
+    need = ("pair_counts_4state", "pair_counts_4state_rows",
+            "site_pop_counts_raw", "global_sfs_hist", "stacked_reduce",
+            "tri_pack", "site_pop_counts", *ABBA_KERNELS)
+    missing = [k for k in need if got[k] <= 0]
+    if missing:
+        raise AssertionError(f"dryrun_multichip: {missing} never launched "
+                             f"({got})")
+    log(f"[e2e] dryrun_multichip({n}): wall {wall:.3f}s, launches "
+        f"{ {k: v for k, v in got.items() if v} }; every mesh route equal to "
+        "its meshless route")
+    return got, {"wall_s": wall, "n_devices": n}
 
 
 # ------------------------------------------------------------ the CLI
@@ -2149,6 +2626,7 @@ def main() -> int:
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 2
     try:
+        from genomics_general_tpu_torch import entry as port_entry
         from genomics_general_tpu_torch import testing
         from genomics_general_tpu_torch.cli import popgen_windows
         from genomics_general_tpu_torch.io import native
@@ -2158,6 +2636,7 @@ def main() -> int:
         from genomics_general_tpu_torch.kernels import pairdist as pair
         from genomics_general_tpu_torch.kernels import transfer
         from genomics_general_tpu_torch.kernels import window_stats as ws
+        from genomics_general_tpu_torch.parallel import mesh as pmesh
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -2243,6 +2722,8 @@ def main() -> int:
     for H in (160, 77):
         a, first, n = k9_input(H)
         at, f, k, m, s = k9_parity(pair, a, first, n, dev)
+        k14_parity(pair, at, f, k, m, s, int(n.max()))
+        mesh_parity(pair, pmesh, shard_mesh(pmesh, dev), a, first, n, m, s)
         e, d = stats_parity(ws, at, f, k, m, s, dev, messy_masks(H))
         errs["window_stats_tail"] = max(errs["window_stats_tail"], e)
         not_bit_equal += d
@@ -2251,7 +2732,18 @@ def main() -> int:
         "0, 1 and 66,000 sites; unsplit, split and strided): == plain == "
         f"host executor; K10 within rtol {K10_RTOL} of plain (NaN positions "
         f"equal, {not_bit_equal} cells not bit-equal, max abs err "
-        f"{errs['window_stats_tail']}); K11 == plain (P=5, P=1)")
+        f"{errs['window_stats_tail']}); K11 == plain (P=5, P=1); K14 on row "
+        f"blocks {K14_BLOCKS} == K9's rows, == plain, split path too; the "
+        f"data- and tensor-parallel pair counts on {MESH_SHARDS} shards == "
+        "K9 (two-window shards on K9's split path)")
+    sfs_parity(counts, dev)
+    log("[parity] K15 on tie-built counts (8/8, 9/7, monomorphic, 3-allele, "
+        "incomplete; uint16 and int32) == plain; K16 sum / min (int64 beyond "
+        "2^31, int32; k = 1, 2, 5) == torch.sum / torch.amin")
+    step = step_past_grid(pair, ws, dev)
+    log(f"[parity] window_stats_step over {STEP_WINDOWS} windows (H="
+        f"{STEP_H}): K9 alone refuses them; the step launches {step} and "
+        "equals its chunks run one at a time")
     log(f"[time] phase 2a done at {time.perf_counter() - t_start:.1f}s")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke-",
@@ -2297,6 +2789,13 @@ def main() -> int:
                                            "run_B": (geno_b, pops_b)}, work)
         runs["run_L"] = (None, None, run_l(counts, transfer, mods, clis,
                                            geno, pops, work))
+        mesh_launches, mesh_report = mesh_runs(
+            mods, clis, transfer, shard_mesh(pmesh, dev), geno, pops,
+            N_SITES, work)
+        for name in ("run_M", "run_N", "run_O"):
+            runs[name] = (mesh_launches[name], None, mesh_report[name])
+        got, rep = dry_run(mods, port_entry)
+        runs["dryrun"] = (got, None, rep)
         log(f"[time] phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
         # ---- phase 2b: parity and times at the runs' flush shapes
@@ -2353,11 +2852,21 @@ def main() -> int:
         log("[parity] K13 + K2 + tails == plain == K1 + K2 + tails on run "
             "A's flush (K4) and run B's individual mask (K3 bit for bit, "
             "K5)")
+        res["pair_counts_4state_rows"] = time_k14(
+            pair, transfer, runs["run_A"][1]["window_pair_counts_dispatch"],
+            dev)
+        r = res["pair_counts_4state_rows"]
+        log(f"[kernel] pair_counts_4state_rows at run A's flush: K14 "
+            f"{r['ms']:.4f} ms on one row shard, K9 on the whole flush "
+            f"{r['k9_ms']:.4f} ms; each shard == K9's rows")
+        res.update(sfs_full_width(counts, pmesh, shard_mesh(pmesh, dev),
+                                  geno, pops, dev))
         for k in ("tri_pack", "site_pop_counts", "het_pairs",
                   "abba_site_terms", "abba_window_sums",
                   "pair_counts_4state", "window_stats_tail",
                   "window_pop_counts", "site_pop_counts_raw",
-                  "pair_counts_v2"):
+                  "pair_counts_v2", "pair_counts_4state_rows",
+                  "global_sfs_hist", "stacked_reduce"):
             bnd[k] = res[k]["bound"]
             log(f"[parity] {k} at {res[k]['shape']}")
         owner = {"pair_counts_v3": "popDist", "exception_patch": "popDist",
@@ -2366,7 +2875,9 @@ def main() -> int:
                  "abba_site_terms": "run_C", "abba_window_sums": "run_C",
                  "pair_counts_4state": "run_E", "window_stats_tail": "run_G",
                  "window_pop_counts": "run_G",
-                 "site_pop_counts_raw": "run_H", "pair_counts_v2": "run_K"}
+                 "site_pop_counts_raw": "run_H", "pair_counts_v2": "run_K",
+                 "pair_counts_4state_rows": "dryrun",
+                 "global_sfs_hist": "dryrun", "stacked_reduce": "dryrun"}
         launches = {k: runs[owner[k]][0][k] for k in KERNELS}
         for k in KERNELS:
             r = res[k]

@@ -11,8 +11,10 @@ back); the float64 ratio-of-sums finalize matches the reference.
 the raw upload under ``GGT_PACKED_TRANSFER=0``) and finalizes every window
 on the host (stats/abbababa.py), byte-identical to the reference.
 
-One process drives one device: multi-process runs (``GGT_NUM_PROCS>1``)
-raise in parallel/multihost.
+One process drives one device or, with more than one local card, the
+device mesh (cli.common.get_mesh: window slabs data-parallel;
+``GGT_NO_MESH=1`` keeps one device); multi-process runs
+(``GGT_NUM_PROCS>1``) raise in parallel/multihost.
 """
 
 from __future__ import annotations
@@ -129,6 +131,7 @@ def main(argv=None, full_panel: bool = False) -> int:
         args.genoFile if args.genoFile else sys.stdin,
         sample_data=sd, geno_format=args.genoFormat, header=args.header)
 
+    mesh = common.get_mesh()
     timer = engine.StageTimer(args.profile)
     progress = engine.Progress(args.verbose)
 
@@ -146,9 +149,10 @@ def main(argv=None, full_panel: bool = False) -> int:
                 handle = abba_k.window_abba_sums_dispatch(
                     span, plan.first.astype(np.int32),
                     plan.n_sites.astype(np.int32), mask, n_pops,
-                    min_data, mode, full_panel)
+                    min_data, mode, full_panel, mesh=mesh)
             else:
-                handle = counts_k.site_pop_counts_dispatch(span, mask)
+                handle = counts_k.site_pop_counts_dispatch(span, mask,
+                                                           mesh=mesh)
         return batch, handle
 
     def finalize(batch, handle):

@@ -120,6 +120,13 @@ def add_runtime_args(parser: argparse.ArgumentParser):
                              "an interrupted run (plain-text --outFile only)")
 
 
+def get_mesh():
+    """The default device mesh for the CLIs' kernel dispatch (None on one
+    card): parallel/dispatch.default_mesh."""
+    from ..parallel.dispatch import default_mesh
+    return default_mesh()
+
+
 def config_key(args) -> str:
     """Stable hash of the CLI config, used to validate resume cursors."""
     d = {k: v for k, v in sorted(vars(args).items()) if k != "resume"}

@@ -9,10 +9,12 @@ parse -> incremental window plan -> pair-count and allele-count CUDA
 kernels -> float64 host finalize -> ordered CSV.  Memory is O(flush batch),
 not O(genome).
 
-Every ``--analysis`` and ``--fstMethod`` runs, in one process on one
-device, with the JAX package's wire options (``GGT_WIRE=2``,
-``GGT_PACKED_TRANSFER=0``).  Multi-process runs (``GGT_NUM_PROCS>1``)
-raise ``NotImplementedError`` in parallel/multihost.
+Every ``--analysis`` and ``--fstMethod`` runs, in one process, with the
+JAX package's wire options (``GGT_WIRE=2``, ``GGT_PACKED_TRANSFER=0``), on
+one device or, with more than one local card, data-parallel over the
+device mesh (cli.common.get_mesh; ``GGT_NO_MESH=1`` keeps one device).
+Multi-process runs (``GGT_NUM_PROCS>1``) raise ``NotImplementedError`` in
+parallel/multihost.
 
 Extension beyond the reference: ``--fstMethod WC`` adds Weir-Cockerham Fst
 columns (the reference only has 1 - pi_s/pi_t, genomics.py:987-993).
@@ -124,6 +126,7 @@ def main(argv=None) -> int:
     need_hud = args.fstMethod == "Hudson" and "popPairDist" in analysis
 
     # ---- runtime setup
+    mesh = common.get_mesh()
     timer = engine.StageTimer(args.profile)
     progress = engine.Progress(args.verbose)
 
@@ -151,9 +154,9 @@ def main(argv=None) -> int:
     # counts) come back (kernels/pairdist.window_pair_block_stats_dispatch,
     # window_pair_ind_blocks_dispatch).  hapStats, popFreq and WC use the
     # general path: the packed [W, H, H] counts (window_pair_counts_dispatch)
-    # and the per-site counts kernel.
+    # and the per-site counts kernel, as does every run on a device mesh.
     fast_dist = ("popDist", "popPairDist", "indPairDist", "indHet")
-    use_blocks = (need_dist
+    use_blocks = (need_dist and mesh is None
                   and not (need_freq or need_wc)
                   and all(a in fast_dist for a in analysis)
                   and os.environ.get("GGT_HOST_DIST_FINALIZE") != "1")
@@ -237,7 +240,7 @@ def main(argv=None) -> int:
         dev = None
         if share_upload and span.shape[1]:
             with timer.stage("h2d"):
-                dev = transfer.upload_span(span)
+                dev = transfer.upload_span(span, mesh=mesh)
         with timer.stage("kernel"):
             if use_blocks and blocks_ind:
                 handles["indblocks"] = pair_k.window_pair_ind_blocks_dispatch(
@@ -259,11 +262,11 @@ def main(argv=None) -> int:
                 handles["pair"] = pair_k.window_pair_counts_dispatch(
                     dev if dev is not None else span,
                     plan.first.astype(np.int32),
-                    plan.n_sites.astype(np.int32))
+                    plan.n_sites.astype(np.int32), mesh=mesh)
             if (need_freq or need_wc) and span.shape[1]:
                 handles["counts"] = counts_k.site_pop_counts_dispatch(
                     dev[:, :span.shape[1]] if dev is not None else span,
-                    fmask)
+                    fmask, mesh=mesh)
         return batch, handles
 
     def finalize(batch, handles):

@@ -9,6 +9,7 @@ wrappers run their plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -37,3 +38,13 @@ def cap_cpu_threads() -> None:
     and torch otherwise takes one thread per core in each of them."""
     limit = int(os.environ.get("OMP_NUM_THREADS", 4))
     torch.set_num_threads(max(1, min(torch.get_num_threads(), limit)))
+
+
+def device_scope(dev: torch.device):
+    """The context for work on ``dev``: on a card, ``torch.cuda.device(dev)``
+    makes it the CUDA runtime's current device, on which the kernels'
+    ctypes entry points launch and events are recorded; on the CPU,
+    nothing."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

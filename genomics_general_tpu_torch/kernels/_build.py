@@ -38,6 +38,8 @@ _SIGNATURES = {
     "counts": {
         "ggt_site_pop_counts": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
         "ggt_site_pop_counts_raw": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P],
+        "ggt_global_sfs_hist": [_P, _I, _I, _I, _P, _L, _P, _P],
+        "ggt_stacked_reduce": [_P, _I, _I, _L, _I, _P, _P],
     },
     "abba": {
         "ggt_abba_site_terms": [_P, _I, _I, _I, _P, _P, _D, _D, _D, _D, _D,
@@ -47,6 +49,8 @@ _SIGNATURES = {
     "pair4": {
         "ggt_pair_counts_4state": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _P,
                                    _P, _P],
+        "ggt_pair_counts_4state_rows": [_P, _L, _L, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _P, _P, _P],
     },
     "window_stats": {
         "ggt_window_stats_tail": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],

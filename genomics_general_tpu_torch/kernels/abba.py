@@ -458,26 +458,34 @@ class AbbaSumsHandle:
         return host
 
 
-def flush_abba(buf: torch.Tensor, sp: int, h: int, S: int, W: int, wp: int,
-               classes: counts_k.MaskClasses, n_pops, min_data: float,
-               mode: str, full: bool) -> torch.Tensor:
+def flush_abba(buf: torch.Tensor, sp: int, h: int, S: int, w0: int,
+               w1: int, wp: int, classes: counts_k.MaskClasses, n_pops,
+               min_data: float, mode: str, full: bool) -> torch.Tensor:
     """One flush on the device: K6 class counts of sites 0 .. S - 1 of
-    the flush buffer, K7 site terms, K8 sums of its W windows: [W, K]."""
+    the flush buffer, K7 site terms, K8 sums of its windows w0 .. w1 - 1:
+    [w1 - w0, K]."""
     span, first, n_sites = transfer.flush_views(buf, sp, h, wp)
     cc = counts_k.count_span(span, sp, h, S, classes.groups)
     terms = abba_site_terms(cc, classes.codes, n_pops, min_data, mode, full)
-    return abba_window_sums(terms, first[:W], n_sites[:W])
+    return abba_window_sums(terms, first[w0:w1], n_sites[w0:w1])
 
 
 def window_abba_sums_dispatch(alleles: np.ndarray, first: np.ndarray,
                               n_sites: np.ndarray, pop_mask: np.ndarray,
                               n_pops, min_data: float, mode: str,
-                              full: bool) -> AbbaSumsHandle:
+                              full: bool, mesh=None) -> AbbaSumsHandle:
     """Dispatch the fused ABBA window reduction of one flush (host int8
-    [H, S] span) without fetching: one upload (the flush buffer) and one
-    fetch ([W, K] float64).  ``pop_mask``: 0/1 [5, H] rows P1, P2, P3, O
-    and their union (rows overlap); ``n_pops``: the four populations'
-    haplotype counts."""
+    [H, S] span) without fetching: one upload of the flush buffer to each
+    device and one fetch of each device's [w, K] float64 window sums.
+    ``pop_mask``: 0/1 [5, H] rows P1, P2, P3, O and their union (rows
+    overlap); ``n_pops``: the four populations' haplotype counts.  The
+    window batch is padded to ``n_dev * 2^k`` and cut into one contiguous
+    slab per device of the ``mesh`` (default: the one device
+    ``get_device()``; the JAX ``_sharded_fused_abba_flush``): the flush
+    buffer is replicated, every device counts and terms all the flush's
+    sites (K6, K7) and sums its slab's windows (K8), and the slabs come
+    back in window order.  Only without a mesh may ``GGT_EXEC=host``
+    send the flush to the host executor."""
     channels = channels_of(full)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
@@ -487,19 +495,26 @@ def window_abba_sums_dispatch(alleles: np.ndarray, first: np.ndarray,
         return AbbaSumsHandle(W, channels)
     if ((n_sites > 0) & ((first < 0) | (first + n_sites > S))).any():
         raise ValueError(f"a window's range leaves the span of {S} sites")
-    if _exec_choice() == "host":
-        return _ReadyHandle(lambda: _host_sums(
-            alleles, first, n_sites, pop_mask, n_pops, min_data, mode,
-            full))
-    dev = get_device()
-    wp = 8
-    while wp < W:
-        wp *= 2
+    if mesh is None:
+        if _exec_choice() == "host":
+            return _ReadyHandle(lambda: _host_sums(
+                alleles, first, n_sites, pop_mask, n_pops, min_data, mode,
+                full))
+        from ..parallel.mesh import Mesh
+        mesh = Mesh([get_device()])
+    wp = transfer.mesh_batch(W, mesh.size)
     buf, Sp = transfer.pack_flush_buffer(alleles, first, n_sites, wp)
-    classes = counts_k._mask_classes(pop_mask, dev)
-    return AbbaSumsHandle(W, channels, transfer.run_on_device(
-        buf, dev, lambda b: flush_abba(b, Sp, H, S, W, wp, classes, n_pops,
-                                       min_data, mode, full)))
+    bufs = transfer.replicate(buf, mesh)
+    parts = []
+    for d, b, (lo, hi) in zip(mesh.devices, bufs.shards,
+                              transfer.slabs(wp, mesh.size, W)):
+        if hi == lo:
+            continue
+        classes = counts_k._mask_classes(pop_mask, d)
+        parts.append(transfer.fetch_on(d, lambda: flush_abba(
+            b, Sp, H, S, lo, hi, wp, classes, n_pops, min_data, mode,
+            full)))
+    return AbbaSumsHandle(W, channels, transfer.Gathered(parts))
 
 
 def finalize_window_stats(sums: np.ndarray, channels: tuple,

@@ -45,7 +45,8 @@ DEFAULT_SITE_BLOCK = 1 << 18
 
 # launches of the CUDA kernel since the last reset (the plain version and
 # the host counters never count)
-LAUNCHES = {"site_pop_counts": 0, "site_pop_counts_raw": 0}
+LAUNCHES = {"site_pop_counts": 0, "site_pop_counts_raw": 0,
+            "global_sfs_hist": 0, "stacked_reduce": 0}
 # flushes counted on the host (GGT_EXEC=host)
 HOST_FLUSHES = 0
 
@@ -177,6 +178,104 @@ def count_raw(alleles: torch.Tensor, S: int, groups: PopGroups,
     return out
 
 
+# ------------------------------------------------- K15 the global SFS
+
+def sfs_dims(n_hap) -> tuple[int, ...]:
+    """The dense folded joint SFS's shape: ``n_hap[p] + 1`` a population."""
+    return tuple(int(n) + 1 for n in n_hap)
+
+
+def global_sfs_hist(counts: torch.Tensor, n_hap) -> torch.Tensor:
+    """The dense folded joint SFS of one shard's sites as int32
+    [prod(n_hap + 1)] (row-major, population 0 most significant), from
+    their counts [S, P, 4] (uint16 or int32) and the populations'
+    haplotype counts ``n_hap`` [P]: a site with every population complete
+    (its counts sum to ``n_hap[p]``) and 1 or 2 alleles in all adds 1 at
+    its populations' counts of the allele at position 2 of the stable
+    ascending order of the totals (the second-commonest; ties keep the
+    lower code first, as ``jnp.argsort``).  Replaces the per-shard body of
+    the JAX ``mesh.sharded_global_sfs``."""
+    n_hap = np.asarray(n_hap, dtype=np.int32).reshape(-1)
+    if counts.dim() != 3 or counts.shape[1:] != (n_hap.shape[0], 4):
+        raise ValueError(f"counts must be [S, {n_hap.shape[0]}, 4]")
+    if not counts.is_cuda:
+        return global_sfs_hist_plain(counts, n_hap)
+    if counts.dtype not in (torch.uint16, torch.int32):
+        raise ValueError("counts must be uint16 or int32")
+    _check_cuda(counts)
+    nbins = int(np.prod(sfs_dims(n_hap)))
+    hist = torch.zeros(nbins, dtype=torch.int32, device=counts.device)
+    S, P, _ = counts.shape
+    if S == 0:
+        return hist
+    nh = _run_const("n_hap", n_hap, counts.device,
+                    lambda a: torch.from_numpy(a.copy()).to(counts.device))
+    code = _build.lib("counts").ggt_global_sfs_hist(
+        counts.data_ptr(), int(counts.dtype == torch.uint16), S, P,
+        nh.data_ptr(), nbins, hist.data_ptr(), _stream_ptr(hist))
+    _build.check(code, "global_sfs_hist")
+    LAUNCHES["global_sfs_hist"] += 1
+    return hist
+
+
+def global_sfs_hist_plain(counts: torch.Tensor, n_hap) -> torch.Tensor:
+    """Plain PyTorch K15, the JAX form: the gate, a stable argsort of the
+    totals, the target's counts as a flat index, a scatter-add."""
+    c = counts.to(torch.int64)
+    nh = torch.as_tensor(np.asarray(n_hap, np.int64), device=c.device)
+    complete = (c.sum(dim=2) == nh[None, :]).all(dim=1)
+    total = c.sum(dim=1)                                       # [S, 4]
+    n_alleles = (total > 0).sum(dim=1)
+    ok = complete & (n_alleles >= 1) & (n_alleles <= 2)
+    target = torch.argsort(total, dim=1, stable=True)[:, 2]
+    tgt = torch.gather(c, 2, target[:, None, None].expand(-1, c.shape[1], 1)
+                       )[:, :, 0]                              # [S, P]
+    dims = sfs_dims(n_hap)
+    flat = torch.zeros(c.shape[0], dtype=torch.int64, device=c.device)
+    stride = 1
+    for p in range(len(dims) - 1, -1, -1):
+        flat += tgt[:, p] * stride
+        stride *= dims[p]
+    hist = torch.zeros(stride, dtype=torch.int64, device=c.device)
+    hist.index_add_(0, flat[ok], torch.ones_like(flat[ok]))
+    return hist.to(torch.int32)
+
+
+# ------------------------------------------- K16 the stacked reduction
+
+def stacked_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """The sum (``op="sum"``, wrapping as the integer type does) or the
+    minimum (``"min"``) over the leading axis of a [k, ...] int64 or int32
+    stack (k >= 1) on one device: [...] of the same type.  Replaces the
+    reduce of the JAX ``multihost.mesh_reduce_stacked`` and the psum of
+    ``mesh.sharded_global_sfs``."""
+    if op not in ("sum", "min"):
+        raise ValueError(f"op must be 'sum' or 'min', not {op!r}")
+    if x.dim() < 1 or x.shape[0] < 1:
+        raise ValueError("stacked_reduce needs a [k, ...] stack, k >= 1")
+    if not x.is_cuda:
+        return stacked_reduce_plain(x, op)
+    if x.dtype not in (torch.int64, torch.int32):
+        raise ValueError("stacked_reduce takes int64 or int32")
+    _check_cuda(x)
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    n = out.numel()
+    if n == 0:
+        return out
+    code = _build.lib("counts").ggt_stacked_reduce(
+        x.data_ptr(), int(x.dtype == torch.int64), x.shape[0], n,
+        int(op == "min"), out.data_ptr(), _stream_ptr(out))
+    _build.check(code, "stacked_reduce")
+    LAUNCHES["stacked_reduce"] += 1
+    return out
+
+
+def stacked_reduce_plain(x: torch.Tensor, op: str) -> torch.Tensor:
+    """Plain PyTorch K16: ``torch.sum`` in the stack's type, or
+    ``torch.amin``, over dim 0."""
+    return x.sum(dim=0, dtype=x.dtype) if op == "sum" else x.amin(dim=0)
+
+
 # ------------------------------------------------------- any 0/1 mask
 
 class MaskClasses:
@@ -285,19 +384,36 @@ class SitePopCountsHandle:
         return host.astype(np.int32)
 
 
+def _count_groups(pop_mask: np.ndarray, dev: torch.device):
+    """(groups, classes) the kernels count ``pop_mask`` on, on ``dev``:
+    its groups when it is a partition (classes None), else its membership
+    classes' (:class:`MaskClasses`)."""
+    if is_partition(pop_mask):
+        return _pop_groups(pop_mask, dev), None
+    classes = _mask_classes(pop_mask, dev)
+    return classes.groups, classes
+
+
 def site_pop_counts_dispatch(alleles, pop_mask: np.ndarray,
-                             block: int = DEFAULT_SITE_BLOCK):
+                             block: int = DEFAULT_SITE_BLOCK, mesh=None):
     """Dispatch per-site counting of an int8 [H, S] span without fetching.
     ``alleles`` is a host array or an int8 tensor (a device array, or a
     strided view of one such as ``dev[:, :S]``); ``pop_mask``: any 0/1
     [P, H].  When every row lies in exactly one group (popgenWindows' mask
     puts ungrouped rows in the "" group) the kernels count the groups;
     otherwise they count the membership classes (:class:`MaskClasses`) and
-    the host sums them per mask.  A host span ships once: as the 2-bit span
-    wire, counted by K6, or under ``GGT_PACKED_TRANSFER=0`` as the raw
-    bucket-padded upload (:func:`transfer.upload_span`), counted by K12 as
-    a tensor is where it lies.  Each launch counts ``block`` sites (a
-    multiple of 8)."""
+    the host sums them per mask.
+
+    Counting is sequence-parallel over the devices of the ``mesh``
+    (default: the one device ``get_device()``, or the tensor's; the JAX
+    ``_sharded_site_pop_counts``): each launch block of ``block`` sites (a
+    multiple of 8), padded to a multiple of the mesh size, is cut into one
+    contiguous slab per device, which counts its slab, and the slabs come
+    back in site order.  A host span is replicated once over the mesh, as
+    the 2-bit span wire (K6) or under ``GGT_PACKED_TRANSFER=0`` as the raw
+    bucket-padded upload (:func:`transfer.upload_span`, K12); a tensor or
+    a :class:`transfer.Replicated` is counted where it lies (K12).  Only
+    without a mesh may ``GGT_EXEC=host`` count a host span on the host."""
     if block % 8:
         raise ValueError(f"block {block} is not a multiple of 8")
     H, S = alleles.shape
@@ -305,27 +421,64 @@ def site_pop_counts_dispatch(alleles, pop_mask: np.ndarray,
     if S == 0:
         return SitePopCountsHandle(S, P)
     on_host = isinstance(alleles, np.ndarray)
-    if on_host and _exec_choice() == "host":
-        return _ReadyHandle(lambda: _host_site_pop_counts(alleles, pop_mask))
-    dev = get_device() if on_host else alleles.device
-    classes = None
-    if is_partition(pop_mask):
-        groups = _pop_groups(pop_mask, dev)
-    else:
-        classes = _mask_classes(pop_mask, dev)
-        groups = classes.groups
-    if on_host and transfer.packed_enabled():
+    if mesh is None:
+        if on_host and _exec_choice() == "host":
+            return _ReadyHandle(
+                lambda: _host_site_pop_counts(alleles, pop_mask))
+        from ..parallel.mesh import Mesh
+        mesh = Mesh([get_device() if on_host else alleles.device])
+    wire = on_host and transfer.packed_enabled()
+    if wire:
         buf, Sp = transfer.pack_span(alleles)
-        return SitePopCountsHandle(S, P, transfer.run_on_device(
-            buf, dev, lambda b: count_span(b, Sp, H, S, groups, block)),
-            classes)
-    if on_host:
-        alleles = transfer.upload_span(alleles, dev)
-    return SitePopCountsHandle(S, P, transfer.fetch(
-        count_raw(alleles, S, groups, block), keep=(alleles,)), classes)
+        src = transfer.replicate(buf, mesh)
+    elif on_host:
+        src = transfer.upload_span(alleles, mesh=mesh)
+    else:
+        src = transfer.replicate(alleles, mesh)
+    classes = _count_groups(pop_mask, mesh.devices[0])[1]
+    parts = []
+    for s0 in range(0, S, block):
+        n = min(block, S - s0)
+        for d, a, (lo, hi) in zip(mesh.devices, src.shards,
+                                  transfer.sharded_axis(n, mesh.size)):
+            if hi == lo:
+                continue
+            groups = _count_groups(pop_mask, d)[0]
+            if wire:
+                run = (lambda a=a, lo=s0 + lo, hi=s0 + hi, g=groups:
+                       _span_slab(a, Sp, H, lo, hi, g))
+            else:
+                run = (lambda a=a, lo=s0 + lo, hi=s0 + hi, g=groups:
+                       _raw_slab(a, lo, hi, g))
+            parts.append(transfer.fetch_on(d, run))
+    return SitePopCountsHandle(S, P, transfer.Gathered(parts), classes)
+
+
+def _span_slab(buf: torch.Tensor, sp: int, h: int, lo: int, hi: int,
+               groups: PopGroups) -> torch.Tensor:
+    """K6 counts of sites lo .. hi - 1 of the span wire: K6 starts on a
+    whole byte of both planes, so it counts from lo rounded down to a
+    multiple of 8 and the first ``lo % 8`` rows are dropped."""
+    lo8 = lo - lo % 8
+    out = torch.empty((hi - lo8, groups.P, 4), dtype=count_dtype(h),
+                      device=buf.device)
+    site_pop_counts(buf, sp, h, lo8, hi, groups, out)
+    return out[lo - lo8:]
+
+
+def _raw_slab(alleles: torch.Tensor, lo: int, hi: int,
+              groups: PopGroups) -> torch.Tensor:
+    """K12 counts of sites lo .. hi - 1 of an int8 [H, S] tensor."""
+    out = torch.empty((hi - lo, groups.P, 4),
+                      dtype=count_dtype(alleles.shape[0]),
+                      device=alleles.device)
+    site_pop_counts_raw(alleles, lo, hi, groups, out)
+    return out
 
 
 def site_pop_counts_chunked(alleles, pop_mask: np.ndarray,
-                            block: int = DEFAULT_SITE_BLOCK) -> np.ndarray:
+                            block: int = DEFAULT_SITE_BLOCK,
+                            mesh=None) -> np.ndarray:
     """Dispatch + collect in one call: numpy int32 [S, P, 4]."""
-    return site_pop_counts_dispatch(alleles, pop_mask, block=block).collect()
+    return site_pop_counts_dispatch(alleles, pop_mask, block=block,
+                                    mesh=mesh).collect()

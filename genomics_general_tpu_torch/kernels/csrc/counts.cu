@@ -1,6 +1,8 @@
 // Per-site, per-population allele counts for Hopper (sm_90a): K6 reads the
 // 2-bit span wire in place, K12 an int8 allele matrix (the raw upload, or a
-// view of a device array).
+// view of a device array).  Beside them the mesh's two reductions: K15 bins
+// a shard's per-site counts into the folded joint SFS, K16 sums or takes
+// the minimum of a stack of accumulators.
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/counts.py).  The launch goes on the caller's stream, does not
@@ -12,6 +14,7 @@
 // past the span are missing).
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -137,6 +140,89 @@ site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
   }
 }
 
+// ---------------------------------------------------------------- K15
+// global_sfs_hist — replaces the per-shard body of
+// genomics_general_tpu/parallel/mesh.py sharded_global_sfs (its local():
+// complete-data and 1-2 allele gate, second-commonest allele as target,
+// scatter-add into a dense histogram):
+//   site s passes when every population's count sum equals n_hap[p] and
+//   its totals over the populations have 1 or 2 non-zero alleles; its
+//   target is the allele at position 2 of the STABLE ascending order of
+//   the totals (jnp.argsort's: rank(i) = #{j : t_j < t_i} +
+//   #{j < i : t_j == t_i}); it adds 1 to bin sum_p c[s, p, target] *
+//   stride_p, row-major with population 0 most significant.
+//
+// Bound: bytes — the [S, P, 4] counts read once and the histogram written
+// once, against a few integer operations a site.  Design: one thread per
+// site, the totals and the stable rank in registers, one int32 atomicAdd
+// into the zeroed histogram per passing site (exact in any order).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+global_sfs_hist_kernel(const T* __restrict__ counts, int S, int P,
+                       const int32_t* __restrict__ n_hap, long long nbins,
+                       int32_t* __restrict__ hist) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= S) return;
+  const T* c = counts + (size_t)s * P * 4;
+  long long tot[4] = {0, 0, 0, 0};
+  for (int p = 0; p < P; ++p) {
+    long long sum = 0;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const long long v = c[4 * p + a];
+      sum += v;
+      tot[a] += v;
+    }
+    if (sum != n_hap[p]) return;
+  }
+  int n_alleles = 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) n_alleles += tot[a] > 0;
+  if (n_alleles < 1 || n_alleles > 2) return;
+  int target = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      rank += tot[j] < tot[i] || (j < i && tot[j] == tot[i]);
+    if (rank == 2) target = i;
+  }
+  long long idx = 0;
+  long long stride = 1;
+  for (int p = P - 1; p >= 0; --p) {
+    idx += (long long)c[4 * p + target] * stride;
+    stride *= n_hap[p] + 1;
+  }
+  if (idx >= 0 && idx < nbins) atomicAdd(&hist[idx], 1);
+}
+
+// ---------------------------------------------------------------- K16
+// stacked_reduce — replaces the reduce of
+// genomics_general_tpu/parallel/multihost.py mesh_reduce_stacked (and the
+// psum of mesh.py sharded_global_sfs): out[i] = sum or min over r of
+// x[r, i] for a [k, n] stack of integer accumulators.
+//
+// Bound: bytes — k n elements read once, n written, one operation each.
+// Design: one thread per column, grid-stride, reading row r of a warp's 32
+// columns as one coalesced segment; the sum wraps modulo 2^bits (added as
+// unsigned), as torch.sum in that type does.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stacked_reduce_kernel(const T* __restrict__ x, int k, long long n,
+                      int op_min, T* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads) {
+    using U = typename std::make_unsigned<T>::type;
+    T acc = x[i];
+    for (int r = 1; r < k; ++r) {
+      const T v = x[(long long)r * n + i];
+      acc = op_min ? (v < acc ? v : acc) : (T)((U)acc + (U)v);
+    }
+    out[i] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -184,6 +270,44 @@ int ggt_site_pop_counts_raw(const void* alleles, long long row_stride,
                                           (cudaStream_t)stream>>>(
         (const int8_t*)alleles, row_stride, s0, s1, (const int32_t*)perm,
         (const int32_t*)offs, P, (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// counts: [S, P, 4], uint16 when u16 != 0, else int32; n_hap: int32 [P];
+// hist: int32 [nbins], zeroed by the caller.
+int ggt_global_sfs_hist(const void* counts, int u16, int S, int P,
+                        const void* n_hap, long long nbins, void* hist,
+                        void* stream) {
+  const unsigned blocks = (unsigned)((S + kThreads - 1) / kThreads);
+  if (u16) {
+    global_sfs_hist_kernel<uint16_t><<<blocks, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const uint16_t*)counts, S, P, (const int32_t*)n_hap, nbins,
+        (int32_t*)hist);
+  } else {
+    global_sfs_hist_kernel<int32_t><<<blocks, kThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        (const int32_t*)counts, S, P, (const int32_t*)n_hap, nbins,
+        (int32_t*)hist);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x: [k, n] (k >= 1), int64 when is64 != 0, else int32; out: [n] of the
+// same type: the sum over k, or the minimum when op_min != 0.
+int ggt_stacked_reduce(const void* x, int is64, int k, long long n,
+                       int op_min, void* out, void* stream) {
+  long long want = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)(want < (1 << 20) ? want : (1 << 20));
+  if (is64) {
+    stacked_reduce_kernel<long long><<<blocks, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const long long*)x, k, n, op_min, (long long*)out);
+  } else {
+    stacked_reduce_kernel<int32_t><<<blocks, kThreads, 0,
+                                     (cudaStream_t)stream>>>(
+        (const int32_t*)x, k, n, op_min, (int32_t*)out);
   }
   return (int)cudaGetLastError();
 }

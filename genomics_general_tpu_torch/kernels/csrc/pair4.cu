@@ -1,7 +1,8 @@
 // General 4-state pair counts for Hopper (sm_90a): per-window masked-Hamming
 // counts straight from the int8 allele matrix, for distMat --windType cat,
 // the device-array and raw-upload routes of the tri counts, the long-span
-// helper and the window-stats step.
+// helper, the window-stats step and the mesh's window slabs (K9), and for
+// the mesh's row blocks of the tensor-parallel counts (K14).
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/pairdist.py).  The launch goes on the caller's stream, does not
@@ -23,63 +24,19 @@ constexpr int kGroups = kStage / 32;       // 32-site groups per step
 constexpr int kRawWords = kStage / 4 + 1;  // raw row: 132 bytes (33 words)
 constexpr int kPackWords = 5 * kGroups + 1;  // 4 one-hot + 1 called per group
 
-// ---------------------------------------------------------------- K9
-// pair_counts_4state — replaces genomics_general_tpu/kernels/pairdist.py
-// pairwise_counts with gather_window_batch (and so _gathered_pair_counts'
-// count stage).  For window w = [first, first + n) and haplotypes i, j:
-//   shared(i, j)   = #sites where both codes are >= 0
-//   match(i, j)    = #sites where both codes are the same one of 0..3
-//   mismatch(i, j) = shared - match
-// which is the JAX kernel's one-hot Gram (called . called^T minus
-// onehot . onehot^T).  Missing is -1; a site outside the window, the span
-// or the matrix reads as missing, so no padding is needed and each window
-// is read at its own length.
-//
-// Bound: operations.  Every pair of the upper triangle compares every site
-// of its window, while the input is read once per 64 x 64 tile.  Design: a
-// block owns one window (blockIdx.z), one 64 x 64 pair tile with j >= i
-// (blockIdx.x; the result is mirrored into (j, i)) and one contiguous range
-// of the window's sites (blockIdx.y: split-K when the tiles alone do not
-// fill the card; the splits then add their counts with int32 atomics, which
-// are exact in any order).  Each step stages 128 sites of the tile's 128
-// rows in shared memory with coalesced byte loads (first[w] has any
-// alignment), repacks each row's 32-site group into four one-hot words
-// (site k of the group in nibble k % 8 of word k / 8, bit = its code) and
-// one called word, and every thread then counts its 4 x 4 pairs with AND +
-// popcount in int32 registers: 5 popcounts per pair per 32 sites.
-__global__ void __launch_bounds__(kThreads)
-pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
-                          long long S, const int32_t* __restrict__ first,
-                          const int32_t* __restrict__ n_sites, int h,
-                          int tiles, int split_len, int atomic,
-                          int32_t* __restrict__ m_out,
-                          int32_t* __restrict__ s_out) {
-  __shared__ uint32_t raw[kRows][kRawWords];
-  __shared__ uint32_t packed[kRows][kPackWords];
-  const int wl = blockIdx.z;
+// The staging and count loop K9 and K14 share: one block counts the pair
+// tile of rows i0 .. i0 + 63 and columns j0 .. j0 + 63 over sites
+// lo .. hi - 1 of the window that starts at f, into thread (ty, tx)'s
+// rows i0 + ty + 16 a and columns j0 + tx + 16 b.  Rows at or past h read
+// as missing.
+__device__ __forceinline__ void count_tile(
+    const int8_t* __restrict__ alleles, long long ld, long long S,
+    long long f, int lo, int hi, int h, int i0, int j0,
+    uint32_t (*raw)[kRawWords], uint32_t (*packed)[kPackWords],
+    int (&acc_s)[kMicro][kMicro], int (&acc_t)[kMicro][kMicro]) {
   const int tid = threadIdx.x;
-
-  // upper-triangle tile (ti <= tj), row by row
-  int ti = 0;
-  int rem = blockIdx.x;
-  while (rem >= tiles - ti) {
-    rem -= tiles - ti;
-    ++ti;
-  }
-  const int tj = ti + rem;
-  const int i0 = ti * kTile;
-  const int j0 = tj * kTile;
-
-  const long long f = first[wl];
-  const int n = n_sites[wl];
-  const int lo = blockIdx.y * split_len;
-  const int hi = min(n, lo + split_len);
-  if (atomic && lo >= hi) return;          // the zeroed output stands
-
   const int ty = tid / kSide;
   const int tx = tid % kSide;
-  int acc_s[kMicro][kMicro];
-  int acc_t[kMicro][kMicro];
 #pragma unroll
   for (int a = 0; a < kMicro; ++a)
 #pragma unroll
@@ -154,10 +111,78 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
     }
     __syncthreads();
   }
+}
+
+// Store one count into a cell: plainly, or with an int32 atomic add when
+// the window's sites are split over blocks (the output is then zeroed).
+__device__ __forceinline__ void put(int32_t* cell, int v, int atomic) {
+  if (!atomic)
+    *cell = v;
+  else if (v)
+    atomicAdd(cell, v);
+}
+
+// ---------------------------------------------------------------- K9
+// pair_counts_4state — replaces genomics_general_tpu/kernels/pairdist.py
+// pairwise_counts with gather_window_batch (and so _gathered_pair_counts'
+// count stage).  For window w = [first, first + n) and haplotypes i, j:
+//   shared(i, j)   = #sites where both codes are >= 0
+//   match(i, j)    = #sites where both codes are the same one of 0..3
+//   mismatch(i, j) = shared - match
+// which is the JAX kernel's one-hot Gram (called . called^T minus
+// onehot . onehot^T).  Missing is -1; a site outside the window, the span
+// or the matrix reads as missing, so no padding is needed and each window
+// is read at its own length.
+//
+// Bound: operations.  Every pair of the upper triangle compares every site
+// of its window, while the input is read once per 64 x 64 tile.  Design: a
+// block owns one window (blockIdx.z), one 64 x 64 pair tile with j >= i
+// (blockIdx.x; the result is mirrored into (j, i)) and one contiguous range
+// of the window's sites (blockIdx.y: split-K when the tiles alone do not
+// fill the card; the splits then add their counts with int32 atomics, which
+// are exact in any order).  Each step stages 128 sites of the tile's 128
+// rows in shared memory with coalesced byte loads (first[w] has any
+// alignment), repacks each row's 32-site group into four one-hot words
+// (site k of the group in nibble k % 8 of word k / 8, bit = its code) and
+// one called word, and every thread then counts its 4 x 4 pairs with AND +
+// popcount in int32 registers: 5 popcounts per pair per 32 sites.
+__global__ void __launch_bounds__(kThreads)
+pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
+                          long long S, const int32_t* __restrict__ first,
+                          const int32_t* __restrict__ n_sites, int h,
+                          int tiles, int split_len, int atomic,
+                          int32_t* __restrict__ m_out,
+                          int32_t* __restrict__ s_out) {
+  __shared__ uint32_t raw[kRows][kRawWords];
+  __shared__ uint32_t packed[kRows][kPackWords];
+  const int wl = blockIdx.z;
+
+  // upper-triangle tile (ti <= tj), row by row
+  int ti = 0;
+  int rem = blockIdx.x;
+  while (rem >= tiles - ti) {
+    rem -= tiles - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+
+  const int n = n_sites[wl];
+  const int lo = blockIdx.y * split_len;
+  const int hi = min(n, lo + split_len);
+  if (atomic && lo >= hi) return;          // the zeroed output stands
+
+  int acc_s[kMicro][kMicro];
+  int acc_t[kMicro][kMicro];
+  count_tile(alleles, ld, S, first[wl], lo, hi, h, i0, j0, raw, packed,
+             acc_s, acc_t);
 
   // write (i, j) and, off the diagonal tiles, the mirror (j, i); a diagonal
   // tile computes both (i, j) and (j, i) itself, so each cell is written
   // once per block
+  const int ty = threadIdx.x / kSide;
+  const int tx = threadIdx.x % kSide;
   const size_t base = (size_t)wl * h * h;
 #pragma unroll
   for (int a = 0; a < kMicro; ++a) {
@@ -168,25 +193,68 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
       if (i >= h || j >= h) continue;
       const int sv = acc_s[a][b];
       const int mv = sv - acc_t[a][b];
-      const size_t o = base + (size_t)i * h + j;
-      const size_t ot = base + (size_t)j * h + i;
-      if (atomic) {
-        if (sv) {
-          atomicAdd(&s_out[o], sv);
-          if (ti != tj) atomicAdd(&s_out[ot], sv);
-        }
-        if (mv) {
-          atomicAdd(&m_out[o], mv);
-          if (ti != tj) atomicAdd(&m_out[ot], mv);
-        }
-      } else {
-        s_out[o] = sv;
-        m_out[o] = mv;
-        if (ti != tj) {
-          s_out[ot] = sv;
-          m_out[ot] = mv;
-        }
+      put(&s_out[base + (size_t)i * h + j], sv, atomic);
+      put(&m_out[base + (size_t)i * h + j], mv, atomic);
+      if (ti != tj) {
+        put(&s_out[base + (size_t)j * h + i], sv, atomic);
+        put(&m_out[base + (size_t)j * h + i], mv, atomic);
       }
+    }
+  }
+}
+
+// --------------------------------------------------------------- K14
+// pair_counts_4state_rows — replaces the row-sharded pair counts of
+// genomics_general_tpu/parallel/mesh.py sharded_pair_counts_tp (the JAX
+// gather_window_batch + pairwise_counts with the [W, H, H] output's rows
+// split over the mesh): K9's counts for the rectangle of rows r0 .. r1 - 1
+// and all h columns of every window, into [nwin, r1 - r0, h].
+//
+// Bound: operations, as K9's, over the rectangle.  Design: K9's staging
+// and count loop (count_tile) on full rectangular 64 x 64 tiles with no
+// mirror: blockIdx.x walks the row tiles of [r0, r1) times the column tiles
+// of [0, h); rows past r1 are counted with the tile but not written, rows
+// and columns past h read as missing.  The site split and its atomics are
+// K9's.
+__global__ void __launch_bounds__(kThreads)
+pair_counts_4state_rows_kernel(const int8_t* __restrict__ alleles,
+                               long long ld, long long S,
+                               const int32_t* __restrict__ first,
+                               const int32_t* __restrict__ n_sites, int h,
+                               int r0, int r1, int col_tiles, int split_len,
+                               int atomic, int32_t* __restrict__ m_out,
+                               int32_t* __restrict__ s_out) {
+  __shared__ uint32_t raw[kRows][kRawWords];
+  __shared__ uint32_t packed[kRows][kPackWords];
+  const int wl = blockIdx.z;
+  const int i0 = r0 + (blockIdx.x / col_tiles) * kTile;
+  const int j0 = (blockIdx.x % col_tiles) * kTile;
+
+  const int n = n_sites[wl];
+  const int lo = blockIdx.y * split_len;
+  const int hi = min(n, lo + split_len);
+  if (atomic && lo >= hi) return;          // the zeroed output stands
+
+  int acc_s[kMicro][kMicro];
+  int acc_t[kMicro][kMicro];
+  count_tile(alleles, ld, S, first[wl], lo, hi, h, i0, j0, raw, packed,
+             acc_s, acc_t);
+
+  const int ty = threadIdx.x / kSide;
+  const int tx = threadIdx.x % kSide;
+  const int rows = r1 - r0;
+  const size_t base = (size_t)wl * rows * h;
+#pragma unroll
+  for (int a = 0; a < kMicro; ++a) {
+    const int i = i0 + ty + kSide * a;
+#pragma unroll
+    for (int b = 0; b < kMicro; ++b) {
+      const int j = j0 + tx + kSide * b;
+      if (i >= r1 || j >= h) continue;
+      const int sv = acc_s[a][b];
+      const size_t o = base + (size_t)(i - r0) * h + j;
+      put(&s_out[o], sv, atomic);
+      put(&m_out[o], sv - acc_t[a][b], atomic);
     }
   }
 }
@@ -208,6 +276,24 @@ int ggt_pair_counts_4state(const void* alleles, long long ld, long long S,
       (const int8_t*)alleles, ld, S, (const int32_t*)first,
       (const int32_t*)n_sites, h, tiles, split_len, splits > 1 ? 1 : 0,
       (int32_t*)m_out, (int32_t*)s_out);
+  return (int)cudaGetLastError();
+}
+
+// As ggt_pair_counts_4state for rows r0 .. r1 - 1 (0 <= r0 < r1 <= h) and
+// all h columns: m_out, s_out int32 [nwin, r1 - r0, h].
+int ggt_pair_counts_4state_rows(const void* alleles, long long ld,
+                                long long S, const void* first,
+                                const void* n_sites, int h, int r0, int r1,
+                                int nwin, int splits, int split_len,
+                                void* m_out, void* s_out, void* stream) {
+  const int row_tiles = (r1 - r0 + kTile - 1) / kTile;
+  const int col_tiles = (h + kTile - 1) / kTile;
+  dim3 grid(row_tiles * col_tiles, splits, nwin);
+  pair_counts_4state_rows_kernel<<<grid, kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+      (const int8_t*)alleles, ld, S, (const int32_t*)first,
+      (const int32_t*)n_sites, h, r0, r1, col_tiles, split_len,
+      splits > 1 ? 1 : 0, (int32_t*)m_out, (int32_t*)s_out);
   return (int)cudaGetLastError();
 }
 

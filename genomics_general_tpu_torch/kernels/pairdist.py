@@ -66,7 +66,7 @@ from . import transfer
 # and the host executor never count)
 LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0,
             "tri_pack": 0, "het_pairs": 0, "pair_counts_4state": 0,
-            "pair_counts_v2": 0}
+            "pair_counts_v2": 0, "pair_counts_4state_rows": 0}
 # flushes run by the host C executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 # pair cells the plain K2 materializes per slab of exception entries
@@ -271,8 +271,9 @@ class PopGroups:
         self.offs = torch.from_numpy(offs).to(device)
 
 
-# per-run constants on the device, keyed on their bytes (a few at a time:
-# a run hands every flush the same masks and rows)
+# per-run constants on each device, keyed on their bytes (a few at a time
+# per device: a run hands every flush the same masks and rows, and a mesh
+# run needs them on each of its devices)
 _CONSTS: dict = {}
 _MAX_CONSTS = 8
 
@@ -281,12 +282,13 @@ def _run_const(kind: str, arr: np.ndarray, device: torch.device, build):
     """``build(arr)`` once per distinct (kind, bytes, device): the CLI hands
     every flush the same mask, and a pageable upload per flush would block
     dispatch until the previous flush's work had drained."""
-    key = (kind, arr.dtype.str, arr.shape, arr.tobytes(), str(device))
-    if key not in _CONSTS:
-        if len(_CONSTS) >= _MAX_CONSTS:
-            _CONSTS.clear()
-        _CONSTS[key] = build(arr)
-    return _CONSTS[key]
+    key = (kind, arr.dtype.str, arr.shape, arr.tobytes())
+    cache = _CONSTS.setdefault(str(device), {})
+    if key not in cache:
+        if len(cache) >= _MAX_CONSTS:
+            cache.clear()
+        cache[key] = build(arr)
+    return cache[key]
 
 
 def _pop_groups(pop_mask: np.ndarray, device: torch.device) -> PopGroups:
@@ -452,13 +454,17 @@ def _sm_count(dev: torch.device) -> int:
     return _SM_COUNT[key]
 
 
-def _k9_splits(h: int, nwin: int, s_max: int, dev) -> tuple[int, int]:
-    """(splits, split_len) of K9's site axis: when the chunk's
-    upper-triangle tiles give fewer than two blocks per SM, each window's
-    sites are cut into up to that many ranges of at least 16 staging steps
-    (the ranges add their counts with exact int32 atomics)."""
-    tiles = -(-h // _K9_TILE)
-    blocks = tiles * (tiles + 1) // 2 * max(nwin, 1)
+def _k9_splits(h: int, nwin: int, s_max: int, dev,
+               tiles: int | None = None) -> tuple[int, int]:
+    """(splits, split_len) of K9's site axis: when the chunk's pair tiles
+    (``tiles`` a window; default K9's upper triangle of h rows) give fewer
+    than two blocks per SM, each window's sites are cut into up to that
+    many ranges of at least 16 staging steps (the ranges add their counts
+    with exact int32 atomics).  K14 shares it."""
+    if tiles is None:
+        t = -(-h // _K9_TILE)
+        tiles = t * (t + 1) // 2
+    blocks = tiles * max(nwin, 1)
     target = 2 * _sm_count(dev)
     splits = min(-(-target // blocks), -(-s_max // (16 * _K9_STAGE)))
     if splits <= 1:
@@ -506,7 +512,8 @@ def pair_counts_4state(alleles: torch.Tensor, first: torch.Tensor,
 
 
 def pair_counts_4state_plain(alleles: torch.Tensor, first: torch.Tensor,
-                             n_sites: torch.Tensor):
+                             n_sites: torch.Tensor, r0: int = 0,
+                             r1: int | None = None):
     """Plain PyTorch K9, the JAX form: gather each window's sites (padded
     slots, and sites outside the matrix, are missing), then the one-hot
     Grams
@@ -514,11 +521,13 @@ def pair_counts_4state_plain(alleles: torch.Tensor, first: torch.Tensor,
         shared = called . called^T,  mismatch = shared - sum_c oh_c . oh_c^T
 
     in float64 (exact counts), over slabs of sites so each [W, H, slab]
-    factor stays below 2^24 cells."""
+    factor stays below 2^24 cells.  With a row block ``r0 .. r1 - 1`` (the
+    plain K14) the left factors are those rows alone: [W, r1 - r0, H]."""
     h, S = alleles.shape
+    r1 = h if r1 is None else r1
     W = first.shape[0]
     dev = alleles.device
-    s = torch.zeros((W, h, h), dtype=torch.float64, device=dev)
+    s = torch.zeros((W, r1 - r0, h), dtype=torch.float64, device=dev)
     match = torch.zeros_like(s)
     f, n = first.long().to(dev), n_sites.long().to(dev)
     n_max = int(n.max()) if W else 0
@@ -531,11 +540,54 @@ def pair_counts_4state_plain(alleles: torch.Tensor, first: torch.Tensor,
         wa = alleles[:, idx].permute(1, 0, 2)                  # [W, H, k]
         keep = valid[:, None, :]
         called = ((wa >= 0) & keep).to(torch.float64)
-        s += called @ called.transpose(1, 2)
+        s += called[:, r0:r1] @ called.transpose(1, 2)
         for c in range(4):
             oh = ((wa == c) & keep).to(torch.float64)
-            match += oh @ oh.transpose(1, 2)
+            match += oh[:, r0:r1] @ oh.transpose(1, 2)
     return (s - match).to(torch.int32), s.to(torch.int32)
+
+
+# ------------------------------------- K14 the rows of the 4-state counts
+
+def pair_counts_4state_rows(alleles: torch.Tensor, first: torch.Tensor,
+                            n_sites: torch.Tensor, r0: int, r1: int,
+                            s_max: int | None = None):
+    """Rows ``r0 .. r1 - 1`` of K9's counts: mismatch/shared int32
+    [W, r1 - r0, H], each row against every haplotype (the row block one
+    device holds in the tensor-parallel pair counts).  ``s_max`` as in
+    :func:`pair_counts_4state`.  Replaces the row-sharded
+    ``gather_window_batch`` + ``pairwise_counts`` of the JAX
+    ``mesh.sharded_pair_counts_tp``."""
+    h, S = alleles.shape
+    if not 0 <= r0 < r1 <= h:
+        raise ValueError(f"row block {r0}..{r1} outside {h} rows")
+    if not alleles.is_cuda:
+        return pair_counts_4state_plain(alleles, first, n_sites, r0, r1)
+    if alleles.dim() != 2 or alleles.dtype != torch.int8 or \
+            alleles.stride(1) != 1:
+        raise ValueError("alleles must be int8 [H, S] with contiguous sites")
+    if first.dtype != torch.int32 or n_sites.dtype != torch.int32 or \
+            first.shape != n_sites.shape or first.dim() != 1:
+        raise ValueError("first and n_sites must be int32 [W]")
+    _check_cuda(first, n_sites)
+    nwin = first.shape[0]
+    if nwin > 65535:
+        raise ValueError(f"{nwin} windows in one launch (at most 65535)")
+    tiles = -(-(r1 - r0) // _K9_TILE) * -(-h // _K9_TILE)
+    splits, split_len = _k9_splits(h, nwin, S if s_max is None else s_max,
+                                   alleles.device, tiles)
+    alloc = torch.zeros if splits > 1 else torch.empty
+    m = alloc((nwin, r1 - r0, h), dtype=torch.int32, device=alleles.device)
+    s = alloc((nwin, r1 - r0, h), dtype=torch.int32, device=alleles.device)
+    if nwin == 0:
+        return m, s
+    code = _build.lib("pair4").ggt_pair_counts_4state_rows(
+        alleles.data_ptr(), alleles.stride(0), S, first.data_ptr(),
+        n_sites.data_ptr(), h, r0, r1, nwin, splits, split_len,
+        m.data_ptr(), s.data_ptr(), _stream_ptr(m))
+    _build.check(code, "pair_counts_4state_rows")
+    LAUNCHES["pair_counts_4state_rows"] += 1
+    return m, s
 
 
 # ------------------------------------------------------------ the flush
@@ -953,7 +1005,8 @@ def _check_windows(first: np.ndarray, n_sites: np.ndarray, S: int) -> None:
 
 
 def window_pair_counts_dispatch(alleles, first: np.ndarray,
-                                n_sites: np.ndarray) -> PairCountsHandle:
+                                n_sites: np.ndarray,
+                                mesh=None) -> PairCountsHandle:
     """Dispatch the pair counts of one flush without fetching them.
 
     ``alleles`` is the flush's int8 [H, S] span.  A host array ships as one
@@ -964,11 +1017,15 @@ def window_pair_counts_dispatch(alleles, first: np.ndarray,
     windows (one upload, :func:`transfer.pack_raw_span`), and a tensor (the
     JAX device-array route) is counted where it lies; both of those run the
     general 4-state counts K9, then K4, per window chunk.  ``GGT_EXEC=host``
-    sends a host span to the host C executor."""
+    sends a host span to the host C executor.  With a ``mesh`` the window
+    batch is counted data-parallel over its devices
+    (:func:`_mesh_pair_counts`)."""
     W = first.shape[0]
     H, S = alleles.shape
     if W == 0:
         return PairCountsHandle(W, H)
+    if mesh is not None:
+        return _mesh_pair_counts(alleles, first, n_sites, mesh)
     on_host = isinstance(alleles, np.ndarray)
     if on_host and _exec_choice() == "host":
         return _ReadyHandle(lambda: _host_counts(alleles, first, n_sites))
@@ -997,10 +1054,45 @@ def window_pair_counts_dispatch(alleles, first: np.ndarray,
         meta, alleles.device, run))
 
 
-def window_pair_counts(alleles, first: np.ndarray, n_sites: np.ndarray):
+def _mesh_pair_counts(alleles, first: np.ndarray, n_sites: np.ndarray,
+                      mesh) -> PairCountsHandle:
+    """Data-parallel pair counts (the JAX ``_sharded_gathered_pair_counts``):
+    the window batch, padded to ``n_dev * 2^k``, is cut into one contiguous
+    slab per device.  The span is replicated over the mesh (a host span as
+    the raw bucket-padded upload, the int8 array of the JAX mesh route: no
+    wire v3, no host executor), and each device runs K9 + K4 on its slab's
+    windows.  The slabs come back in window order."""
+    W = first.shape[0]
+    H, S = alleles.shape
+    first = np.ascontiguousarray(first, dtype=np.int32)
+    n_sites = np.ascontiguousarray(n_sites, dtype=np.int32)
+    _check_windows(first, n_sites, S)
+    span = transfer.upload_span(alleles, mesh=mesh) \
+        if isinstance(alleles, np.ndarray) else \
+        transfer.replicate(alleles, mesh)
+    u16, s_max = _tri_u16(n_sites), int(n_sites.max())
+    parts = []
+    for d, a, (lo, hi) in zip(mesh.devices, span.shards, transfer.slabs(
+            transfer.mesh_batch(W, mesh.size), mesh.size, W)):
+        if hi == lo:
+            continue
+        k = hi - lo
+        meta = np.concatenate([first[lo:hi], n_sites[lo:hi]]).view(np.uint8)
+
+        def run(b, a=a, k=k):
+            fn = b.view(torch.int32)
+            return flush_tri_4state(a, fn[:k], fn[k:], _window_chunk(k, H),
+                                    u16, s_max)
+        parts.append(transfer.run_on_device(meta, d, run))
+    return PairCountsHandle(W, H, transfer.Gathered(parts))
+
+
+def window_pair_counts(alleles, first: np.ndarray, n_sites: np.ndarray,
+                       mesh=None):
     """Dispatch + collect in one call: numpy (mismatch [W, H, H], shared
     [W, H, H]) int32 in window order."""
-    return window_pair_counts_dispatch(alleles, first, n_sites).collect()
+    return window_pair_counts_dispatch(alleles, first, n_sites,
+                                       mesh=mesh).collect()
 
 
 # ----------------------------------------------- the long-span consumers

@@ -128,25 +128,94 @@ def device_alleles(alleles: np.ndarray, dev=None) -> torch.Tensor:
     copied with ``non_blocking``."""
     from ..device import get_device
     dev = get_device() if dev is None else dev
-    a = np.ascontiguousarray(alleles, dtype=np.int8)
+    return to_device(np.ascontiguousarray(alleles, dtype=np.int8), dev)
+
+
+def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array (any dtype) as a tensor on ``dev``: staged in pinned
+    memory and copied with ``non_blocking`` to a card, copied for the
+    CPU."""
+    x = np.ascontiguousarray(x)
     if dev.type != "cuda":
-        return torch.from_numpy(a.copy())
-    staged = torch.empty(a.shape, dtype=torch.int8, pin_memory=True)
-    staged.numpy()[:] = a
-    return staged.to(dev, non_blocking=True)
+        return torch.from_numpy(x.copy())
+    return torch.from_numpy(x).pin_memory().to(dev, non_blocking=True)
 
 
 def upload_span(alleles: np.ndarray, dev=None,
-                min_bucket: int = 1 << 16) -> torch.Tensor:
+                min_bucket: int = 1 << 16, mesh=None):
     """The raw route of the JAX ``upload_span`` (``GGT_PACKED_TRANSFER=0``):
     the int8 [H, S] span padded on the site axis to the site bucket with -1
     (missing), uploaded to ``dev`` (default ``get_device()``).  Returns the
-    int8 [H, Sp] tensor; callers count its ``[:, :S]`` view."""
+    int8 [H, Sp] tensor; callers count its ``[:, :S]`` view.  With a
+    ``mesh`` the span is replicated over it (:func:`replicate`) and a
+    :class:`Replicated` comes back."""
     H, S = alleles.shape
     Sp = _bucket_sites(max(S, 1), min_bucket)
     padded = np.full((H, Sp), -1, dtype=np.int8)
     padded[:, :S] = alleles
+    if mesh is not None:
+        return replicate(padded, mesh)
     return device_alleles(padded, dev)
+
+
+# ------------------------------------------------ placement over a mesh
+
+class Replicated:
+    """One array placed on every device of a mesh (the JAX replicated
+    ``NamedSharding(mesh, P())``): ``shards[d]`` is the tensor on
+    ``mesh.devices[d]``; mesh entries that name the same device share one
+    tensor.  Indexing indexes every shard."""
+
+    def __init__(self, shards):
+        self.shards = tuple(shards)
+
+    @property
+    def shape(self):
+        return self.shards[0].shape
+
+    def __getitem__(self, idx) -> "Replicated":
+        return Replicated(t[idx] for t in self.shards)
+
+
+def replicate(x, mesh) -> Replicated:
+    """``x`` on every device of ``mesh``, copied once per distinct device:
+    a host array (of any dtype) by :func:`to_device`, a tensor by a copy
+    where it does not lie already.  A :class:`Replicated` is returned as
+    it is."""
+    if isinstance(x, Replicated):
+        return x
+    placed = {}
+    for d in mesh.devices:
+        if d not in placed:
+            placed[d] = to_device(x, d) if isinstance(x, np.ndarray) \
+                else x.to(d, non_blocking=True)
+    return Replicated(placed[d] for d in mesh.devices)
+
+
+def mesh_batch(n: int, n_dev: int) -> int:
+    """The padded length of a window batch over ``n_dev`` devices: the
+    least ``n_dev * 2^k`` of at least ``max(n, 8)`` (the JAX dispatches'
+    padding), so every device holds an equal slab."""
+    b = n_dev
+    while b < max(n, 8):
+        b *= 2
+    return b
+
+
+def slabs(padded: int, n_dev: int, n: int) -> list[tuple[int, int]]:
+    """Each device's contiguous slab ``(lo, hi)`` of an axis of ``n``
+    entries padded to ``padded`` (a multiple of ``n_dev``), in device
+    order, as JAX's ``P("data")`` places it; ``hi`` is cut at ``n``, so a
+    slab of padding alone comes back empty (pad entries are never
+    computed: their results would be dropped)."""
+    q = padded // n_dev
+    return [(min(d * q, n), min((d + 1) * q, n)) for d in range(n_dev)]
+
+
+def sharded_axis(n: int, n_dev: int) -> list[tuple[int, int]]:
+    """:func:`slabs` of an axis padded to a multiple of ``n_dev`` (the
+    site axis, the haplotype rows)."""
+    return slabs(-(-n // n_dev) * n_dev, n_dev, n)
 
 
 def pack_raw_span(alleles: np.ndarray, first: np.ndarray,
@@ -192,17 +261,42 @@ class Pending:
         return host
 
 
+class Gathered:
+    """The shards of one result on their way to the host: ``wait()``
+    joins their arrays along axis 0 in shard order (window or site
+    order)."""
+
+    def __init__(self, parts):
+        self._parts = list(parts)
+
+    def wait(self) -> np.ndarray:
+        host = np.concatenate([p.wait() for p in self._parts])
+        self._parts = []
+        return host
+
+
 def fetch(out: torch.Tensor, keep=()) -> Pending:
     """Start bringing a result tensor back: on CUDA an asynchronous copy
-    into pinned memory with an event recorded after it (``keep`` stays
-    alive until then); on the CPU the result itself."""
+    into pinned memory on the tensor's device's current stream, with an
+    event recorded after it there (``keep`` stays alive until then); on
+    the CPU the result itself."""
     if out.device.type != "cuda":
         return Pending(out)
-    result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    result.copy_(out, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
+    with torch.cuda.device(out.device):
+        result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        result.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
     return Pending(result, event, keep=keep)
+
+
+def fetch_on(dev: torch.device, run, keep=()) -> Pending:
+    """Call ``run()``, which launches kernels on ``dev`` and returns their
+    result tensor, with ``dev`` the current device, then :func:`fetch`
+    that result: one shard's work on a mesh."""
+    from ..device import device_scope
+    with device_scope(dev):
+        return fetch(run(), keep=keep)
 
 
 def run_on_device(buf: np.ndarray, dev: torch.device, run) -> Pending:
@@ -210,14 +304,16 @@ def run_on_device(buf: np.ndarray, dev: torch.device, run) -> Pending:
     launches the flush's kernels and returns its result tensor.
 
     On CUDA the buffer is staged in pinned memory and copied with
-    ``non_blocking``, the kernels go on the current stream, and the result
-    is copied back into pinned memory asynchronously: nothing here waits
-    for the device.  On the CPU ``run`` computes at once."""
+    ``non_blocking``, the kernels go on ``dev``'s current stream (``dev``
+    is made the current device meanwhile), and the result is copied back
+    into pinned memory asynchronously: nothing here waits for the device.
+    On the CPU ``run`` computes at once."""
     if dev.type != "cuda":
         return Pending(run(torch.from_numpy(buf)))
     staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
     staged.numpy()[:] = buf
-    return fetch(run(staged.to(dev, non_blocking=True)), keep=(staged,))
+    return fetch_on(dev, lambda: run(staged.to(dev, non_blocking=True)),
+                    keep=(staged,))
 
 
 def unpack_span(buf, sp: int, h: int) -> torch.Tensor:

@@ -27,6 +27,9 @@ from . import pairdist
 
 LAUNCHES = {"window_stats_tail": 0, "window_pop_counts": 0}
 _NT = 1024                       # window_stats.cu: K10 threads per block
+# windows per launch of the step's kernels: K9 and K11 put the window on a
+# grid axis of at most 65,535 blocks
+STEP_CHUNK = 65535
 
 
 def reset_launches() -> None:
@@ -195,7 +198,9 @@ def window_stats_step(alleles, first, n_sites, pop_mask):
     membership: numpy arrays (uploaded to ``get_device()``) or tensors on
     one device.  Returns the JAX dict on that device: float32 ``pi``
     [B, P], ``dxy`` and ``fst`` [B, P, P], int32 ``mismatch`` and
-    ``shared`` [B, H, H] and ``pop_counts`` [B, P, 4]."""
+    ``shared`` [B, H, H] and ``pop_counts`` [B, P, 4].  Any B: the kernels
+    run ``STEP_CHUNK`` windows at a time (on every device, so the CPU
+    tests hold the chunking too) and the outputs join in window order."""
     if isinstance(pop_mask, np.ndarray) and \
             not np.isin(pop_mask, (0.0, 1.0)).all():
         raise ValueError("pop_mask must be 0/1 population membership")
@@ -208,9 +213,15 @@ def window_stats_step(alleles, first, n_sites, pop_mask):
     n = _as_tensor(n_sites, torch.int32, dev)
     pm = _as_tensor(pop_mask, torch.float32, dev)
     s_max = int(np.max(n_sites)) if isinstance(n_sites, np.ndarray) \
-        else None
-    mismatch, shared = pairdist.pair_counts_4state(a, f, n, s_max)
-    pi, dxy, fst = window_stats_tail(mismatch, shared, pm)
-    return {"pi": pi, "dxy": dxy, "fst": fst,
-            "mismatch": mismatch, "shared": shared,
-            "pop_counts": window_pop_counts(a, f, n, pm)}
+        and n_sites.size else None
+    parts = []
+    for w0 in range(0, max(f.shape[0], 1), STEP_CHUNK):
+        fc, nc = f[w0:w0 + STEP_CHUNK], n[w0:w0 + STEP_CHUNK]
+        mismatch, shared = pairdist.pair_counts_4state(a, fc, nc, s_max)
+        pi, dxy, fst = window_stats_tail(mismatch, shared, pm)
+        parts.append({"pi": pi, "dxy": dxy, "fst": fst,
+                      "mismatch": mismatch, "shared": shared,
+                      "pop_counts": window_pop_counts(a, fc, nc, pm)})
+    if len(parts) == 1:
+        return parts[0]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}

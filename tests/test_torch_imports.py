@@ -32,6 +32,8 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.stats.filters",
     "genomics_general_tpu_torch.parallel",
     "genomics_general_tpu_torch.parallel.multihost",
+    "genomics_general_tpu_torch.parallel.mesh",
+    "genomics_general_tpu_torch.parallel.dispatch",
     "genomics_general_tpu_torch.kernels",
     "genomics_general_tpu_torch.kernels._build",
     "genomics_general_tpu_torch.kernels.transfer",
@@ -99,3 +101,23 @@ def test_device_choice(device, ok):
     else:
         assert r.returncode != 0
         assert "GGT_DEVICE" in r.stderr
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "mesh_cards.py"])
+def test_card_scripts_need_cards_and_no_jax(script):
+    """The card scripts import nothing of JAX and, without a CUDA card,
+    exit non-zero having printed no result."""
+    mod = script[:-3]
+    r = subprocess.run([sys.executable, "-c", _PROBE, mod],
+                       capture_output=True, text=True, env=_env(), cwd=REPO,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    mods = json.loads(r.stdout.strip().splitlines()[-1])
+    assert mod in mods
+    assert not [m for m in mods if m.split(".")[0] in
+                ("jax", "jaxlib", "genomics_general_tpu")]
+    r = subprocess.run([sys.executable, script], capture_output=True,
+                       text=True, env=_env(CUDA_VISIBLE_DEVICES=""),
+                       cwd=REPO, timeout=300)
+    assert r.returncode != 0
+    assert r.stdout.strip() == ""

@@ -197,10 +197,10 @@ def test_port_whh_cap_bounds_hapstats_flushes(tmp_path, monkeypatch):
     sizes = []
     real = pairdist.window_pair_counts_dispatch
 
-    def recording(alleles, first, n_sites):
-        assert alleles.shape[0] == 512
+    def recording(alleles, first, n_sites, mesh=None):
+        assert alleles.shape[0] == 512 and mesh is None
         sizes.append(first.shape[0])
-        return real(alleles, first, n_sites)
+        return real(alleles, first, n_sites, mesh=mesh)
 
     monkeypatch.setattr(pairdist, "window_pair_counts_dispatch", recording)
     out = tmp_path / "o.csv"
@@ -269,9 +269,9 @@ def test_port_raw_upload_bytes_equal_packed(tmp_path, monkeypatch, analysis):
     uploads = []
     real = transfer.upload_span
 
-    def counting(span, *a):
+    def counting(span, *a, **kw):
         uploads.append(span.shape)
-        return real(span, *a)
+        return real(span, *a, **kw)
     monkeypatch.setattr(transfer, "upload_span", counting)
     assert popgen_windows.main(args + ["-o", str(raw)]) == 0
     assert raw.read_bytes() == packed.read_bytes()

@@ -158,6 +158,27 @@ def test_tail_and_pop_counts_plain_entry_points():
                 counts.numpy()[w, p], [(rows == c).sum() for c in range(4)])
 
 
+def test_step_chunks_any_batch(monkeypatch):
+    """window_stats_step runs STEP_CHUNK windows per launch and joins the
+    chunks in window order: with chunks of 3, its 8 windows (3 + 3 + 2)
+    equal the unchunked step and the JAX step."""
+    a, first, n, pm = messy_step_input(6)
+    whole = port_ws.window_stats_step(a, first, n, pm)
+    monkeypatch.setattr(port_ws, "STEP_CHUNK", 3)
+    calls = []
+    real = port_pair.pair_counts_4state
+    monkeypatch.setattr(port_pair, "pair_counts_4state",
+                        lambda a, f, k, s=None: calls.append(f.shape[0])
+                        or real(a, f, k, s))
+    chunked = port_ws.window_stats_step(a, first, n, pm)
+    assert calls == [3, 3, 2]
+    for k, v in whole.items():
+        assert chunked[k].shape == v.shape, k
+        np.testing.assert_array_equal(chunked[k].numpy(), v.numpy(),
+                                      err_msg=k)
+    _compare(chunked, jax_step(a, first, n, pm, s_max=2048))
+
+
 def test_step_refuses_a_fractional_mask():
     a, first, n, pm = messy_step_input()
     pm = pm * 0.5
