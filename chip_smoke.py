@@ -44,7 +44,12 @@ not build, launch or agree, or an output is wrong):
    (uint16 and int32); K16 stacked_reduce (sum, min; int64 beyond 2^31,
    int32) against torch.sum / torch.amin; window_stats_step over 66,000
    windows (past the 65,535 a K9 or K11 launch takes) equal to its chunks
-   run one at a time;
+   run one at a time; K17 pair_allele_tables (H = 160 and 77, S = 0, 1,
+   33, 517, codes -7..5, strided rows), K18 site_nonmissing (1 and 5
+   populations, a 10-row overlapping mask) and K19 sample_base_counts
+   exactly; K20 flush_pair_counts on flushes with 0- and 1-site, pad and
+   s_max-cut windows, unaligned metadata and the int32 branch, equal to
+   its plain version and to K9 + K4 on the unpacked flush;
 3. the runs end to end through the port's CLIs at H = 512 (256 diploid
    individuals in 4 populations of 64), 50 kb windows: popgenWindows
    popDist popPairDist (500,000 sites: K1, K2, K3); run A, popFreq popDist
@@ -82,7 +87,16 @@ not build, launch or agree, or an output is wrong):
    each byte-identical to its meshless run; run O reruns popDist on that
    mesh, which takes it off the blocks route (K9 + K4, the host's tri
    finalize), within one rounding quantum of its blocks run; then the
-   port's dryrun_multichip over every card (K14, K15, K16 launched);
+   port's dryrun_multichip over every card (K14, K15, K16 launched).
+   Run P: stats.ld.ld_matrix(r2, use_device=True) over the popDist
+   cohort's first 32 windows (K17 once a window), each window's tables
+   equal to the plain version's and the first two matrices bit-equal to
+   use_device=False; run R: the library entry points no CLI calls, once
+   each at full width (K18 over run A's largest count span, K19 over
+   65,536 sites, K20 on run A's largest flush), equal to K6, K12 and K9 +
+   K4; run Q: phymlSlidingWindows (builtin NJ, --maxLDphase, one
+   bootstrap, -T 4) on run F's first scaffold and raxmlSlidingWindows on
+   run F's cohort, one tree ending in ';' a window;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events,
    beside the bound computed from these inputs (K9 at run E's block and
@@ -92,7 +106,9 @@ not build, launch or agree, or an output is wrong):
    K2 + tails against K1 + K2 + tails on run A's and run B's flushes;
    K14 at run A's largest flush on two row shards; K15 and K16 over the
    500,000-site cohort's first three populations made complete, 129^3
-   bins, against the mesh's sharded_global_sfs on two shards);
+   bins, against the mesh's sharded_global_sfs on two shards; K17 at run
+   P's first window and at 2,048 sites beside the bf16 one-hot Gram, K18,
+   K19 and K20 at run R's inputs, K20 beside K9 + K4);
 4. the popDist goldens and the full-panel popgen_coord.csv golden of
    tests/golden through the port's CLI on the card, the fused
    individual-blocks route against GGT_HOST_DIST_FINALIZE=1 on four
@@ -160,8 +176,15 @@ KERNELS = {
                         "genomics_general_tpu/parallel/mesh.py:134"),
     "stacked_reduce": ("counts.cu",
                        "genomics_general_tpu/parallel/multihost.py:161"),
+    "pair_allele_tables": ("ld.cu", "genomics_general_tpu/kernels/ld.py:25"),
+    "site_nonmissing": ("counts.cu",
+                        "genomics_general_tpu/kernels/counts.py:55"),
+    "sample_base_counts": ("counts.cu",
+                           "genomics_general_tpu/kernels/counts.py:178"),
+    "flush_pair_counts": ("pair4.cu",
+                          "genomics_general_tpu/kernels/pairdist.py:552"),
 }
-SOURCES = ("pair_v3", "counts", "abba", "pair4", "window_stats")
+SOURCES = ("pair_v3", "counts", "abba", "pair4", "window_stats", "ld")
 # H100 SXM data-sheet rates (the bound's denominators); a card set below
 # its 700 W limit runs slower than these
 HBM_BYTES_PER_S = 3.35e12
@@ -198,6 +221,10 @@ MESH_SHARDS = 2
 SFS_POPS = ["pop1", "pop2", "pop3"]
 # window_stats_step past K9's and K11's 65,535-window grid axis
 STEP_WINDOWS, STEP_H, STEP_SITES = 66_000, 8, 70_000
+# run P: ld_matrix over the popDist cohort's first 32 windows of 50 kb,
+# the first 2 also through numpy's int64 Gram (seconds a window at H = 512);
+# run R's sample_base_counts block (16 bytes out a call: 537 MB at H = 512)
+LD_WINDOWS, LD_EXACT_WINDOWS, K19_SITES = 32, 2, 65_536
 POPS4 = ["-p", "pop1", "-p", "pop2", "-p", "pop3", "-p", "pop4"]
 ABBA_POPS = ["-P1", "pop1", "-P2", "pop2", "-P3", "pop3", "-O", "pop4"]
 ABBA_KERNELS = ("site_pop_counts", "abba_site_terms", "abba_window_sums")
@@ -1745,6 +1772,361 @@ def dry_run(mods, entry) -> tuple[dict, dict]:
     return got, {"wall_s": wall, "n_devices": n}
 
 
+# --------------------- K17-K20: LD tables, called counts, one-hot, flush
+
+def k17_k20_parity(ldk, counts, pair, transfer, dev) -> None:
+    """K17-K20 against their plain versions on the same CUDA tensors,
+    exactly, on messy inputs: codes -7..5 read through a row stride; K17 at
+    H = 160 and 77 with S = 0, 1, 33, 517 (ragged against its 16-site
+    tiles); K18 with 1 and 5 disjoint populations and a 10-row overlapping
+    mask; K19; K20 on flushes with 0- and 1-site windows, pad windows, a
+    window running to the last site of an unaligned-metadata span, a cut
+    at s_max, and the int32 branch (one window of 66,000 sites), each also
+    equal to K9 + K4 on the unpacked flush."""
+    import torch
+    rng = np.random.default_rng(17)
+    for H in (160, 77):
+        wide = torch.from_numpy(rng.integers(-7, 6, size=(H, 530)).astype(
+            np.int8)).to(dev)
+        for S in (0, 1, 33, 517):
+            a = wide[:, 3:3 + S]
+            check_equal(f"pair_allele_tables H={H} S={S} vs plain",
+                        ldk.pair_allele_tables(a),
+                        ldk.pair_allele_tables_plain(a))
+        a = wide[:, 5:522]
+        part = np.zeros((5, H))
+        part[rng.integers(0, 5, size=H), np.arange(H)] = 1.0
+        over = (rng.random((10, H)) < 0.3).astype(np.float64)
+        over[9] = 1.0
+        over[:, 0] = 0.0
+        for name, mask in (("1 pop", np.ones((1, H))), ("5 pops", part),
+                           ("10-row overlapping mask", over)):
+            check_equal(f"site_nonmissing H={H} {name} vs plain",
+                        counts.site_nonmissing(a, mask),
+                        counts.site_nonmissing_plain(
+                            a, torch.from_numpy(mask)))
+        check_equal(f"sample_base_counts H={H} vs plain",
+                    counts.sample_base_counts(a),
+                    counts.sample_base_counts_plain(a))
+    a, first, n, _ = messy_input(160)
+    first = np.concatenate([first, [17]]).astype(np.int32)
+    n = np.concatenate([n, [1]]).astype(np.int32)
+    flushes = {"messy H=160": (a, first, n, 1 << 16, None)}
+    b = np.random.default_rng(18).integers(-1, 4, size=(77, 40)).astype(
+        np.int8)
+    flushes["unaligned H=77"] = (b, np.array([0, 30, 5, 39], np.int32),
+                                 np.array([40, 10, 0, 1], np.int32), 8, None)
+    flushes["s_max cut H=77"] = (b, np.array([0, 2], np.int32),
+                                 np.array([40, 33], np.int32), 8, 32)
+    a, first, n = long_window_input()
+    flushes["int32 branch H=24"] = (a, first, n, 1 << 16, None)
+    for name, (a, first, n, min_bucket, s_max) in flushes.items():
+        H, W = a.shape[0], first.shape[0]
+        wp = pair._next_pow2(W, 8)
+        buf, sp = transfer.pack_flush_buffer(a, first, n, wp, min_bucket)
+        if name.startswith("unaligned"):
+            assert (H * (sp // 4 + sp // 8)) % 4 and sp == a.shape[1]
+        dbuf = torch.from_numpy(buf).to(dev)
+        s_max = s_max or pair._next_pow2(int(n.max()), 256)
+        got = pair._fused_flush_pair_counts(dbuf, sp, H, wp, s_max, 4)
+        check_equal(f"flush_pair_counts ({name}) vs plain", got,
+                    pair._fused_flush_pair_counts_plain(dbuf, sp, H, wp,
+                                                        s_max, 4))
+        al, f, k = transfer.unpack_flush_buffer(dbuf, sp, H, wp)
+        check_equal(f"flush_pair_counts ({name}) vs K9 + K4", got,
+                    pair.flush_tri_4state(al, f, k.clamp(max=s_max), wp,
+                                          s_max < (1 << 16), s_max))
+        if name.startswith("int32") != (got.dtype == torch.int32):
+            raise AssertionError(f"flush_pair_counts ({name}): {got.dtype}")
+        zero = np.flatnonzero(n == 0).tolist() + list(range(W, wp))
+        if got.cpu().numpy()[zero].any():
+            raise AssertionError(f"flush_pair_counts ({name}): pad or "
+                                 "empty windows not zero")
+    torch.cuda.synchronize()
+
+
+def cohort_windows(geno, pops, n_windows: int, size: int = 50_000):
+    """The cohort's first ``n_windows`` coordinate windows of ``size`` bp
+    on its first scaffold, as int8 [H, S] arrays (the port's reader)."""
+    from genomics_general_tpu_torch.io import geno as geno_io
+    from genomics_general_tpu_torch.samples import SampleData
+    sd = SampleData.from_pop_args(
+        population_args=[[f"pop{p}"] for p in range(1, 5)],
+        pops_file=str(pops), geno_format="phased")
+    reader = geno_io.GenoReader(str(geno), sample_data=sd,
+                                geno_format="phased")
+    end = n_windows * size
+    parts, pos = [], []
+    for c in reader.iter_chunks(threads=1):
+        keep = (c.scaffold_ids == 0) & (c.positions <= end)
+        parts.append(c.alleles[:, keep])
+        pos.append(c.positions[keep])
+        if not keep.all():
+            break
+    a, pos = np.concatenate(parts, axis=1), np.concatenate(pos)
+    win = (pos - 1) // size
+    return [np.ascontiguousarray(a[:, win == w]) for w in range(n_windows)]
+
+
+def run_p(ldk, stats_ld, geno, pops, dev):
+    """Run P: stats.ld.ld_matrix(a, "r2", use_device=True) through the port
+    over the popDist cohort's first 32 windows (H = 512), the launch count
+    reset just before: K17 must launch once a window; each window's tables
+    must equal the plain version's, and the first two windows' matrices
+    the numpy route's (use_device=False) bit for bit, NaN positions equal.
+    Returns (launches, the first four windows, report)."""
+    import torch
+    wins = cohort_windows(geno, pops, LD_WINDOWS)
+    real = ldk.window_pair_tables
+    tables, t_dev = [], [0.0]
+
+    def timed(a):
+        t0 = time.perf_counter()
+        out = real(a)
+        t_dev[0] += time.perf_counter() - t0
+        tables.append(out)
+        return out
+    ldk.window_pair_tables = timed
+    try:
+        ldk.reset_launches()
+        t0 = time.perf_counter()
+        mats = [stats_ld.ld_matrix(a, "r2", use_device=True) for a in wins]
+        wall = time.perf_counter() - t0
+        launches = dict(ldk.LAUNCHES)
+    finally:
+        ldk.window_pair_tables = real
+    if launches["pair_allele_tables"] != len(wins):
+        raise AssertionError(f"run_P: K17 launched "
+                             f"{launches['pair_allele_tables']} times for "
+                             f"{len(wins)} windows")
+    for w, (a, t) in enumerate(zip(wins, tables)):
+        check_equal(f"run_P window {w} tables vs plain", torch.from_numpy(t),
+                    ldk.pair_allele_tables_plain(torch.from_numpy(a).to(dev)))
+    for w in range(LD_EXACT_WINDOWS):
+        want = stats_ld.ld_matrix(wins[w], "r2", use_device=False)
+        got = mats[w]
+        if got.shape != want.shape or \
+                not np.array_equal(np.isnan(got), np.isnan(want)) or \
+                not np.array_equal(got.view(np.int64), want.view(np.int64)):
+            raise AssertionError(f"run_P window {w}: the device route's r2 "
+                                 "differs from use_device=False")
+    finite = sum(int(np.isfinite(m).sum()) for m in mats)
+    if not finite or any(np.nanmax(m) > 1.0 + 1e-12 or np.nanmin(m) < 0.0
+                         for m in mats):
+        raise AssertionError("run_P: r2 outside [0, 1] or never finite")
+    sites = [a.shape[1] for a in wins]
+    report = {"wall_s": wall, "tables_s": t_dev[0],
+              "host_finalize_s": wall - t_dev[0], "windows": len(wins),
+              "sites": int(sum(sites)), "finite_cells": finite}
+    log(f"[e2e] run_P ld_matrix(r2, use_device=True): {len(wins)} windows "
+        f"of {min(sites)}-{max(sites)} sites, H={wins[0].shape[0]}: wall "
+        f"{wall:.3f}s (tables on the card + fetch {t_dev[0]:.3f}s, host "
+        f"finalize {wall - t_dev[0]:.3f}s), launches {launches}; tables == "
+        f"plain; windows 0-{LD_EXACT_WINDOWS - 1} bit-equal to "
+        "use_device=False")
+    return launches, wins[:4], report
+
+
+def run_r(mods, counts, pair, transfer, span, flush, block, dev):
+    """Run R: the three library entry points no CLI calls, once each at
+    full width as a caller would, the launch counts reset just before:
+    counts.site_nonmissing over run A's largest count span, with its mask;
+    counts.sample_base_counts over 65,536 sites of run E's block; and
+    pairdist._fused_flush_pair_counts on run A's largest flush.  Each is
+    then held against another route: K18 against the called sum of K6's
+    counts, K19 summed over haplotypes against K12's one-population counts,
+    K20 against K9 + K4.  Returns (launches, the inputs, report)."""
+    import torch
+    a, mask = span
+    H, S = a.shape
+    at = torch.from_numpy(a).to(dev)
+    e_block = block[0][:, :K19_SITES]
+    fa, ff, fn = flush[:3]
+    wp = pair._next_pow2(ff.shape[0], 8)
+    buf, sp = transfer.pack_flush_buffer(fa, ff, fn, wp)
+    dbuf = torch.from_numpy(buf).to(dev)
+    s_max = pair._next_pow2(int(fn.max()), 256)
+    torch.cuda.synchronize()
+    reset(mods)
+    t0 = time.perf_counter()
+    called = counts.site_nonmissing(at, mask)
+    onehot = counts.sample_base_counts(e_block)
+    tri = pair._fused_flush_pair_counts(dbuf, sp, fa.shape[0], wp, s_max, wp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(mods)
+    for k in ("site_nonmissing", "sample_base_counts", "flush_pair_counts"):
+        if launches[k] != 1:
+            raise AssertionError(f"run_R: kernel {k} launched "
+                                 f"{launches[k]} times (1 expected)")
+    c6 = counts.site_pop_counts_chunked(a, mask)
+    check_equal("run_R site_nonmissing vs K6's called counts", called,
+                torch.from_numpy(c6.sum(axis=2)))
+    groups = pair.PopGroups(np.ones((1, H)), dev)
+    c12 = counts.count_raw(e_block, e_block.shape[1], groups)
+    check_equal("run_R sample_base_counts summed vs K12",
+                onehot.sum(dim=0), c12[:, 0])
+    al, f, k = transfer.unpack_flush_buffer(dbuf, sp, fa.shape[0], wp)
+    check_equal("run_R flush_pair_counts vs K9 + K4", tri,
+                pair.flush_tri_4state(al, f, k, wp, s_max < (1 << 16),
+                                      s_max))
+    report = {"wall_s": wall, "span_sites": S, "onehot_sites": K19_SITES,
+              "flush_windows": int(ff.shape[0])}
+    log(f"[e2e] run_R library entry points at H={H}: site_nonmissing over "
+        f"{S} sites, P={mask.shape[0]}; sample_base_counts over "
+        f"{K19_SITES} sites; _fused_flush_pair_counts over {ff.shape[0]} "
+        f"windows (wp={wp}, s_max={s_max}): wall {wall:.3f}s, launches "
+        f"{ {k: launches[k] for k in KERNELS if launches.get(k)} }; == K6, "
+        "K12, K9 + K4")
+    return launches, (at, mask, e_block, (dbuf, sp, fa, ff, fn, wp, s_max)), \
+        report
+
+
+def run_q(clis, geno_f, work):
+    """Run Q: phymlSlidingWindows (builtin NJ, --njCorrect --maxLDphase
+    --bootstraps 1 --seed 7 -T 4) on run F's cohort's first scaffold and
+    raxmlSlidingWindows (builtin NJ) on all of it, through the port under
+    the default GGT_DEVICE=cuda: one row and one tree a window, every tree
+    ends in ';'.  No kernel runs (--maxLDphase is numpy, as in JAX)."""
+    import gzip
+    with gzip.open(geno_f, "rt") as fh:
+        fh.readline()
+        scaf = fh.readline().split("\t", 1)[0]
+    report = {}
+    for name, argv, boot in (
+            ("phyml", ["--phyml", "builtin-nj", "--njCorrect",
+                       "--maxLDphase", "--bootstraps", "1", "--seed", "7",
+                       "-T", "4", "--include", scaf], 1),
+            ("raxml", ["--raxml", "builtin-nj"], 0)):
+        prefix = str(work / f"run_Q.{name}")
+        wall, _ = run_cli(clis[name], ["-g", str(geno_f), "-w", "50000",
+                                       "-M", "100", *argv, "-p", prefix])
+        rows = Path(prefix + ".data.tsv").read_text().splitlines()[1:]
+        for suffix in ["trees.gz"] + [f"BS{b}.trees.gz" for b in range(boot)]:
+            trees = gzip.open(f"{prefix}.{suffix}", "rt").read().splitlines()
+            if len(trees) != len(rows) or not rows or \
+                    not all(t.endswith(";") for t in trees):
+                raise AssertionError(f"run_Q {name}: {len(rows)} rows, "
+                                     f"{suffix} {trees[:2]}")
+        report[f"{name}_wall_s"] = wall
+        report[f"{name}_windows"] = len(rows)
+        log(f"[e2e] run_Q {name}_sliding_windows {' '.join(argv)}: "
+            f"{len(rows)} windows, wall {wall:.3f}s; every tree ends in ';'")
+    return None, None, report
+
+
+def time_k17(ldk, wins, dev):
+    """K17 at run P's first window (~625 sites) and at its first 2,048
+    sites, beside its plain version and the bf16 one-hot torch.matmul Gram
+    (bf16 output rounds counts above 256, so it is timed, not compared).
+    Bound: the alleles read and the tables written once, and the one-hot
+    Gram's 2 (4 S)^2 H operations at the dense int8 tensor rate."""
+    import torch
+    out = {}
+    span = np.concatenate(wins, axis=1)
+    first = wins[0].shape[1]
+    for S in (first, 2048):
+        a = torch.from_numpy(np.ascontiguousarray(span[:, :S])).to(dev)
+        H = a.shape[0]
+        got = ldk.pair_allele_tables(a)
+        err = check_equal(f"pair_allele_tables ({S} sites) vs plain", got,
+                          ldk.pair_allele_tables_plain(a))
+        del got
+        flat = (a[:, :, None] == torch.arange(4, device=dev, dtype=torch.int8)
+                ).to(torch.bfloat16).reshape(H, 4 * S)
+        r = {"max_abs_err": err,
+             "ms": cuda_ms(lambda: ldk.pair_allele_tables(a), 10),
+             "plain_ms": cuda_ms(lambda: ldk.pair_allele_tables_plain(a),
+                                 3, 1),
+             "library_ms": cuda_ms(lambda: torch.matmul(flat.T, flat), 10),
+             "bound": bound(H * S + 64 * S * S, 2 * 16 * S * S * H,
+                            INT8_OPS_PER_S),
+             "shape": f"{S} sites, H={H}"}
+        out[S] = r
+        log(f"[kernel] pair_allele_tables at {r['shape']}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+        del flat
+        torch.cuda.empty_cache()
+    res = dict(out[first])
+    res["at_2048"] = {k: out[2048][k] for k in ("ms", "plain_ms",
+                                                 "library_ms", "bound")}
+    return res
+
+
+def time_k18_k20(counts, pair, transfer, inputs, dev,
+                 int32_rate: float) -> dict:
+    """K18 over run A's largest count span, K19 over 65,536 sites of run
+    E's block, K20 on run A's largest flush (beside K9 + K4 on the same
+    flush, the unpack included): each with its plain version, its bound
+    and, for K18 and K19, one PyTorch call (a bf16 torch.matmul of the
+    mask with the called matrix; torch.eq against the four codes)."""
+    import torch
+    at, mask, e_block, (dbuf, sp, fa, ff, fn, wp, s_max) = inputs
+    H, S = at.shape
+    P = mask.shape[0]
+    res = {}
+    called = (at >= 0).to(torch.bfloat16)
+    mask_bf = torch.from_numpy(np.asarray(mask, np.float32)).to(
+        dev, torch.bfloat16)
+    pm = torch.from_numpy(np.asarray(mask, np.float64))
+    res["site_nonmissing"] = {
+        "max_abs_err": check_equal(
+            "site_nonmissing (run A span) vs plain",
+            counts.site_nonmissing(at, mask),
+            counts.site_nonmissing_plain(at, pm)),
+        "ms": cuda_ms(lambda: counts.site_nonmissing(at, mask), 20),
+        "plain_ms": cuda_ms(lambda: counts.site_nonmissing_plain(at, pm),
+                            5, 1),
+        "library_ms": cuda_ms(lambda: torch.matmul(mask_bf, called), 20),
+        "bound": bound(H * S + 4 * S * P, H * S, int32_rate),
+        "shape": f"{S} sites, H={H}, P={P}"}
+    del called
+    Hb, Sb = e_block.shape
+    codes = torch.arange(4, device=dev, dtype=torch.int8)
+    res["sample_base_counts"] = {
+        "max_abs_err": check_equal(
+            "sample_base_counts (run E block) vs plain",
+            counts.sample_base_counts(e_block),
+            counts.sample_base_counts_plain(e_block)),
+        "ms": cuda_ms(lambda: counts.sample_base_counts(e_block), 10),
+        "plain_ms": cuda_ms(lambda: counts.sample_base_counts_plain(
+            e_block), 3, 1),
+        "library_ms": cuda_ms(lambda: torch.eq(
+            e_block[..., None], codes).to(torch.int32), 10),
+        "bound": bound(Hb * Sb + 16 * Hb * Sb),
+        "shape": f"{Sb} sites, H={Hb} ({16 * Hb * Sb / 1e6:.0f} MB out)"}
+    torch.cuda.empty_cache()
+    H, W = fa.shape[0], ff.shape[0]
+    u16 = s_max < (1 << 16)
+    tri = pair._fused_flush_pair_counts(dbuf, sp, H, wp, s_max, wp)
+    T = H * (H + 1) // 2
+    sites = float(np.minimum(fn, s_max).astype(np.int64).sum())
+    res["flush_pair_counts"] = {
+        "max_abs_err": check_equal(
+            "flush_pair_counts (run A flush) vs plain", tri,
+            pair._fused_flush_pair_counts_plain(dbuf, sp, H, wp, s_max, wp)),
+        "ms": cuda_ms(lambda: pair._fused_flush_pair_counts(
+            dbuf, sp, H, wp, s_max, wp), 10),
+        "plain_ms": cuda_ms(lambda: pair._fused_flush_pair_counts_plain(
+            dbuf, sp, H, wp, s_max, wp), 2, 1),
+        "library_ms": None,
+        "k9_k4_ms": cuda_ms(lambda: pair.flush_tri_4state(
+            *transfer.unpack_flush_buffer(dbuf, sp, H, wp), wp, u16, s_max),
+            10),
+        "bound": bound(dbuf.numel() + tri.numel() * tri.element_size(),
+                       2 * T * 5 * sites, INT8_OPS_PER_S),
+        "shape": f"{W} windows (wp={wp}, s_max={s_max}), H={H}"}
+    for k, r in res.items():
+        log(f"[kernel] {k} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})"
+            + (f"; K9 + K4 (with the unpack) {r['k9_k4_ms']:.4f} ms"
+               if "k9_k4_ms" in r else ""))
+    return res
+
+
 # ------------------------------------------------------------ the CLI
 
 def csv_mismatches(ref_path, ours_path, tol: float) -> int:
@@ -2026,11 +2408,15 @@ def port_clis() -> dict:
     from genomics_general_tpu_torch.cli import four_pop_windows
     from genomics_general_tpu_torch.cli import freq
     from genomics_general_tpu_torch.cli import popgen_windows
+    from genomics_general_tpu_torch.cli import phyml_sliding_windows
+    from genomics_general_tpu_torch.cli import raxml_sliding_windows
     from genomics_general_tpu_torch.cli import sfs
     return {"popgen": popgen_windows.main, "abba": abba_windows.main,
             "fourpop": four_pop_windows.main, "distmat": dist_mat.main,
             "distpaint": dist_paint.main, "freq": freq.main, "sfs": sfs.main,
-            "filter": filter_genotypes.main}
+            "filter": filter_genotypes.main,
+            "phyml": phyml_sliding_windows.main,
+            "raxml": raxml_sliding_windows.main}
 
 
 def same_bytes(paths, what: str) -> None:
@@ -2633,10 +3019,12 @@ def main() -> int:
         from genomics_general_tpu_torch.kernels import _build
         from genomics_general_tpu_torch.kernels import abba
         from genomics_general_tpu_torch.kernels import counts
+        from genomics_general_tpu_torch.kernels import ld as ldk
         from genomics_general_tpu_torch.kernels import pairdist as pair
         from genomics_general_tpu_torch.kernels import transfer
         from genomics_general_tpu_torch.kernels import window_stats as ws
         from genomics_general_tpu_torch.parallel import mesh as pmesh
+        from genomics_general_tpu_torch.stats import ld as stats_ld
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -2744,6 +3132,12 @@ def main() -> int:
     log(f"[parity] window_stats_step over {STEP_WINDOWS} windows (H="
         f"{STEP_H}): K9 alone refuses them; the step launches {step} and "
         "equals its chunks run one at a time")
+    k17_k20_parity(ldk, counts, pair, transfer, dev)
+    log("[parity] K17 (H=160, 77; S=0, 1, 33, 517; codes -7..5; strided "
+        "rows), K18 (1 and 5 pops, a 10-row overlapping mask), K19 == "
+        "plain; K20 on flushes with 0- and 1-site, pad and s_max-cut "
+        "windows, unaligned metadata and the int32 branch == plain == K9 + "
+        "K4")
     log(f"[time] phase 2a done at {time.perf_counter() - t_start:.1f}s")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke-",
@@ -2796,6 +3190,13 @@ def main() -> int:
             runs[name] = (mesh_launches[name], None, mesh_report[name])
         got, rep = dry_run(mods, port_entry)
         runs["dryrun"] = (got, None, rep)
+        runs["run_P"] = run_p(ldk, stats_ld, geno, pops, dev)
+        runs["run_R"] = run_r(
+            mods, counts, pair, transfer,
+            runs["run_A"][1]["site_pop_counts_dispatch"],
+            runs["run_A"][1]["window_pair_counts_dispatch"],
+            runs["run_E"][1], dev)
+        runs["run_Q"] = run_q(clis, geno_f, work)
         log(f"[time] phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
         # ---- phase 2b: parity and times at the runs' flush shapes
@@ -2861,12 +3262,18 @@ def main() -> int:
             f"{r['k9_ms']:.4f} ms; each shard == K9's rows")
         res.update(sfs_full_width(counts, pmesh, shard_mesh(pmesh, dev),
                                   geno, pops, dev))
+        res["pair_allele_tables"] = time_k17(ldk, runs["run_P"][1], dev)
+        res.update(time_k18_k20(counts, pair, transfer, runs["run_R"][1],
+                                dev, INT32_PER_CLK_SM * sm_count
+                                * clk_mhz * 1e6))
         for k in ("tri_pack", "site_pop_counts", "het_pairs",
                   "abba_site_terms", "abba_window_sums",
                   "pair_counts_4state", "window_stats_tail",
                   "window_pop_counts", "site_pop_counts_raw",
                   "pair_counts_v2", "pair_counts_4state_rows",
-                  "global_sfs_hist", "stacked_reduce"):
+                  "global_sfs_hist", "stacked_reduce",
+                  "pair_allele_tables", "site_nonmissing",
+                  "sample_base_counts", "flush_pair_counts"):
             bnd[k] = res[k]["bound"]
             log(f"[parity] {k} at {res[k]['shape']}")
         owner = {"pair_counts_v3": "popDist", "exception_patch": "popDist",
@@ -2877,7 +3284,10 @@ def main() -> int:
                  "window_pop_counts": "run_G",
                  "site_pop_counts_raw": "run_H", "pair_counts_v2": "run_K",
                  "pair_counts_4state_rows": "dryrun",
-                 "global_sfs_hist": "dryrun", "stacked_reduce": "dryrun"}
+                 "global_sfs_hist": "dryrun", "stacked_reduce": "dryrun",
+                 "pair_allele_tables": "run_P", "site_nonmissing": "run_R",
+                 "sample_base_counts": "run_R",
+                 "flush_pair_counts": "run_R"}
         launches = {k: runs[owner[k]][0][k] for k in KERNELS}
         for k in KERNELS:
             r = res[k]

@@ -40,6 +40,8 @@ _SIGNATURES = {
         "ggt_site_pop_counts_raw": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P],
         "ggt_global_sfs_hist": [_P, _I, _I, _I, _P, _L, _P, _P],
         "ggt_stacked_reduce": [_P, _I, _I, _L, _I, _P, _P],
+        "ggt_site_nonmissing": [_P, _L, _I, _P, _P, _I, _P, _I, _P, _P],
+        "ggt_sample_base_counts": [_P, _L, _I, _I, _P, _P],
     },
     "abba": {
         "ggt_abba_site_terms": [_P, _I, _I, _I, _P, _P, _D, _D, _D, _D, _D,
@@ -51,6 +53,10 @@ _SIGNATURES = {
                                    _P, _P],
         "ggt_pair_counts_4state_rows": [_P, _L, _L, _P, _P, _I, _I, _I, _I,
                                         _I, _I, _P, _P, _P],
+        "ggt_flush_pair_counts": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "ld": {
+        "ggt_pair_allele_tables": [_P, _L, _I, _I, _P, _P, _P],
     },
     "window_stats": {
         "ggt_window_stats_tail": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],

@@ -22,6 +22,11 @@ on the partition of its distinct membership columns
 (:class:`MaskClasses`), and each mask's counts are exact integer sums of
 its classes'.
 
+Two library functions on an int8 [H, S] matrix have kernels of their own
+in counts.cu: :func:`site_nonmissing` (K18), the called haplotypes of each
+site and population (any 0/1 mask, counted on its classes), and
+:func:`sample_base_counts` (K19), each haplotype's one-hot code.
+
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 ``LAUNCHES``) and runs its plain version only for CPU tensors.
 ``GGT_EXEC=host`` counts a host span on the host instead: the C counter
@@ -46,7 +51,8 @@ DEFAULT_SITE_BLOCK = 1 << 18
 # launches of the CUDA kernel since the last reset (the plain version and
 # the host counters never count)
 LAUNCHES = {"site_pop_counts": 0, "site_pop_counts_raw": 0,
-            "global_sfs_hist": 0, "stacked_reduce": 0}
+            "global_sfs_hist": 0, "stacked_reduce": 0, "site_nonmissing": 0,
+            "sample_base_counts": 0}
 # flushes counted on the host (GGT_EXEC=host)
 HOST_FLUSHES = 0
 
@@ -274,6 +280,87 @@ def stacked_reduce_plain(x: torch.Tensor, op: str) -> torch.Tensor:
     """Plain PyTorch K16: ``torch.sum`` in the stack's type, or
     ``torch.amin``, over dim 0."""
     return x.sum(dim=0, dtype=x.dtype) if op == "sum" else x.amin(dim=0)
+
+
+# ------------------------------- K18 called counts, K19 the one-hot
+
+def _check_alleles(alleles: torch.Tensor) -> None:
+    if alleles.dim() != 2 or alleles.dtype != torch.int8:
+        raise ValueError("alleles must be int8 [H, S]")
+    if alleles.is_cuda and alleles.stride(1) != 1:
+        raise ValueError("alleles must have contiguous sites")
+
+
+def site_nonmissing(alleles: torch.Tensor, pop_mask) -> torch.Tensor:
+    """Called haplotypes per site and population: int32 [S, P], from an
+    int8 [H, S] matrix (below 0 missing; rows may be strided, sites
+    contiguous) and a 0/1 mask [P, H] (numpy or tensor; rows may overlap
+    or leave haplotypes out; any other value raises ``ValueError``).
+    Replaces the JAX ``counts.site_nonmissing``."""
+    _check_alleles(alleles)
+    mask = np.asarray(pop_mask.cpu() if isinstance(pop_mask, torch.Tensor)
+                      else pop_mask, dtype=np.float64)
+    H, S = alleles.shape
+    if mask.ndim != 2 or mask.shape[1] != H:
+        raise ValueError(f"pop_mask must be [P, {H}]")
+    if not np.isin(mask, (0.0, 1.0)).all():
+        raise ValueError("pop_mask must hold only 0 and 1")
+    if not alleles.is_cuda:
+        return site_nonmissing_plain(alleles, torch.from_numpy(mask))
+    dev = alleles.device
+    P = mask.shape[0]
+    out = torch.empty((S, P), dtype=torch.int32, device=dev)
+    if S == 0 or P == 0:
+        return out
+    if H == 0:
+        return out.zero_()
+    classes = _mask_classes(mask, dev)
+    bits = _run_const("class_bits", classes.bits.astype(np.int32), dev,
+                      lambda b: torch.from_numpy(b.copy()).to(dev))
+    g = classes.groups
+    _check_cuda(g.perm, g.offs, bits, out)
+    code = _build.lib("counts").ggt_site_nonmissing(
+        alleles.data_ptr(), alleles.stride(0), S, g.perm.data_ptr(),
+        g.offs.data_ptr(), g.P, bits.data_ptr(), P, out.data_ptr(),
+        _stream_ptr(out))
+    _build.check(code, "site_nonmissing")
+    LAUNCHES["site_nonmissing"] += 1
+    return out
+
+
+def site_nonmissing_plain(alleles: torch.Tensor,
+                          pop_mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K18, the JAX form: the float64 matmul of the mask with
+    the called matrix (exact counts), transposed to int32 [S, P]."""
+    called = (alleles >= 0).to(torch.float64)
+    pm = pop_mask.to(alleles.device, torch.float64)
+    return (pm @ called).T.to(torch.int32)
+
+
+def sample_base_counts(alleles: torch.Tensor) -> torch.Tensor:
+    """Each haplotype's one-hot code: int32 [H, S, 4] from an int8 [H, S]
+    matrix (rows may be strided, sites contiguous); a missing call or any
+    code outside 0..3 gives four zeros.  Replaces the JAX
+    ``counts.sample_base_counts``."""
+    _check_alleles(alleles)
+    if not alleles.is_cuda:
+        return sample_base_counts_plain(alleles)
+    H, S = alleles.shape
+    out = torch.empty((H, S, 4), dtype=torch.int32, device=alleles.device)
+    if H * S == 0:
+        return out
+    code = _build.lib("counts").ggt_sample_base_counts(
+        alleles.data_ptr(), alleles.stride(0), H, S, out.data_ptr(),
+        _stream_ptr(out))
+    _build.check(code, "sample_base_counts")
+    LAUNCHES["sample_base_counts"] += 1
+    return out
+
+
+def sample_base_counts_plain(alleles: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K19, the JAX form: each code compared with 0..3."""
+    return torch.stack([alleles == a for a in range(4)],
+                       dim=-1).to(torch.int32)
 
 
 # ------------------------------------------------------- any 0/1 mask

@@ -2,7 +2,9 @@
 // 2-bit span wire in place, K12 an int8 allele matrix (the raw upload, or a
 // view of a device array).  Beside them the mesh's two reductions: K15 bins
 // a shard's per-site counts into the folded joint SFS, K16 sums or takes
-// the minimum of a stack of accumulators.
+// the minimum of a stack of accumulators; and two per-site library
+// functions on an int8 matrix: K18 counts the called haplotypes of each
+// population, K19 writes each haplotype's one-hot code.
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/counts.py).  The launch goes on the caller's stream, does not
@@ -223,6 +225,65 @@ stacked_reduce_kernel(const T* __restrict__ x, int k, long long n,
   }
 }
 
+// ---------------------------------------------------------------- K18
+// site_nonmissing — replaces genomics_general_tpu/kernels/counts.py
+// site_nonmissing:
+//   out[s, p] = #rows r with mask[p, r] == 1 and alleles[r, s] >= 0
+// the JAX matmul of the 0/1 mask with the called matrix.  Any 0/1 mask is
+// counted on its membership classes (perm / offs as in K6, one group per
+// distinct mask column); bits[c, p] says whether class c lies in mask row
+// p, so overlapping rows and rows in no mask count as in the matmul.
+//
+// Bound: bytes — one byte per (row, site) read against one comparison.
+// Design: one thread per site walks the rows class by class (a warp reads
+// 32 consecutive bytes of one row per step) and adds each class's count
+// into its own row of out, which it zeroed first: no atomics.
+__global__ void __launch_bounds__(kThreads)
+site_nonmissing_kernel(const int8_t* __restrict__ alleles,
+                       long long row_stride, int S,
+                       const int32_t* __restrict__ perm,
+                       const int32_t* __restrict__ offs, int C,
+                       const int32_t* __restrict__ bits, int P,
+                       int32_t* __restrict__ out) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= S) return;
+  int32_t* o = out + (size_t)s * P;
+  for (int p = 0; p < P; ++p) o[p] = 0;
+  for (int c = 0; c < C; ++c) {
+    int cnt = 0;
+    const int r_end = offs[c + 1];
+    for (int r = offs[c]; r < r_end; ++r)
+      cnt += alleles[(long long)perm[r] * row_stride + s] >= 0;
+    if (cnt == 0) continue;
+    const int32_t* b = bits + (size_t)c * P;
+    for (int p = 0; p < P; ++p)
+      if (b[p]) o[p] += cnt;
+  }
+}
+
+// ---------------------------------------------------------------- K19
+// sample_base_counts — replaces genomics_general_tpu/kernels/counts.py
+// sample_base_counts:
+//   out[h, s, a] = (alleles[h, s] == a),  a in 0..3
+// the JAX one-hot, so a missing call (-1) or any code outside 0..3 gives
+// four zeros.
+//
+// Bound: bytes — 16 bytes written per byte read.  Design: one thread per
+// (row, site), grid-stride over the H S cells in row-major order, so a
+// warp reads 32 consecutive bytes and writes 512 consecutive bytes as one
+// 16-byte int4 a thread.
+__global__ void __launch_bounds__(kThreads)
+sample_base_counts_kernel(const int8_t* __restrict__ alleles,
+                          long long row_stride, int S, long long n,
+                          int4* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads) {
+    const long long r = i / S;
+    const int c = alleles[r * row_stride + (i - r * S)];
+    out[i] = make_int4(c == 0, c == 1, c == 2, c == 3);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -309,6 +370,31 @@ int ggt_stacked_reduce(const void* x, int is64, int k, long long n,
                                      (cudaStream_t)stream>>>(
         (const int32_t*)x, k, n, op_min, (int32_t*)out);
   }
+  return (int)cudaGetLastError();
+}
+
+// alleles: int8 rows of row_stride bytes (sites contiguous, columns
+// 0 .. S - 1); perm, offs: the C membership classes; bits: int32 [C, P]
+// 0/1; out: int32 [S, P].
+int ggt_site_nonmissing(const void* alleles, long long row_stride, int S,
+                        const void* perm, const void* offs, int C,
+                        const void* bits, int P, void* out, void* stream) {
+  const unsigned blocks = (unsigned)((S + kThreads - 1) / kThreads);
+  site_nonmissing_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)alleles, row_stride, S, (const int32_t*)perm,
+      (const int32_t*)offs, C, (const int32_t*)bits, P, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// alleles: int8 [h, S] rows of row_stride bytes (sites contiguous); out:
+// int32 [h, S, 4].
+int ggt_sample_base_counts(const void* alleles, long long row_stride, int h,
+                           int S, void* out, void* stream) {
+  const long long n = (long long)h * S;
+  long long want = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)(want < (1 << 20) ? want : (1 << 20));
+  sample_base_counts_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)alleles, row_stride, S, n, (int4*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
 // General 4-state pair counts for Hopper (sm_90a): per-window masked-Hamming
 // counts straight from the int8 allele matrix, for distMat --windType cat,
 // the device-array and raw-upload routes of the tri counts, the long-span
-// helper, the window-stats step and the mesh's window slabs (K9), and for
-// the mesh's row blocks of the tensor-parallel counts (K14).
+// helper, the window-stats step and the mesh's window slabs (K9), for the
+// mesh's row blocks of the tensor-parallel counts (K14), and the same
+// counts read in place from a one-transfer flush buffer and tri-packed
+// (K20).
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/pairdist.py).  The launch goes on the caller's stream, does not
@@ -24,14 +26,19 @@ constexpr int kGroups = kStage / 32;       // 32-site groups per step
 constexpr int kRawWords = kStage / 4 + 1;  // raw row: 132 bytes (33 words)
 constexpr int kPackWords = 5 * kGroups + 1;  // 4 one-hot + 1 called per group
 
-// The staging and count loop K9 and K14 share: one block counts the pair
-// tile of rows i0 .. i0 + 63 and columns j0 .. j0 + 63 over sites
+// The staging and count loop K9, K14 and K20 share: one block counts the
+// pair tile of rows i0 .. i0 + 63 and columns j0 .. j0 + 63 over sites
 // lo .. hi - 1 of the window that starts at f, into thread (ty, tx)'s
-// rows i0 + ty + 16 a and columns j0 + tx + 16 b.  Rows at or past h read
-// as missing.
+// rows i0 + ty + 16 a and columns j0 + tx + 16 b.  Rows at or past h, and
+// columns outside 0 .. S - 1, read as missing.  The codes come from an
+// int8 matrix of rows of ld bytes (K9, K14), or with kWire from a span
+// wire (kernels/transfer.py pack_span, K20): 2-bit codes in rows of c4
+// bytes, then the miss bits in rows of m8 bytes (a set bit is missing).
+template <bool kWire>
 __device__ __forceinline__ void count_tile(
     const int8_t* __restrict__ alleles, long long ld, long long S,
-    long long f, int lo, int hi, int h, int i0, int j0,
+    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ miss,
+    int c4, int m8, long long f, int lo, int hi, int h, int i0, int j0,
     uint32_t (*raw)[kRawWords], uint32_t (*packed)[kPackWords],
     int (&acc_s)[kMicro][kMicro], int (&acc_t)[kMicro][kMicro]) {
   const int tid = threadIdx.x;
@@ -51,8 +58,15 @@ __device__ __forceinline__ void count_tile(
       const int row = r < kTile ? i0 + r : j0 + r - kTile;
       const long long col = f + off + c;
       int8_t v = -1;
-      if (row < h && off + c < hi && col >= 0 && col < S)
-        v = alleles[(long long)row * ld + col];
+      if (row < h && off + c < hi && col >= 0 && col < S) {
+        if constexpr (kWire) {
+          if (!((miss[(long long)row * m8 + (col >> 3)] >> (col & 7)) & 1))
+            v = (int8_t)((codes[(long long)row * c4 + (col >> 2)] >>
+                          (2 * (col & 3))) & 3);
+        } else {
+          v = alleles[(long long)row * ld + col];
+        }
+      }
       rawb[r * kRawWords * 4 + c] = v;
     }
     __syncthreads();
@@ -175,8 +189,8 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
 
   int acc_s[kMicro][kMicro];
   int acc_t[kMicro][kMicro];
-  count_tile(alleles, ld, S, first[wl], lo, hi, h, i0, j0, raw, packed,
-             acc_s, acc_t);
+  count_tile<false>(alleles, ld, S, nullptr, nullptr, 0, 0, first[wl], lo,
+                    hi, h, i0, j0, raw, packed, acc_s, acc_t);
 
   // write (i, j) and, off the diagonal tiles, the mirror (j, i); a diagonal
   // tile computes both (i, j) and (j, i) itself, so each cell is written
@@ -237,8 +251,8 @@ pair_counts_4state_rows_kernel(const int8_t* __restrict__ alleles,
 
   int acc_s[kMicro][kMicro];
   int acc_t[kMicro][kMicro];
-  count_tile(alleles, ld, S, first[wl], lo, hi, h, i0, j0, raw, packed,
-             acc_s, acc_t);
+  count_tile<false>(alleles, ld, S, nullptr, nullptr, 0, 0, first[wl], lo,
+                    hi, h, i0, j0, raw, packed, acc_s, acc_t);
 
   const int ty = threadIdx.x / kSide;
   const int tx = threadIdx.x % kSide;
@@ -255,6 +269,79 @@ pair_counts_4state_rows_kernel(const int8_t* __restrict__ alleles,
       const size_t o = base + (size_t)(i - r0) * h + j;
       put(&s_out[o], sv, atomic);
       put(&m_out[o], sv - acc_t[a][b], atomic);
+    }
+  }
+}
+
+// --------------------------------------------------------------- K20
+// flush_pair_counts — replaces genomics_general_tpu/kernels/pairdist.py
+// _fused_flush_pair_counts with transfer.unpack_flush_buffer: the
+// one-transfer flush buffer
+//   [2-bit codes h x sp/4 | miss bits h x sp/8 | first i32[wp] | n i32[wp]]
+// is read in place (no unpacked [h, sp] matrix), each window w counts its
+// sites first[w] .. first[w] + min(n[w], s_max) - 1 (the JAX gather keeps
+// s_max slots) as K9 does, and the upper triangles (i <= j,
+// np.triu_indices order) of mismatch and shared go straight into row w of
+// out [wp, 2T], T = h (h + 1) / 2, m half then s half, as uint16 (s_max <
+// 2^16) or int32: one kernel, one output, no [W, h, h] intermediate.
+//
+// Bound: operations, as K9's.  Design: K9's tiles and count loop
+// (count_tile) with the span wire's codes decoded in the staging step; the
+// window metadata is read as bytes, since it starts unaligned when sp is
+// not a multiple of 32.  Each upper-triangle tile writes its cells with
+// i <= j (a diagonal tile's lower half is its mirror); windows with no
+// sites (pad windows past W, empty windows) write zero rows.  No site
+// split: each cell has one writer.
+__device__ __forceinline__ int load_i32(const uint8_t* p) {
+  return (int)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+               ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
+}
+
+template <typename Out>
+__global__ void __launch_bounds__(kThreads)
+flush_pair_counts_kernel(const uint8_t* __restrict__ buf, int h, int sp,
+                         int wp, int w0, int s_max, int tiles,
+                         Out* __restrict__ out) {
+  __shared__ uint32_t raw[kRows][kRawWords];
+  __shared__ uint32_t packed[kRows][kPackWords];
+  const int wl = w0 + blockIdx.z;
+  const int c4 = sp / 4;
+  const int m8 = sp / 8;
+  const uint8_t* miss = buf + (size_t)h * c4;
+  const uint8_t* meta = miss + (size_t)h * m8;
+  const int f = load_i32(meta + 4 * (size_t)wl);
+  const int n = min(load_i32(meta + 4 * ((size_t)wp + wl)), s_max);
+
+  int ti = 0;
+  int rem = blockIdx.x;
+  while (rem >= tiles - ti) {
+    rem -= tiles - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+
+  int acc_s[kMicro][kMicro];
+  int acc_t[kMicro][kMicro];
+  count_tile<true>(nullptr, 0, sp, buf, miss, c4, m8, f, 0, max(n, 0), h, i0,
+                   j0, raw, packed, acc_s, acc_t);
+
+  const int ty = threadIdx.x / kSide;
+  const int tx = threadIdx.x % kSide;
+  const long long T = (long long)h * (h + 1) / 2;
+  Out* row = out + (size_t)wl * 2 * T;
+#pragma unroll
+  for (int a = 0; a < kMicro; ++a) {
+    const int i = i0 + ty + kSide * a;
+    const long long t0 = (long long)i * h - (long long)i * (i - 1) / 2 - i;
+#pragma unroll
+    for (int b = 0; b < kMicro; ++b) {
+      const int j = j0 + tx + kSide * b;
+      if (i >= h || j >= h || j < i) continue;
+      const int sv = acc_s[a][b];
+      row[t0 + j] = (Out)(sv - acc_t[a][b]);
+      row[T + t0 + j] = (Out)sv;
     }
   }
 }
@@ -294,6 +381,26 @@ int ggt_pair_counts_4state_rows(const void* alleles, long long ld,
       (const int8_t*)alleles, ld, S, (const int32_t*)first,
       (const int32_t*)n_sites, h, r0, r1, col_tiles, split_len,
       splits > 1 ? 1 : 0, (int32_t*)m_out, (int32_t*)s_out);
+  return (int)cudaGetLastError();
+}
+
+// buf: a flush buffer of h rows, sp sites and wp windows; windows w0 ..
+// w0 + nwin - 1 (nwin <= 65535) into rows w0 .. of out [wp, 2T], uint16
+// when u16 != 0, else int32.
+int ggt_flush_pair_counts(const void* buf, int h, int sp, int wp, int w0,
+                          int nwin, int s_max, int u16, void* out,
+                          void* stream) {
+  const int tiles = (h + kTile - 1) / kTile;
+  dim3 grid(tiles * (tiles + 1) / 2, 1, nwin);
+  if (u16) {
+    flush_pair_counts_kernel<uint16_t><<<grid, kThreads, 0,
+                                         (cudaStream_t)stream>>>(
+        (const uint8_t*)buf, h, sp, wp, w0, s_max, tiles, (uint16_t*)out);
+  } else {
+    flush_pair_counts_kernel<int32_t><<<grid, kThreads, 0,
+                                        (cudaStream_t)stream>>>(
+        (const uint8_t*)buf, h, sp, wp, w0, s_max, tiles, (int32_t*)out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,10 @@ kernels/csrc/pair4.cu), count windows straight from an int8 [H, S] allele
 matrix on the device: the ``tri`` route of a device-array span or of the
 raw ``GGT_PACKED_TRANSFER=0`` upload (K9 then K4), distMat's
 :class:`CatPairAccumulator`, :func:`long_span_pair_counts` and the
-window-stats step (kernels/window_stats.py).
+window-stats step (kernels/window_stats.py).  The JAX package's
+one-transfer flush, :func:`_fused_flush_pair_counts` (K20, pair4.cu),
+counts the same way straight from a ``transfer.pack_flush_buffer`` buffer
+into the tri-packed rows.
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 ``LAUNCHES``) and runs its plain PyTorch version, in this module, only for
@@ -66,7 +69,8 @@ from . import transfer
 # and the host executor never count)
 LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0,
             "tri_pack": 0, "het_pairs": 0, "pair_counts_4state": 0,
-            "pair_counts_v2": 0, "pair_counts_4state_rows": 0}
+            "pair_counts_v2": 0, "pair_counts_4state_rows": 0,
+            "flush_pair_counts": 0}
 # flushes run by the host C executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 # pair cells the plain K2 materializes per slab of exception entries
@@ -770,6 +774,53 @@ def flush_tri_4state(alleles: torch.Tensor, first: torch.Tensor,
         alleles, first[w0:w0 + n], n_sites[w0:w0 + n], s_max), W, chunk,
         lambda m, s, w0, n: tri_pack(m, s, out[w0:w0 + n]))
     return out
+
+
+# ------------------------------------------ K20 the one-transfer flush
+
+def _fused_flush_pair_counts(buf: torch.Tensor, sp: int, h: int, wp: int,
+                             s_max: int, chunk: int) -> torch.Tensor:
+    """The one-transfer flush: ``buf`` is the uint8 buffer of
+    ``transfer.pack_flush_buffer`` (packed allele planes of [h, sp], then
+    ``first`` and ``n_sites`` int32 [wp]); each window's first ``s_max``
+    sites are counted and tri-packed: [wp, 2T], T = h(h+1)/2, uint16 when
+    ``s_max`` < 2^16, else int32.  ``chunk`` must divide ``wp`` (the JAX
+    function maps ``chunk`` windows at a time; K20 needs no intermediate,
+    so it counts up to 65,535 windows a launch).  Replaces the JAX
+    ``pairdist._fused_flush_pair_counts``."""
+    if chunk <= 0 or wp % chunk:
+        raise ValueError(f"chunk {chunk} does not divide wp={wp}")
+    if not buf.is_cuda:
+        return _fused_flush_pair_counts_plain(buf, sp, h, wp, s_max, chunk)
+    transfer.flush_views(buf, sp, h, wp)       # checks the buffer's size
+    _check_cuda(buf)
+    T = h * (h + 1) // 2
+    u16 = s_max < (1 << 16)
+    out = torch.empty((wp, 2 * T), dtype=torch.uint16 if u16 else torch.int32,
+                      device=buf.device)
+    if h == 0:
+        return out
+    for w0 in range(0, wp, 65535):
+        code = _build.lib("pair4").ggt_flush_pair_counts(
+            buf.data_ptr(), h, sp, wp, w0, min(65535, wp - w0), s_max,
+            int(u16), out.data_ptr(), _stream_ptr(out))
+        _build.check(code, "flush_pair_counts")
+        LAUNCHES["flush_pair_counts"] += 1
+    return out
+
+
+def _fused_flush_pair_counts_plain(buf: torch.Tensor, sp: int, h: int,
+                                   wp: int, s_max: int,
+                                   chunk: int) -> torch.Tensor:
+    """Plain PyTorch K20, the JAX form: ``transfer.unpack_flush_buffer``,
+    then per ``chunk`` windows the plain K9 over each window's first
+    ``s_max`` sites and the plain K4."""
+    alleles, first, n_sites = transfer.unpack_flush_buffer(buf, sp, h, wp)
+    n_sites = n_sites.clamp(max=s_max)
+    u16 = s_max < (1 << 16)
+    return torch.cat([tri_pack_plain(*pair_counts_4state_plain(
+        alleles, first[w0:w0 + chunk], n_sites[w0:w0 + chunk]), u16)
+        for w0 in range(0, wp, chunk)])
 
 
 # ------------------------------------------------------- host executor

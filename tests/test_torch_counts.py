@@ -267,3 +267,68 @@ def test_count_dtype_widens_past_uint16():
     never wraps (the JAX uint16 fetch would)."""
     assert port_counts.count_dtype((1 << 16) - 1) == torch.uint16
     assert port_counts.count_dtype(1 << 16) == torch.int32
+
+
+# ------------------------- K18 site_nonmissing, K19 sample_base_counts
+
+def _nonmissing_masks(H):
+    """Disjoint rows (a partition), overlapping rows that leave haplotypes
+    out, and one all-ones row."""
+    rng = np.random.default_rng(H)
+    over = (rng.random((5, H)) < 0.4).astype(np.float32)
+    over[:, 0] = 0.0                                    # in no row
+    over[1] = over[0]                                   # two equal rows
+    return {"disjoint": _mask(H, 4, seed=H),
+            "overlapping": over,
+            "all_ones": np.ones((1, H), np.float32)}
+
+
+def _jax_nonmissing(a, mask):
+    """The JAX site_nonmissing one mask row at a time: this CPU backend's
+    dot refuses bf16 x bf16 -> f32 for more than one row, and the rows of
+    a matmul are independent."""
+    return np.concatenate([np.asarray(jax_counts.site_nonmissing(
+        a, mask[p:p + 1])) for p in range(mask.shape[0])], axis=1)
+
+
+@pytest.mark.parametrize("H, S", [(13, 1003), (40, 257), (7, 5)])
+@pytest.mark.parametrize("kind", ["disjoint", "overlapping", "all_ones"])
+def test_site_nonmissing_matches_jax(H, S, kind):
+    """site_nonmissing (CPU tensors: the plain K18) on codes -7..5 and
+    a row-strided view == the JAX site_nonmissing, exactly, for a numpy
+    or tensor mask."""
+    a = _raw_alleles(H * S, H, S)
+    mask = _nonmissing_masks(H)[kind]
+    want = _jax_nonmissing(a, mask)
+    at = torch.from_numpy(a)
+    for m in (mask, torch.from_numpy(mask)):
+        got = port_counts.site_nonmissing(at, m)
+        assert got.dtype == torch.int32 and got.shape == (S, mask.shape[0])
+        np.testing.assert_array_equal(got.numpy(), want)
+    wide = torch.from_numpy(np.concatenate([a, a[:, :7]], axis=1))
+    np.testing.assert_array_equal(
+        port_counts.site_nonmissing(wide[:, :S], mask).numpy(), want)
+
+
+@pytest.mark.parametrize("bad", [0.5, 2.0, -1.0])
+def test_site_nonmissing_refuses_non_binary_mask(bad):
+    """Every JAX caller builds 0/1 masks; any other value raises."""
+    a = _raw_alleles(1, 9, 20)
+    mask = np.ones((2, 9), np.float32)
+    mask[1, 3] = bad
+    with pytest.raises(ValueError, match="0 and 1"):
+        port_counts.site_nonmissing(torch.from_numpy(a), mask)
+
+
+@pytest.mark.parametrize("H, S", [(13, 1003), (40, 257), (7, 5), (3, 0)])
+def test_sample_base_counts_matches_jax(H, S):
+    """sample_base_counts (CPU tensors: the plain K19) on codes -7..5 and
+    127 == the JAX one-hot, exactly, also through a row-strided view."""
+    a = _raw_alleles(H + 2 * S, H, S) if S else np.zeros((H, 0), np.int8)
+    want = np.asarray(jax_counts.sample_base_counts(a))
+    got = port_counts.sample_base_counts(torch.from_numpy(a))
+    assert got.dtype == torch.int32 and got.shape == (H, S, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    wide = torch.from_numpy(np.concatenate([a, a], axis=1))
+    np.testing.assert_array_equal(
+        port_counts.sample_base_counts(wide[:, :S]).numpy(), want)

@@ -30,10 +30,13 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.stats.sfs",
     "genomics_general_tpu_torch.stats.sfs_accum",
     "genomics_general_tpu_torch.stats.filters",
+    "genomics_general_tpu_torch.stats.ld",
+    "genomics_general_tpu_torch.stats.nj",
     "genomics_general_tpu_torch.parallel",
     "genomics_general_tpu_torch.parallel.multihost",
     "genomics_general_tpu_torch.parallel.mesh",
     "genomics_general_tpu_torch.parallel.dispatch",
+    "genomics_general_tpu_torch.parallel.hostpool",
     "genomics_general_tpu_torch.kernels",
     "genomics_general_tpu_torch.kernels._build",
     "genomics_general_tpu_torch.kernels.transfer",
@@ -41,6 +44,7 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.kernels.counts",
     "genomics_general_tpu_torch.kernels.abba",
     "genomics_general_tpu_torch.kernels.window_stats",
+    "genomics_general_tpu_torch.kernels.ld",
     "genomics_general_tpu_torch.entry",
     "genomics_general_tpu_torch.cli",
     "genomics_general_tpu_torch.cli.common",
@@ -52,6 +56,8 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.cli.freq",
     "genomics_general_tpu_torch.cli.sfs",
     "genomics_general_tpu_torch.cli.filter_genotypes",
+    "genomics_general_tpu_torch.cli.phyml_sliding_windows",
+    "genomics_general_tpu_torch.cli.raxml_sliding_windows",
 ]
 
 _PROBE = """
