@@ -28,18 +28,26 @@ not build, launch or agree, or an output is wrong):
    |terms|; K9 pair_counts_4state on messy inputs (H = 160 and 77, S =
    70,003, windows of 0 and 1 site, unaligned starts, one of 66,000 sites)
    against its plain version and the host executor exactly, on its split
-   (atomic) and unsplit paths and on row-strided input; K10
+   (atomic) and unsplit paths and on row-strided input, and at the edges
+   of its 128 x 128 tensor-core tiles (H = 1, 17, 77, 160, 512, 1000;
+   codes -7, 5 and 127; windows at odd starts of lengths that are not
+   multiples of 32; split on and off; its cp.async staging on strides
+   that are multiples of 16, shifted or not, and its register staging on
+   odd strides); K10
    window_stats_tail against its plain version (rtol 1e-6, NaN positions
    equal) and K11 window_pop_counts exactly, with 5 and 1 populations; K12
    site_pop_counts_raw (H = 77, S = 5,003, codes -7..5, strided rows,
    blocks starting anywhere, uint16 and int32, 10 groups and a 10-row
    overlapping mask's classes) against its plain version, and equal to K6
-   on the same alleles; K13 pair_counts_v2 + K2 against their plain
-   versions and against K1 + K2 on the same flushes, with K3 (bit for
-   bit), K4 and K5 on both; K14 pair_counts_4state_rows on row blocks that
-   cut K9's tiles against K9's rows and its plain version (the split path
-   too), and the mesh's data- and tensor-parallel pair counts on two
-   shards of the card against K9 (two-window shards on K9's split path);
+   on the same alleles, and at its block edges (1-site and unaligned
+   blocks at an odd row stride, run H's 10 mask rows as 9 classes, a
+   33-row class, 33 rows as 33 classes, 8,300 rows in one class); K13
+   pair_counts_v2 + K2 against their plain versions and against K1 + K2
+   on the same flushes, with K3 (bit for bit), K4 and K5 on both; K14
+   pair_counts_4state_rows on row blocks that cut K9's tiles against K9's
+   rows and its plain version (the split path too), and the mesh's data-
+   and tensor-parallel pair counts on two shards of the card against K9
+   (two-window shards on K9's split path);
    K15 global_sfs_hist on counts built to tie against its plain version
    (uint16 and int32); K16 stacked_reduce (sum, min; int64 beyond 2^31,
    int32) against torch.sum / torch.amin; window_stats_step over 66,000
@@ -98,7 +106,10 @@ not build, launch or agree, or an output is wrong):
    bootstrap, -T 4) on run F's first scaffold and raxmlSlidingWindows on
    run F's cohort, one tree ending in ';' a window;
 2b. parity and times at the runs' largest flushes: each kernel's, its
-   plain version's and its library yardstick's time from CUDA events,
+   plain version's and its library yardstick's time from CUDA events over
+   calls as they come (K9's and K12's, and their yardsticks', also over
+   calls replayed from a CUDA graph, logged beside: the device's time
+   without the wrappers' host overhead),
    beside the bound computed from these inputs (K9 at run E's block and
    at run F's and run A's largest flushes, where the K9 + K4 and K1 + K2 +
    K4 routes are timed side by side; K10 and K11 at run G's shape; K12 at
@@ -219,6 +230,8 @@ QUANTUM = 1e-4                        # one --roundTo 4 rounding step
 # haplotypes each: 129^3 bins), missing calls filled as in run G
 MESH_SHARDS = 2
 SFS_POPS = ["pop1", "pop2", "pop3"]
+# K9's tile-edge checks: haplotype counts around its 128-row tiles
+K9_EDGE_H, K9_EDGE_S = (1, 17, 77, 160, 512, 1000), 5_003
 # window_stats_step past K9's and K11's 65,535-window grid axis
 STEP_WINDOWS, STEP_H, STEP_SITES = 66_000, 8, 70_000
 # run P: ld_matrix over the popDist cohort's first 32 windows of 50 kb,
@@ -297,6 +310,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed, so no host launch overhead lies between the kernels (it sets
+    the pace of :func:`cuda_ms` for a kernel shorter than its wrapper's
+    Python)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (3 * reps)
 
 
 def bound(nbytes: float, ops: float = 0.0, rate: float = 1.0):
@@ -632,6 +674,95 @@ def raw_counts_parity(counts, transfer, pair, dev):
                 counts.count_span(torch.from_numpy(buf).to(dev), Sp, H, S,
                                   groups, block=1000))
     torch.cuda.synchronize()
+
+
+def k12_edge_parity(counts, transfer, pair, dev) -> int:
+    """K12 at the edges of its blocks against its plain version, uint16 and
+    int32 out: H = 77 with codes -7..5 and 127 at an odd row stride, site
+    blocks of 1, 1, 1, 15, 1,011, 973 and 1 sites from s0 = 0, 1, 2, 3,
+    18, 1,029, 2,002 (none past 0 a multiple of 4 or 16), on a partition
+    with a 33-row class and on a 10-row overlapping mask's classes (8
+    lanes a row), and 2,001 sites from s0 = 1 on 77 one-row classes (16
+    lanes); run
+    H's layout (H = 512, its 9 populations and their union: 10 overlapping
+    rows as 9 classes), equal to K6 too; 33 rows as one class and as 33;
+    and 8,300 rows as one class (each row slot's byte counters widen past
+    255 rows).  Returns the number of comparisons."""
+    import torch
+    rng = np.random.default_rng(21)
+    checks = 0
+
+    def hold(name, al, groups, bounds_, mask):
+        nonlocal checks
+        S = bounds_[-1]
+        want = counts.site_pop_counts_raw_plain(al, 0, S, mask)
+        for dt in (torch.uint16, torch.int32):
+            out = torch.empty((S, groups.P, 4), dtype=dt, device=dev)
+            for s0, s1 in zip(bounds_[:-1], bounds_[1:]):
+                counts.site_pop_counts_raw(al, s0, s1, groups, out[s0:s1])
+            check_equal(f"site_pop_counts_raw {name} ({dt}) vs plain", out,
+                        want)
+            checks += 1
+        return out
+
+    H, S = 77, 2003
+    a = rng.integers(-1, 4, size=(H, S)).astype(np.int8)
+    hit = rng.random((H, S))
+    for k, code in enumerate((5, -7, 127)):
+        a[(hit >= 0.01 * k) & (hit < 0.01 * (k + 1))] = code
+    wide = torch.full((H, S + 16), -1, dtype=torch.int8, device=dev)
+    wide[:, 3:S + 3] = torch.from_numpy(a).to(dev)
+    al = wide[:, 3:S + 3]                       # row stride 2,019
+    part = np.zeros((4, H))
+    cls = np.concatenate([np.zeros(33, int), rng.integers(1, 4, H - 33)])
+    part[cls, np.arange(H)] = 1.0
+    over = (rng.random((10, H)) < 0.3).astype(np.float64)
+    over[9] = 1.0
+    classes = counts.MaskClasses(over, dev)
+    edges = [0, 1, 2, 3, 18, 1029, 2002, S]
+    hold("H=77, odd stride, a 33-row class", al,
+         pair.PopGroups(part, dev), edges, torch.from_numpy(part))
+    hold("H=77, odd stride, 10-row mask classes", al, classes.groups,
+         edges, classes.groups.mask)
+    # a class a row: 2,001 sites from s0 = 1 take 16 lanes a row, the
+    # blocks above 8
+    solo = np.eye(H)
+    if counts._k12_lanes(2001, H, dev) != 16:
+        raise AssertionError("77 one-row classes should take 16 lanes")
+    hold("H=77, odd stride, 77 one-row classes", al,
+         pair.PopGroups(solo, dev), [0, 1, 2002, S], torch.from_numpy(solo))
+
+    H, S = 512, 3001
+    b = rng.integers(-1, 4, size=(H, S)).astype(np.int8)
+    pops = np.minimum(np.arange(H // 2) // 28, 8).repeat(2)
+    mask = np.zeros((10, H))
+    mask[pops, np.arange(H)] = 1.0
+    mask[9] = 1.0
+    classes = counts.MaskClasses(mask, dev)
+    if classes.groups.P != 9:
+        raise AssertionError("run H's 10 mask rows should make 9 classes")
+    bt = torch.from_numpy(b).to(dev)
+    out = hold("run H's layout, 9 classes", bt, classes.groups,
+               [0, 5, 1029, S], classes.groups.mask)
+    buf, Sp = transfer.pack_span(b)
+    check_equal("site_pop_counts_raw vs site_pop_counts (run H's layout)",
+                out, counts.count_span(torch.from_numpy(buf).to(dev), Sp, H,
+                                       S, classes.groups))
+    checks += 1
+
+    c = torch.from_numpy(a[:33, :517].copy()).to(dev)
+    for P in (1, 33):
+        m = np.zeros((P, 33))
+        m[np.arange(33) % P, np.arange(33)] = 1.0
+        hold(f"33 rows as {P} class(es)", c, pair.PopGroups(m, dev),
+             [0, 7, 517], torch.from_numpy(m))
+    tall = torch.from_numpy(
+        rng.integers(-1, 4, size=(8300, 37)).astype(np.int8)).to(dev)
+    one = np.ones((1, 8300))
+    hold("8,300 rows as one class", tall, pair.PopGroups(one, dev), [0, 37],
+         torch.from_numpy(one))
+    torch.cuda.synchronize()
+    return checks
 
 
 def v2_parity(pair, a, first, n, dev, masks, min_sites, het_rows=None,
@@ -1045,6 +1176,85 @@ def k9_parity(pair, a, first, n, dev):
     return at, f, k, m, s
 
 
+def k9_edge_input(H: int, seed: int):
+    """K9's tile-edge input: S = K9_EDGE_S (odd); mostly biallelic codes
+    with 10 % missing, a third or fourth allele on 1 % of sites (as
+    :func:`k9_input`, so the host executor's multi-allelic patch stays
+    small), and codes -7, 5 and 127 on 0.5 % of cells each (-7 missing, 5
+    and 127 called but matching nothing); 12 windows at odd starts, of 0,
+    1, 31, 33, 95, 97, 129, 257, 511, 1,023 and 1,999 sites (none a
+    multiple of 32 but 0) and one of 4,999 sites."""
+    rng = np.random.default_rng(seed)
+    S = K9_EDGE_S
+    a = rng.integers(0, 2, size=(H, S)).astype(np.int8)
+    for site in rng.choice(S, size=S // 100, replace=False):
+        a[rng.integers(0, H, 4), site] = rng.integers(2, 4)
+    hit = rng.random((H, S))
+    a[hit < 0.1] = -1
+    for k, code in enumerate((-7, 5, 127)):
+        a[(hit >= 0.1 + 0.005 * k) & (hit < 0.105 + 0.005 * k)] = code
+    n = np.array([0, 1, 31, 33, 95, 97, 129, 257, 511, 1023, 1999, 4999],
+                 np.int32)
+    first = (2 * rng.integers(0, (S - n) // 2) + 1).astype(np.int32)
+    return a, first, n
+
+
+def k9_edge_parity(pair, dev) -> int:
+    """K9 at the edges of its 128 x 128 tiles, H in K9_EDGE_H, each on four
+    layouts of the same codes (contiguous rows of odd length; a row stride
+    that is a multiple of 16 with rows starting 5 bytes in, which takes the
+    cp.async staging with a shifted origin; an odd stride; an aligned
+    stride): all 12 windows of :func:`k9_edge_input` in one launch, the 11
+    short ones (the site split off) and the long one alone (split on),
+    against the plain version exactly; on the codes cut to -1..3, against
+    the host executor too.  Returns the number of comparisons."""
+    import torch
+    checks = 0
+    for H in K9_EDGE_H:
+        a, first, n = k9_edge_input(H, 20 + H)
+        S = a.shape[1]
+        at = torch.from_numpy(a).to(dev)
+        layouts = {"contiguous": at}
+        for name, width, off in (
+                ("stride%16, offset 5", -(-(S + 5) // 16) * 16, 5),
+                ("odd stride", S + 64, 3),
+                ("aligned stride", -(-S // 16) * 16, 0)):
+            wide = torch.full((H, width), -1, dtype=torch.int8, device=dev)
+            wide[:, off:off + S] = at
+            layouts[name] = wide[:, off:off + S]
+        f = torch.from_numpy(first).to(dev)
+        k = torch.from_numpy(n).to(dev)
+        for sname, sl in (("all", slice(None)), ("short", slice(0, 11)),
+                          ("long", slice(11, 12))):
+            fs, ks, s_max = f[sl], k[sl], int(n[sl].max())
+            splits = pair._k9_grid(H, fs.shape[0], s_max, dev)[1]
+            if (sname == "short" and splits != 1) or \
+                    (sname == "long" and splits < 2):
+                raise AssertionError(f"K9 H={H} {sname} windows: {splits} "
+                                     "site splits, against the case's aim")
+            mp, sp = pair.pair_counts_4state_plain(at, fs, ks)
+            for lname, al in layouts.items():
+                m, s = pair.pair_counts_4state(al, fs, ks, s_max)
+                tag = f"pair_counts_4state H={H} {sname} windows, {lname}"
+                check_equal(f"{tag} m vs plain", m, mp)
+                check_equal(f"{tag} s vs plain", s, sp)
+                checks += 2
+            del mp, sp
+        b = np.where((a < 0) | (a > 3), -1, a).astype(np.int8)
+        m, s = pair.pair_counts_4state(torch.from_numpy(b).to(dev), f, k,
+                                       int(n.max()))
+        hm, hs = pair._host_flush_counts(b, first, n)
+        check_equal(f"pair_counts_4state H={H} m vs host executor", m,
+                    torch.from_numpy(hm))
+        check_equal(f"pair_counts_4state H={H} s vs host executor", s,
+                    torch.from_numpy(hs))
+        checks += 2
+        del at, layouts, m, s
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return checks
+
+
 def check_f32(name: str, got, want, atol: float = 0.0):
     """float32 results: NaN positions equal, the rest within K10_RTOL (and
     ``atol``).  Returns (max abs err, cells not bit-equal)."""
@@ -1135,12 +1345,13 @@ def time_k9_block(pair, call, dev):
     wa = at[None, :, :s_max]
     grams = gram_yardstick(
         wa, torch.ones((1, s_max), dtype=torch.bool, device=dev))
-    res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: pair.pair_counts_4state(at, f, k, s_max),
-                         5),
+    k9 = lambda: pair.pair_counts_4state(at, f, k, s_max)  # noqa: E731
+    res = {"max_abs_err": err, "ms": cuda_ms(k9, 5),
+           "graph_ms": graph_ms(k9, 5),
            "plain_ms": cuda_ms(lambda: pair.pair_counts_4state_plain(
                at, f, k), 2, 1),
-           "library_ms": cuda_ms(grams, 3, 1)}
+           "library_ms": cuda_ms(grams, 3),
+           "library_graph_ms": graph_ms(grams, 3)}
     res["bound"] = k9_bound(H, H * s_max, s_max, 1)
     res["shape"] = f"1 window of {s_max} sites, H={H}"
     del wa, grams
@@ -1177,12 +1388,14 @@ def time_k9_flush(pair, transfer, flush, dev, name: str) -> dict:
     wa = al[:, torch.where(valid, idx, torch.zeros_like(idx))] \
         .permute(1, 0, 2)
     grams = gram_yardstick(wa, valid)
+    k9 = lambda: pair.pair_counts_4state(al, f[:nw], k[:nw],  # noqa: E731
+                                         s_max)
     res = {
-        "ms": cuda_ms(lambda: pair.pair_counts_4state(al, f[:nw], k[:nw],
-                                                      s_max), 10),
+        "ms": cuda_ms(k9, 10), "graph_ms": graph_ms(k9, 10),
         "plain_ms": cuda_ms(lambda: pair.pair_counts_4state_plain(
             al, f[:nw], k[:nw]), 2, 1),
         "library_ms": cuda_ms(grams, 5),
+        "library_graph_ms": graph_ms(grams, 5),
         "route_k9_k4_ms": cuda_ms(lambda: pair.flush_tri_4state(
             al, f, k, chunk, u16, s_max), 10),
         "route_k1_k2_k4_ms": cuda_ms(lambda: pair.flush_tri(
@@ -1192,8 +1405,9 @@ def time_k9_flush(pair, transfer, flush, dev, name: str) -> dict:
                             float(n[:nw].astype(np.int64).sum()), nw)
     log(f"[kernel] pair_counts_4state at {name}'s largest flush ({nw} of "
         f"{W} windows, H={H}, longest {s_max} sites): kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
-        f"{res['library_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
+        f"{res['ms']:.4f} ms ({res['graph_ms']:.4f} ms in a CUDA graph), "
+        f"plain {res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} "
+        f"ms ({res['library_graph_ms']:.4f} in a CUDA graph), bound {res['bound'][0]:.4f} ms "
         f"({res['bound'][1]}); whole flush: K9 + K4 "
         f"{res['route_k9_k4_ms']:.4f} ms, K1 + K2 + K4 "
         f"{res['route_k1_k2_k4_ms']:.4f} ms; K9 == K1 + K2")
@@ -1257,23 +1471,27 @@ def time_k12(counts, transfer, flush, dev):
                                                        groups.mask))
     buf, Sp = transfer.pack_span(a)
     dbuf = torch.from_numpy(buf).to(dev)
-    k6 = torch.empty_like(out)
-    counts.site_pop_counts(dbuf, Sp, H, 0, s1, groups, k6)
+    k6_out = torch.empty_like(out)
+    counts.site_pop_counts(dbuf, Sp, H, 0, s1, groups, k6_out)
     check_equal("site_pop_counts_raw vs site_pop_counts (run H span)", out,
-                k6)
+                k6_out)
     onehot = (al[:, :s1, None] == torch.arange(4, device=dev,
                                                dtype=torch.int8)
               ).to(torch.bfloat16).reshape(H, s1 * 4)
     mask_bf = torch.from_numpy(np.asarray(mask, np.float32)).to(
         dev, torch.bfloat16)
-    res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: counts.site_pop_counts_raw(
-               al, 0, s1, groups, out), 20),
+    k12 = lambda: counts.site_pop_counts_raw(  # noqa: E731
+        al, 0, s1, groups, out)
+    k6 = lambda: counts.site_pop_counts(  # noqa: E731
+        dbuf, Sp, H, 0, s1, groups, k6_out)
+    res = {"max_abs_err": err, "ms": cuda_ms(k12, 20),
+           "graph_ms": graph_ms(k12, 20),
            "plain_ms": cuda_ms(lambda: counts.site_pop_counts_raw_plain(
                al, 0, s1, groups.mask), 3, 1),
-           "k6_ms": cuda_ms(lambda: counts.site_pop_counts(
-               dbuf, Sp, H, 0, s1, groups, k6), 20),
-           "library_ms": cuda_ms(lambda: torch.matmul(mask_bf, onehot), 20)}
+           "k6_ms": graph_ms(k6, 20),
+           "library_ms": cuda_ms(lambda: torch.matmul(mask_bf, onehot), 20),
+           "library_graph_ms": graph_ms(
+               lambda: torch.matmul(mask_bf, onehot), 20)}
     # each row's block read once, the class counts written
     res["bound"] = bound(H * s1 + 4 * out.element_size() * s1 * C)
     res["shape"] = (f"{s1} sites, H={H}, {mask.shape[0]} mask rows as C={C} "
@@ -1349,7 +1567,7 @@ def mesh_parity(pair, pmesh, mesh, a, first, n, m, s) -> None:
     each row shard) over all of them."""
     import torch
     s_max = int(n.max())
-    if pair._k9_splits(a.shape[0], 2, s_max, mesh.devices[0])[0] <= 1:
+    if pair._k9_grid(a.shape[0], 2, s_max, mesh.devices[0])[1] <= 1:
         raise AssertionError("two-window shards should split K9's sites")
     want = torch.stack([m, s]).cpu()
     for w in (4, first.shape[0]):
@@ -3100,6 +3318,12 @@ def main() -> int:
         "rows, unaligned blocks, uint16 and int32, 10 groups and a 10-row "
         "overlapping mask's classes) == plain; K12 == K6 on the same "
         "alleles")
+    n_k12 = k12_edge_parity(counts, transfer, pair, dev)
+    log(f"[parity] K12 block edges ({n_k12} comparisons: 1-site and "
+        "unaligned blocks at an odd row stride, codes -7..5 and 127, a "
+        "33-row class, run H's 10 mask rows as 9 classes, 33 rows as 1 and "
+        "33 classes, 8,300 rows in one class) == plain; run H's layout == "
+        "K6")
     for k, v in abba_parity(abba, counts, transfer, native, dev).items():
         errs[k] = max(errs[k], v)
     log("[parity] ABBA messy input (3 modes x 2 panels x minData 0.3/0 x "
@@ -3124,6 +3348,14 @@ def main() -> int:
         f"blocks {K14_BLOCKS} == K9's rows, == plain, split path too; the "
         f"data- and tensor-parallel pair counts on {MESH_SHARDS} shards == "
         "K9 (two-window shards on K9's split path)")
+    t_edge = time.perf_counter()
+    n_k9 = k9_edge_parity(pair, dev)
+    log(f"[parity] K9 tile edges in {time.perf_counter() - t_edge:.1f}s "
+        f"({n_k9} comparisons: H={K9_EDGE_H}, S="
+        f"{K9_EDGE_S}, codes -7, 5, 127, 12 windows at odd starts, s_max "
+        "not a multiple of 32, the site split on and off, contiguous, "
+        "stride%16 offset 5, odd-stride and aligned rows) == plain; == host "
+        "executor on codes -1..3")
     sfs_parity(counts, dev)
     log("[parity] K15 on tie-built counts (8/8, 9/7, monomorphic, 3-allele, "
         "incomplete; uint16 and int32) == plain; K16 sum / min (int64 beyond "
@@ -3227,6 +3459,11 @@ def main() -> int:
                 f"({r['bound'][1]}), max abs err {r['max_abs_err']}")
         res["pair_counts_4state"] = time_k9_block(pair, runs["run_E"][1],
                                                   dev)
+        r = res["pair_counts_4state"]
+        log(f"[kernel] pair_counts_4state at run E's block: K9 "
+            f"{r['ms']:.4f} ms ({r['graph_ms']:.4f} ms in a CUDA graph), "
+            f"two bf16 Grams {r['library_ms']:.4f} ms "
+            f"({r['library_graph_ms']:.4f} in a CUDA graph)")
         runs["run_F"][2]["k9_flush"] = time_k9_flush(
             pair, transfer, runs["run_F"][1], dev, "run_F")
         runs["run_A"][2]["k9_flush"] = time_k9_flush(
@@ -3237,8 +3474,10 @@ def main() -> int:
                                               runs["run_H"][1], dev)
         r = res["site_pop_counts_raw"]
         log(f"[kernel] site_pop_counts_raw at run H's span: K12 "
-            f"{r['ms']:.4f} ms, K6 on the same block {r['k6_ms']:.4f} ms; "
-            "K12 == K6")
+            f"{r['ms']:.4f} ms ({r['graph_ms']:.4f} ms in a CUDA graph), "
+            f"bf16 matmul {r['library_ms']:.4f} ms "
+            f"({r['library_graph_ms']:.4f} in a CUDA graph), K6 on the same "
+            f"block {r['k6_ms']:.4f} ms in a CUDA graph; K12 == K6")
         res["pair_counts_v2"] = time_k13(
             pair, transfer, flush, dev, sm_count, clk_mhz * 1e6)
         r = res["pair_counts_v2"]

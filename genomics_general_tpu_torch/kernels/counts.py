@@ -43,7 +43,7 @@ from ..device import get_device
 from . import _build
 from . import transfer
 from .pairdist import PopGroups, _ReadyHandle, _check_cuda, _exec_choice, \
-    _pop_groups, _run_const, _stream_ptr
+    _pop_groups, _run_const, _sm_count, _stream_ptr
 
 # sites per kernel launch when counting long site axes
 DEFAULT_SITE_BLOCK = 1 << 18
@@ -134,6 +134,15 @@ def count_span(buf: torch.Tensor, sp: int, h: int, S: int,
 
 # ---------------------------------------------------- K12 raw counts
 
+def _k12_lanes(n: int, P: int, dev) -> int:
+    """Lanes a row of K12's blocks (4 sites a lane, 256 threads, one group
+    a block, so a block covers 4 * lanes sites of one of the P groups): 16
+    while the blocks over ``n`` sites give four a SM (up to 8 are
+    resident), else 8."""
+    blocks = -(-n // 64) * min(P, 65535)
+    return 16 if blocks >= 4 * _sm_count(dev) else 8
+
+
 def site_pop_counts_raw(alleles: torch.Tensor, s0: int, s1: int,
                         groups: PopGroups, out: torch.Tensor) -> None:
     """Write the counts of sites s0 .. s1 - 1 of an int8 [H, S] allele
@@ -161,7 +170,9 @@ def site_pop_counts_raw(alleles: torch.Tensor, s0: int, s1: int,
     code = _build.lib("counts").ggt_site_pop_counts_raw(
         alleles.data_ptr(), alleles.stride(0), s0, s1,
         groups.perm.data_ptr(), groups.offs.data_ptr(), P,
-        int(out.dtype == torch.uint16), out.data_ptr(), _stream_ptr(alleles))
+        _k12_lanes(s1 - s0, P, alleles.device),
+        int(out.dtype == torch.uint16),
+        out.data_ptr(), _stream_ptr(alleles))
     _build.check(code, "site_pop_counts_raw")
     LAUNCHES["site_pop_counts_raw"] += 1
 

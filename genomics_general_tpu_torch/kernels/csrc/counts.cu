@@ -90,55 +90,146 @@ site_pop_counts_kernel(const uint8_t* __restrict__ codes,
 // counts nowhere, as in the JAX one-hot.
 //
 // Bound: bytes — one byte per (row, site) read against a few integer
-// operations.  Design: K6's on bytes: one thread per 4 consecutive sites
-// walks the rows group by group with 16 register counters, so a warp reads
-// 128 consecutive bytes of one row per step.  Rows are read through their
-// stride (the bucket-padded raw upload and dev[:, :S] views need no copy)
-// and start at any alignment: the 4 bytes are one 32-bit load where the
-// row's address is 4-byte aligned (the same for every thread of the warp,
-// since it depends only on the row) and all 4 sites lie below s1, else 4
-// byte loads.
-template <typename T>
+// operations, so the card must be filled with short chains of loads.
+// Design:
+// - a block owns 4 * lanes sites of one group (blockIdx.y) and its 256
+//   threads form 256 / lanes row slots: the group's rows are dealt over
+//   the slots, so every warp reads its share.  lanes is 16 a row while the
+//   span's blocks still give four a SM, else 8, so that a few groups fill
+//   the card too (on the H100, 32 lanes ran no faster than 16 with many
+//   groups, and 8 lanes were faster only with few);
+// - a lane reads 4 sites of a row as one 32-bit word (two aligned words
+//   and a funnel shift where the row's address is not 4-byte aligned:
+//   rows are read through their stride, which may be odd), a warp's lanes
+//   along the row, and counts them in packed byte lanes: the 4 one-hot
+//   planes of the word (K9's decode) are added as 4 bytes at once, widened
+//   into 32-bit counters after at most 255 rows; a slot loads 4 rows at
+//   once;
+// - the slots' counters meet through warp shuffles, then in shared
+//   memory, and the block writes its group's [sites, 4] once: no global
+//   atomics, so the order is fixed and the counts exact.  The wrapper
+//   picks uint16 only when h < 2^16.
+constexpr uint32_t kLow = 0x01010101u;  // bit 0 of each byte
+
+// Codes of sites c .. c + 3 of a row, -1 at sites >= s1 (c < s1 reads
+// only the aligned words that hold a site below s1).
+__device__ __forceinline__ uint32_t load_codes4(const int8_t* row, int c,
+                                                int s1) {
+  const int nv = s1 - c;
+  if (nv <= 0) return ~0u;
+  const uintptr_t p = (uintptr_t)(row + c);
+  const int sh = (int)(p & 3);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(p - sh);
+  const uint32_t hi = sh && nv > 4 - sh ? w[1] : ~0u;
+  uint32_t v = __funnelshift_r(w[0], hi, 8 * sh);
+  if (nv < 4) v |= ~0u << (8 * nv);
+  return v;
+}
+
+constexpr int kRowsAtOnce = 4;   // rows a row slot loads before counting
+
+template <typename T, int kLanes>
 __global__ void __launch_bounds__(kThreads)
 site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
                            long long row_stride, int s0, int s1,
                            const int32_t* __restrict__ perm,
                            const int32_t* __restrict__ offs, int P,
                            T* __restrict__ out) {
-  const int site0 = s0 + 4 * (blockIdx.x * kThreads + threadIdx.x);
-  if (site0 >= s1) return;
-  const int nk = min(4, s1 - site0);
-  for (int p = 0; p < P; ++p) {
-    int cnt[4][4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int a = 0; a < 4; ++a) cnt[k][a] = 0;
+  constexpr int kSlots = kThreads / kLanes;           // row slots
+  constexpr int kSites = 4 * kLanes;                  // sites a block
+  constexpr int kWarps = kThreads / 32;
+  // each warp's summed counters: [warp][lane][code][site]
+  __shared__ __align__(16) int part[kWarps * kLanes * 16];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int slot = tid / kLanes;
+  const int lane_r = tid % kLanes;                    // lane in the row
+  const int b0 = s0 + blockIdx.x * kSites;
+  const int c = b0 + 4 * lane_r;                      // this lane's sites
+  // this lane's codes of rows r0, r0 + kSlots, .. (kRowsAtOnce of them)
+  // of group p, -1 words past the group: independent loads, in flight
+  // together
+  uint32_t x[kRowsAtOnce];
+  auto fetch = [&](int p, int r0) {
     const int r_end = offs[p + 1];
-    for (int r = offs[p]; r < r_end; ++r) {
-      const int8_t* src = alleles + (long long)perm[r] * row_stride + site0;
-      int c[4];
-      if (nk == 4 && ((uintptr_t)src & 3u) == 0) {
-        const uint32_t v = *reinterpret_cast<const uint32_t*>(src);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) c[k] = (int8_t)(v >> (8 * k));
-      } else {
+    for (int u = 0; u < kRowsAtOnce; ++u) {
+      const int r = r0 + u * kSlots;
+      x[u] = r < r_end ? load_codes4(alleles + (long long)perm[r] * row_stride,
+                                     c, s1)
+                       : ~0u;
+    }
+  };
+  const int p0 = blockIdx.y;                          // groups p0, p0 + ..
+  if (p0 < P) fetch(p0, offs[p0] + slot);
+  for (int p = p0; p < P; p += gridDim.y) {
+    int cnt[4][4];                                    // [code][site]
 #pragma unroll
-        for (int k = 0; k < 4; ++k) c[k] = k < nk ? (int)src[k] : -1;
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cnt[a][k] = 0;
+    uint32_t acc[4] = {0u, 0u, 0u, 0u};               // byte k: site k
+    int packed = 0;                                   // rows in acc
+    const int r_end = offs[p + 1];
+    for (int r0 = offs[p] + slot;;) {
+#pragma unroll
+      for (int u = 0; u < kRowsAtOnce; ++u) {
+        const uint32_t v = x[u];
+        const uint32_t v1 = v >> 1;
+        const uint32_t t = (v1 & 0x7E7E7E7Eu) + 0x7E7E7E7Eu;
+        const uint32_t ia = ~(t >> 7) & kLow;         // code in 0..3
+        acc[0] += ia & ~v & ~v1;
+        acc[1] += ia & v & ~v1;
+        acc[2] += ia & ~v & v1;
+        acc[3] += ia & v & v1;
       }
+      packed += kRowsAtOnce;
+      r0 += kRowsAtOnce * kSlots;
+      const bool more = r0 < r_end;
+      if (!more || packed > 255 - kRowsAtOnce) {
+        // widen the byte lanes before they could pass 255
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) cnt[a][k] += (acc[a] >> (8 * k)) & 0xFF;
+          acc[a] = 0u;
+        }
+        packed = 0;
+      }
+      if (!more) break;
+      fetch(p, r0);
+    }
+    // the next group's first rows load during this group's sums
+    if (p + gridDim.y < P) fetch(p + gridDim.y, offs[p + gridDim.y] + slot);
+    // sum the warp's slots (lanes kLanes apart), then the warps
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int x = 0; x < 4; ++x) cnt[k][x] += (c[k] == x);
+        for (int o = kLanes; o < 32; o <<= 1)
+          cnt[a][k] += __shfl_xor_sync(0xFFFFFFFFu, cnt[a][k], o);
+    if ((tid & 31) < kLanes) {
+      int4* mine = reinterpret_cast<int4*>(part + 16 * (warp * kLanes +
+                                                        lane_r));
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        mine[a] = make_int4(cnt[a][0], cnt[a][1], cnt[a][2], cnt[a][3]);
     }
+    __syncthreads();
+    // element e: site e / 4 of the block, code e % 4, summed over warps
+    for (int e = tid; e < 4 * kSites; e += kThreads) {
+      const int site = e >> 2;
+      const int a = e & 3;
+      if (b0 + site < s1) {
+        const int* src = part + 16 * (site >> 2) + 4 * a + (site & 3);
+        int sum = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k < nk) {
-        T* o = out + ((size_t)(site0 + k - s0) * P + p) * 4;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) o[a] = (T)cnt[k][a];
+        for (int w = 0; w < kWarps; ++w) sum += src[16 * kLanes * w];
+        out[((size_t)(b0 + site - s0) * P + p) * 4 + a] = (T)sum;
       }
     }
+    __syncthreads();
   }
 }
 
@@ -314,24 +405,32 @@ int ggt_site_pop_counts(const void* buf, int h, int sp, int s0, int s1,
 }
 
 // alleles: int8 rows of row_stride bytes (sites contiguous); out:
-// [s1 - s0, P, 4] for sites s0 .. s1-1, uint16 when u16 != 0, else int32.
+// [s1 - s0, P, 4] for sites s0 .. s1-1, uint16 when u16 != 0, else int32;
+// lanes (16 or 8) a row, 4 sites a lane.
 int ggt_site_pop_counts_raw(const void* alleles, long long row_stride,
                             int s0, int s1, const void* perm,
-                            const void* offs, int P, int u16, void* out,
-                            void* stream) {
-  const int nquad = (s1 - s0 + 3) / 4;
-  const unsigned blocks = (unsigned)((nquad + kThreads - 1) / kThreads);
-  if (u16) {
-    site_pop_counts_raw_kernel<uint16_t><<<blocks, kThreads, 0,
-                                           (cudaStream_t)stream>>>(
-        (const int8_t*)alleles, row_stride, s0, s1, (const int32_t*)perm,
-        (const int32_t*)offs, P, (uint16_t*)out);
-  } else {
-    site_pop_counts_raw_kernel<int32_t><<<blocks, kThreads, 0,
-                                          (cudaStream_t)stream>>>(
-        (const int8_t*)alleles, row_stride, s0, s1, (const int32_t*)perm,
-        (const int32_t*)offs, P, (int32_t*)out);
-  }
+                            const void* offs, int P, int lanes, int u16,
+                            void* out, void* stream) {
+  const dim3 blocks((unsigned)((s1 - s0 + 4 * lanes - 1) / (4 * lanes)),
+                    (unsigned)(P < 65535 ? P : 65535));
+  const int8_t* a = (const int8_t*)alleles;
+  const int32_t* pm = (const int32_t*)perm;
+  const int32_t* of = (const int32_t*)offs;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lanes == 16 && u16)
+    site_pop_counts_raw_kernel<uint16_t, 16><<<blocks, kThreads, 0, st>>>(
+        a, row_stride, s0, s1, pm, of, P, (uint16_t*)out);
+  else if (lanes == 16)
+    site_pop_counts_raw_kernel<int32_t, 16><<<blocks, kThreads, 0, st>>>(
+        a, row_stride, s0, s1, pm, of, P, (int32_t*)out);
+  else if (lanes == 8 && u16)
+    site_pop_counts_raw_kernel<uint16_t, 8><<<blocks, kThreads, 0, st>>>(
+        a, row_stride, s0, s1, pm, of, P, (uint16_t*)out);
+  else if (lanes == 8)
+    site_pop_counts_raw_kernel<int32_t, 8><<<blocks, kThreads, 0, st>>>(
+        a, row_stride, s0, s1, pm, of, P, (int32_t*)out);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

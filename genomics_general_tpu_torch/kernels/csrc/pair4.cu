@@ -1,10 +1,10 @@
 // General 4-state pair counts for Hopper (sm_90a): per-window masked-Hamming
 // counts straight from the int8 allele matrix, for distMat --windType cat,
 // the device-array and raw-upload routes of the tri counts, the long-span
-// helper, the window-stats step and the mesh's window slabs (K9), for the
-// mesh's row blocks of the tensor-parallel counts (K14), and the same
-// counts read in place from a one-transfer flush buffer and tri-packed
-// (K20).
+// helper, the window-stats step and the mesh's window slabs (K9, on the
+// int8 tensor cores), for the mesh's row blocks of the tensor-parallel
+// counts (K14), and the same counts read in place from a one-transfer
+// flush buffer and tri-packed (K20).
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/pairdist.py).  The launch goes on the caller's stream, does not
@@ -26,7 +26,9 @@ constexpr int kGroups = kStage / 32;       // 32-site groups per step
 constexpr int kRawWords = kStage / 4 + 1;  // raw row: 132 bytes (33 words)
 constexpr int kPackWords = 5 * kGroups + 1;  // 4 one-hot + 1 called per group
 
-// The staging and count loop K9, K14 and K20 share: one block counts the
+// The staging and count loop K14 and K20 share (CUDA cores, AND +
+// popcount on repacked bit words; K9 has its own tensor-core loop in
+// namespace k9 below): one block counts the
 // pair tile of rows i0 .. i0 + 63 and columns j0 .. j0 + 63 over sites
 // lo .. hi - 1 of the window that starts at f, into thread (ty, tx)'s
 // rows i0 + ty + 16 a and columns j0 + tx + 16 b.  Rows at or past h, and
@@ -144,31 +146,196 @@ __device__ __forceinline__ void put(int32_t* cell, int v, int atomic) {
 //   match(i, j)    = #sites where both codes are the same one of 0..3
 //   mismatch(i, j) = shared - match
 // which is the JAX kernel's one-hot Gram (called . called^T minus
-// onehot . onehot^T).  Missing is -1; a site outside the window, the span
-// or the matrix reads as missing, so no padding is needed and each window
-// is read at its own length.
+// sum_c onehot_c . onehot_c^T).  Missing is below 0, and a code above 3
+// is called but matches nothing; a site outside the window, the span or
+// the matrix reads as missing, so no padding is needed and each window is
+// read at its own length.
 //
-// Bound: operations.  Every pair of the upper triangle compares every site
-// of its window, while the input is read once per 64 x 64 tile.  Design: a
-// block owns one window (blockIdx.z), one 64 x 64 pair tile with j >= i
-// (blockIdx.x; the result is mirrored into (j, i)) and one contiguous range
-// of the window's sites (blockIdx.y: split-K when the tiles alone do not
-// fill the card; the splits then add their counts with int32 atomics, which
-// are exact in any order).  Each step stages 128 sites of the tile's 128
-// rows in shared memory with coalesced byte loads (first[w] has any
-// alignment), repacks each row's 32-site group into four one-hot words
-// (site k of the group in nibble k % 8 of word k / 8, bit = its code) and
-// one called word, and every thread then counts its 4 x 4 pairs with AND +
-// popcount in int32 registers: 5 popcounts per pair per 32 sites.
-__global__ void __launch_bounds__(kThreads)
+// Bound: operations, at the int8 tensor-core rate — every pair of the
+// upper triangle meets every site of its window in five 0/1 Grams, while
+// the input is read once per 128 x 128 tile; at short windows the two
+// [W, H, H] int32 outputs set the bound instead.  The tensor cores do the
+// Grams, so the integer work of building their 0/1 operands from the code
+// bytes (and the staging) must hide behind them.  Design:
+// - the Grams run on wgmma m64n128k32 s8 x s8 -> s32: two warpgroups,
+//   each 64 rows of the 128 x 128 pair tile against its 128 columns, five
+//   products a 32-site step (one per code into the match sums, the called
+//   plane into the shared sums), 2 x 64 int32 sums a thread;
+// - shared memory holds the raw code bytes, 1 byte a (row, site).  A (the
+//   tile's rows) comes from registers: ldmatrix brings 4 sites of one row
+//   into each fragment register, and decode() builds the five 0/1 planes
+//   there (11 integer operations a register, each row built once, by its
+//   own warp; the next step's planes are built while the tensor cores
+//   count this step's).  B (the columns) is built by the whole block, a
+//   step ahead into the other of two buffers, as five planes in wgmma's
+//   no-swizzle K-major layout (8-row x 16-byte core matrices) that both
+//   warpgroups read;
+// - a block owns one window (blockIdx.z), one 128 x 128 upper-triangle
+//   tile (blockIdx.x; a diagonal tile stages its 128 rows once) and one
+//   range of the window's sites (blockIdx.y: split-K when the tiles alone
+//   leave SMs idle, the ranges then adding with exact int32 atomics into
+//   the zeroed output);
+// - staging, double-buffered with cp.async: when the row stride is a
+//   multiple of 16 every row has the same alignment, so the stage origin
+//   moves back to a 16-byte boundary, whole chunks land in place, and the
+//   sites outside the block's range in the first and last stages are then
+//   set to -1 (the raw upload pads its rows to such a stride).  Other
+//   strides (each row its own alignment: a contiguous matrix of odd
+//   width, a view) copy each row's aligned chunks into a raw buffer, and
+//   a pass in shared memory moves them into place with a funnel shift;
+// - the epilogue goes through a 128 x 129 int32 tile in shared memory, so
+//   the (i, j) rows and the mirrored (j, i) rows both leave as coalesced
+//   128-byte stores (or atomics under split-K).
+namespace k9 {
+
+constexpr int kTile = 128;             // pair tile: 128 x 128 haplotypes
+constexpr int kThreads = 256;          // 2 warpgroups of 64 tile rows
+constexpr int kStage = 128;            // sites staged per step
+constexpr int kPitch = kStage + 16;    // staged row: 144 bytes (36 words)
+constexpr int kBuf = 2 * kTile * kPitch;   // i rows, then j rows
+// B planes of a 32-site step: plane p (codes 0..3, then called) at
+// p * kPlane; row r, byte k at (r / 8) * kSbo + (k / 16) * kLbo +
+// (r % 8) * 16 + k % 16
+constexpr int kLbo = 128;              // next core matrix along K
+constexpr int kSbo = 256;              // next 8 rows
+constexpr int kPlane = kTile * 32;     // 4,096 bytes
+constexpr int kPlanes = 5 * kPlane;    // one step's planes: 20,480 bytes
+constexpr int kOutPitch = kTile + 1;   // epilogue tile row, in words
+// shared memory: two steps' B planes, then two stage buffers (kUniform)
+// or two raw buffers and the staged one; the epilogue tile reuses it
+constexpr int kSmemUniform = 2 * kPlanes + 2 * kBuf;    // 114,688 bytes
+constexpr int kSmemRealign = 2 * kPlanes + 3 * kBuf;    // 151,552 bytes
+static_assert(kTile * kOutPitch * 4 <= kSmemUniform, "epilogue tile fits");
+
+constexpr uint32_t kLow = 0x01010101u;  // bit 0 of each byte
+
+// The five 0/1 planes of 4 int8 codes (one byte each): oh[c] has byte k
+// = 1 where code k is c (0..3), called byte k = 1 where code k >= 0.
+// Bits 2..7 of a byte, moved to bits 1..6 and added to 0x7E, carry into
+// bit 7 unless they are all 0; no byte carries into the next.
+__device__ __forceinline__ void decode(uint32_t x, uint32_t (&oh)[4],
+                                       uint32_t& called) {
+  called = ~(x >> 7) & kLow;
+  const uint32_t x1 = x >> 1;             // bit 0 of each byte: code bit 1
+  const uint32_t t = (x1 & 0x7E7E7E7Eu) + 0x7E7E7E7Eu;
+  const uint32_t ia = ~(t >> 7) & kLow;   // code in 0..3
+  oh[0] = ia & ~x & ~x1;
+  oh[1] = ia & x & ~x1;
+  oh[2] = ia & ~x & x1;
+  oh[3] = ia & x & x1;
+}
+
+// d[64] += A (this warpgroup's 64 x 32 s8 rows, a per thread as in
+// mma.m16n8k32's A fragment for its warp's 16 rows) . B^T (128 x 32 s8 at
+// desc), asynchronously
+__device__ __forceinline__ void wgmma(int (&d)[64], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Keep the compiler from moving an accumulator across the wgmma fences.
+__device__ __forceinline__ void fence_operands(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The no-swizzle K-major descriptor of the B plane at shared address addr.
+__device__ __forceinline__ uint64_t plane_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(kLbo >> 4) << 16) | ((uint64_t)(kSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A's planes of 32-site step kk: this warp's 16 rows from the staged
+// codes at shared address codes, the fragment row address off
+__device__ __forceinline__ void load_a(uint32_t codes, uint32_t off, int kk,
+                                       uint32_t (&a)[5][4]) {
+  uint32_t r[4];
+  ldmatrix4(r, codes + off + 32 * kk);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t oh[4];
+    decode(r[e], oh, a[4][e]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[c][e] = oh[c];
+  }
+}
+
+template <bool kUniform>
+__global__ void __launch_bounds__(kThreads, 1)
 pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
                           long long S, const int32_t* __restrict__ first,
                           const int32_t* __restrict__ n_sites, int h,
                           int tiles, int split_len, int atomic,
                           int32_t* __restrict__ m_out,
                           int32_t* __restrict__ s_out) {
-  __shared__ uint32_t raw[kRows][kRawWords];
-  __shared__ uint32_t packed[kRows][kPackWords];
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* planes = smem;
+  uint8_t* bufs = smem + 2 * kPlanes;
   const int wl = blockIdx.z;
 
   // upper-triangle tile (ti <= tj), row by row
@@ -181,41 +348,237 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
   const int tj = ti + rem;
   const int i0 = ti * kTile;
   const int j0 = tj * kTile;
+  const bool diag = ti == tj;
+  const int rows = diag ? kTile : 2 * kTile;     // staged rows
+  const int jbase = diag ? 0 : kTile;            // the j rows' first
 
   const int n = n_sites[wl];
   const int lo = blockIdx.y * split_len;
   const int hi = min(n, lo + split_len);
-  if (atomic && lo >= hi) return;          // the zeroed output stands
+  if (atomic && lo >= hi) return;                // the zeroed output stands
+  const long long f = first[wl];
+  const long long vlo = max(f + lo, 0LL);
+  const long long vhi = min(f + max(hi, lo), S);
+  long long c0 = vlo;
+  int nst = 0;
+  if (vhi > vlo) {
+    if (kUniform) c0 -= (long long)((uintptr_t)(alleles + vlo) & 15);
+    nst = (int)((vhi - c0 + kStage - 1) / kStage);
+  }
 
-  int acc_s[kMicro][kMicro];
-  int acc_t[kMicro][kMicro];
-  count_tile<false>(alleles, ld, S, nullptr, nullptr, 0, 0, first[wl], lo,
-                    hi, h, i0, j0, raw, packed, acc_s, acc_t);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wg = warp >> 2;                      // tile rows 64 wg ..
+  const int wr = 64 * wg + 16 * (warp & 3);      // this warp's 16 rows
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
+  // ldmatrix row address of A: rows wr + (lane & 7) + 8 (lane >> 3 & 1),
+  // bytes 16 (lane >> 4)
+  const uint32_t offA = (uint32_t)((wr + (lane & 7) +
+                                    8 * ((lane >> 3) & 1)) * kPitch +
+                                   16 * (lane >> 4));
 
-  // write (i, j) and, off the diagonal tiles, the mirror (j, i); a diagonal
-  // tile computes both (i, j) and (j, i) itself, so each cell is written
-  // once per block
-  const int ty = threadIdx.x / kSide;
-  const int tx = threadIdx.x % kSide;
-  const size_t base = (size_t)wl * h * h;
+  int acc_m[64];        // match sums: this thread's cells of 64 x 128
+  int acc_s[64];        // shared sums
 #pragma unroll
-  for (int a = 0; a < kMicro; ++a) {
-    const int i = i0 + ty + kSide * a;
+  for (int e = 0; e < 64; ++e) acc_m[e] = acc_s[e] = 0;
+
+  // Start the copy of stage st (columns c0 + 128 st ..) into buffer b.
+  // kUniform: the stage's 16-byte chunks of each row land in place.
+  // Otherwise the aligned 16-byte chunks that cover the stage of each row
+  // land in a raw buffer, the row's shift from its alignment in front, for
+  // realign() to move into place.  Chunks that hold no column of
+  // [vlo, vhi) (and rows at or past h) are not read: kUniform stores -1
+  // there, realign() masks them.
+  auto stage = [&](int st, int b) {
+    const long long cs = c0 + (long long)st * kStage;
+    uint8_t* buf = bufs + b * kBuf;
+    constexpr int kChunks = kUniform ? kStage / 16 : kStage / 16 + 1;
+    for (int task = tid; task < rows * kChunks; task += kThreads) {
+      const int r = task / kChunks;
+      const int q = task - r * kChunks;
+      const int row = r < kTile ? i0 + r : j0 + r - kTile;
+      const int8_t* src = alleles + row * ld + cs;
+      const int sh = kUniform ? 0 : (int)((uintptr_t)src & 15);
+      const long long cc = cs - sh + 16 * q;
+      uint8_t* dst = buf + r * kPitch + 16 * q;
+      if (row < h && cc < vhi && cc + 16 > vlo)
+        cp_async16((uint32_t)__cvta_generic_to_shared(dst),
+                   src - sh + 16 * q);
+      else if (kUniform)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(~0u, ~0u, ~0u, ~0u);
+    }
+  };
+  // Fill the staged rows of columns cs .. cs + 127 in buffer `out`: from
+  // the raw buffer `raw` (the row's shift undone with a funnel shift), or
+  // in place (raw == out: kUniform's edge stages); columns outside
+  // [vlo, vhi) and rows at or past h read -1.
+  auto realign = [&](long long cs, const uint8_t* raw, uint8_t* out) {
+    for (int task = tid; task < rows * (kStage / 4); task += kThreads) {
+      const int r = task >> 5;
+      const int q = task & 31;
+      const int row = r < kTile ? i0 + r : j0 + r - kTile;
+      const long long col = cs + 4 * q;
+      const bool inside = col >= vlo && col + 4 <= vhi;
+      if (kUniform && inside) continue;
+      uint32_t v = ~0u;
+      if (row < h && col < vhi && col + 4 > vlo) {
+        const int sh = kUniform ? 0
+            : (int)((uintptr_t)(alleles + row * ld + cs) & 15);
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(
+            raw + r * kPitch) + ((sh + 4 * q) >> 2);
+        v = kUniform ? w[0] : __funnelshift_r(w[0], w[1], 8 * (sh & 3));
+        if (!inside) {
 #pragma unroll
-    for (int b = 0; b < kMicro; ++b) {
-      const int j = j0 + tx + kSide * b;
-      if (i >= h || j >= h) continue;
-      const int sv = acc_s[a][b];
-      const int mv = sv - acc_t[a][b];
-      put(&s_out[base + (size_t)i * h + j], sv, atomic);
-      put(&m_out[base + (size_t)i * h + j], mv, atomic);
-      if (ti != tj) {
-        put(&s_out[base + (size_t)j * h + i], sv, atomic);
-        put(&m_out[base + (size_t)j * h + i], mv, atomic);
+          for (int k = 0; k < 4; ++k)
+            if (col + k < vlo || col + k >= vhi) v |= 0xFFu << (8 * k);
+        }
       }
+      *reinterpret_cast<uint32_t*>(out + r * kPitch + 4 * q) = v;
+    }
+  };
+
+  // Make stage st's codes ready to count in buffer codes_buf(st): wait
+  // for its copy, then realign it (or set its edge columns missing).
+  auto codes_buf = [&](int st) {
+    return bufs + (kUniform ? (st & 1) : 2) * kBuf;
+  };
+  auto ready = [&](int st) {
+    const long long cs = c0 + (long long)st * kStage;
+    if (!kUniform)
+      realign(cs, bufs + (st & 1) * kBuf, codes_buf(st));
+    else if (cs < vlo || cs + kStage > vhi)
+      realign(cs, codes_buf(st), codes_buf(st));
+  };
+  // B: the j rows' five planes of 32-site step kk of a stage's codes into
+  // plane buffer pb, a warp a group of 8 rows x 16 bytes (one core matrix
+  // of each plane), conflict-free both ways
+  auto build_b = [&](const uint8_t* codes, int kk, int pb) {
+    uint8_t* planes_b = planes + pb * kPlanes;
+    for (int g = warp; g < kTile / 8 * 2; g += kThreads / 32) {
+      const int rg = g >> 1;                     // rows 8 rg ..
+      const int kh = g & 1;                      // the step's 16-byte half
+      const int r = 8 * rg + (lane >> 2);
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(
+          codes + (jbase + r) * kPitch + 32 * kk + 16 * kh + 4 * (lane & 3));
+      uint32_t oh[4], called;
+      decode(x, oh, called);
+      uint8_t* dst = planes_b + rg * kSbo + kh * kLbo + 16 * (lane >> 2) +
+                     4 * (lane & 3);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        *reinterpret_cast<uint32_t*>(dst + c * kPlane) = oh[c];
+      *reinterpret_cast<uint32_t*>(dst + 4 * kPlane) = called;
+    }
+    fence_proxy_async();
+  };
+
+  // The steps (32 sites) of all stages in one pipeline: step k's products
+  // run while the block builds step k + 1's B planes and each warp its A
+  // planes; a stage boundary also waits for the next stage's copy (started
+  // a stage ahead) and readies it.  Only wgmma touches the sums between
+  // the first product and the last wait.
+  uint32_t a[2][5][4];
+  if (nst > 0) {
+    stage(0, 0);
+    cp_async_commit();
+    if (nst > 1) {
+      stage(1, 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    ready(0);
+    __syncthreads();
+    build_b(codes_buf(0), 0, 0);
+    load_a(sbase + (uint32_t)(codes_buf(0) - smem), offA, 0, a[0]);
+    __syncthreads();
+  }
+  fence_operands(acc_m);
+  fence_operands(acc_s);
+#pragma unroll 1
+  for (int st = 0; st < nst; ++st) {
+#pragma unroll
+    for (int kk = 0; kk < kStage / 32; ++kk) {
+      // step 4 st + kk: planes in buffer kk & 1, A in a[kk & 1]
+      wgmma_fence();
+      const uint32_t pb = sbase + (kk & 1) * kPlanes;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wgmma(acc_m, a[kk & 1][c], plane_desc(pb + c * kPlane));
+      wgmma(acc_s, a[kk & 1][4], plane_desc(pb + 4 * kPlane));
+      wgmma_commit();
+      int nst_ = st;                             // the next step's stage
+      if (kk + 1 == kStage / 32) {
+        if (st + 1 == nst) break;
+        // stage st + 1: its copy, then the copy of stage st + 2 into the
+        // buffer stage st used
+        nst_ = st + 1;
+        cp_async_wait<0>();
+        __syncthreads();
+        ready(nst_);
+        if (nst_ + 1 < nst) {
+          stage(nst_ + 1, (nst_ + 1) & 1);
+          cp_async_commit();
+        }
+      }
+      const int nkk = (kk + 1) % (kStage / 32);
+      // the previous step's products (both warpgroups) read the plane
+      // buffer and the a[] half that the next step fills
+      wgmma_wait<1>();
+      __syncthreads();
+      build_b(codes_buf(nst_), nkk, (kk + 1) & 1);
+      load_a(sbase + (uint32_t)(codes_buf(nst_) - smem), offA, nkk,
+             a[(kk + 1) & 1]);
+      __syncthreads();
     }
   }
+  wgmma_wait<0>();
+  fence_operands(acc_m);
+  fence_operands(acc_s);
+  __syncthreads();
+
+  // epilogue: shared, then mismatch = shared - match, each through the
+  // 128 x 129 tile; (i, j) and, off the diagonal tiles, the mirror (j, i)
+  // (a diagonal tile holds both, so each cell is written once per block)
+  int* tile = reinterpret_cast<int*>(smem);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const size_t base = (size_t)wl * h * h;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[(wr + g + 8 * (e >> 1)) * kOutPitch + 8 * j + 2 * t + (e & 1)] =
+            acc_s[4 * j + e] - (which ? acc_m[4 * j + e] : 0);
+    __syncthreads();
+    int32_t* out = (which ? m_out : s_out) + base;
+    for (int rr = warp; rr < kTile && i0 + rr < h; rr += kThreads / 32)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cc = lane + 32 * e;
+        if (j0 + cc < h)
+          put(&out[(size_t)(i0 + rr) * h + j0 + cc],
+              tile[rr * kOutPitch + cc], atomic);
+      }
+    if (!diag)
+      for (int cc = warp; cc < kTile && j0 + cc < h; cc += kThreads / 32)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = lane + 32 * e;
+          if (i0 + rr < h)
+            put(&out[(size_t)(j0 + cc) * h + i0 + rr],
+                tile[rr * kOutPitch + cc], atomic);
+        }
+    __syncthreads();
+  }
 }
+
+}  // namespace k9
 
 // --------------------------------------------------------------- K14
 // pair_counts_4state_rows — replaces the row-sharded pair counts of
@@ -224,12 +587,12 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
 // split over the mesh): K9's counts for the rectangle of rows r0 .. r1 - 1
 // and all h columns of every window, into [nwin, r1 - r0, h].
 //
-// Bound: operations, as K9's, over the rectangle.  Design: K9's staging
-// and count loop (count_tile) on full rectangular 64 x 64 tiles with no
-// mirror: blockIdx.x walks the row tiles of [r0, r1) times the column tiles
-// of [0, h); rows past r1 are counted with the tile but not written, rows
-// and columns past h read as missing.  The site split and its atomics are
-// K9's.
+// Bound: operations, as K9's, over the rectangle.  Design: the CUDA-core
+// staging and count loop (count_tile) on full rectangular 64 x 64 tiles
+// with no mirror: blockIdx.x walks the row tiles of [r0, r1) times the
+// column tiles of [0, h); rows past r1 are counted with the tile but not
+// written, rows and columns past h read as missing.  The site split
+// (pairdist._k9_splits) adds its ranges with int32 atomics.
 __global__ void __launch_bounds__(kThreads)
 pair_counts_4state_rows_kernel(const int8_t* __restrict__ alleles,
                                long long ld, long long S,
@@ -285,13 +648,14 @@ pair_counts_4state_rows_kernel(const int8_t* __restrict__ alleles,
 // out [wp, 2T], T = h (h + 1) / 2, m half then s half, as uint16 (s_max <
 // 2^16) or int32: one kernel, one output, no [W, h, h] intermediate.
 //
-// Bound: operations, as K9's.  Design: K9's tiles and count loop
-// (count_tile) with the span wire's codes decoded in the staging step; the
-// window metadata is read as bytes, since it starts unaligned when sp is
-// not a multiple of 32.  Each upper-triangle tile writes its cells with
-// i <= j (a diagonal tile's lower half is its mirror); windows with no
-// sites (pad windows past W, empty windows) write zero rows.  No site
-// split: each cell has one writer.
+// Bound: operations, as K9's.  Design: 64 x 64 upper-triangle tiles and
+// the CUDA-core count loop (count_tile), with the span wire's codes
+// decoded in the staging step; the window metadata is read as bytes,
+// since it starts unaligned when sp is not a multiple of 32.  Each
+// upper-triangle tile writes its cells with i <= j (a diagonal tile's
+// lower half is its mirror); windows with no sites (pad windows past W,
+// empty windows) write zero rows.  No site split: each cell has one
+// writer.
 __device__ __forceinline__ int load_i32(const uint8_t* p) {
   return (int)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
                ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
@@ -357,9 +721,27 @@ int ggt_pair_counts_4state(const void* alleles, long long ld, long long S,
                            const void* first, const void* n_sites, int h,
                            int nwin, int splits, int split_len, void* m_out,
                            void* s_out, void* stream) {
-  const int tiles = (h + kTile - 1) / kTile;
+  const int tiles = (h + k9::kTile - 1) / k9::kTile;
   dim3 grid(tiles * (tiles + 1) / 2, splits, nwin);
-  pair_counts_4state_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  // a row stride that is a multiple of 16 gives every row one alignment
+  const bool uniform = ld % 16 == 0;
+  auto kernel = uniform ? k9::pair_counts_4state_kernel<true>
+                        : k9::pair_counts_4state_kernel<false>;
+  const int smem = uniform ? k9::kSmemUniform : k9::kSmemRealign;
+  // the shared-memory limit is raised once per device and variant (not at
+  // every launch, so launches can be captured in a CUDA graph)
+  static bool raised[2][64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !raised[uniform][dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) raised[uniform][dev] = true;
+  }
+  kernel<<<grid, k9::kThreads, smem, (cudaStream_t)stream>>>(
       (const int8_t*)alleles, ld, S, (const int32_t*)first,
       (const int32_t*)n_sites, h, tiles, split_len, splits > 1 ? 1 : 0,
       (int32_t*)m_out, (int32_t*)s_out);

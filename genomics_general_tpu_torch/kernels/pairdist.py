@@ -442,8 +442,16 @@ def het_pairs_plain(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
 
 # ------------------------------------------- K9 general 4-state counts
 
-_K9_TILE = 64           # pair4.cu: 64 x 64 haplotype pairs per block
-_K9_STAGE = 128         # pair4.cu: sites staged per step
+# K14's geometry (pair4.cu count_tile, the CUDA-core loop): 64 x 64
+# haplotype pairs per block, 128 sites staged per step
+_K9_TILE = 64
+_K9_STAGE = 128
+# K9's geometry (pair4.cu namespace k9, the tensor-core loop): 128 x 128
+# pairs per block, 128 sites staged per step, split ranges of at least 16
+# steps
+_K9_MMA_TILE = 128
+_K9_MMA_STAGE = 128
+_K9_MIN_SPLIT = 16 * _K9_MMA_STAGE
 _NO_SPLIT = (1 << 31) - 1
 # float64 cells of one one-hot factor of the plain K9 (per site slab)
 _PLAIN_CELLS = 1 << 24
@@ -460,11 +468,12 @@ def _sm_count(dev: torch.device) -> int:
 
 def _k9_splits(h: int, nwin: int, s_max: int, dev,
                tiles: int | None = None) -> tuple[int, int]:
-    """(splits, split_len) of K9's site axis: when the chunk's pair tiles
-    (``tiles`` a window; default K9's upper triangle of h rows) give fewer
-    than two blocks per SM, each window's sites are cut into up to that
-    many ranges of at least 16 staging steps (the ranges add their counts
-    with exact int32 atomics).  K14 shares it."""
+    """(splits, split_len) of K14's site axis (the CUDA-core count loop):
+    when the chunk's pair tiles (``tiles`` a window; default the upper
+    triangle of h rows in 64 x 64 tiles) give fewer than two blocks per SM,
+    each window's sites are cut into up to that many ranges of at least 16
+    staging steps (the ranges add their counts with exact int32
+    atomics)."""
     if tiles is None:
         t = -(-h // _K9_TILE)
         tiles = t * (t + 1) // 2
@@ -476,6 +485,28 @@ def _k9_splits(h: int, nwin: int, s_max: int, dev,
     split_len = -(-s_max // splits)
     split_len = -(-split_len // _K9_STAGE) * _K9_STAGE
     return -(-s_max // split_len), split_len
+
+
+def _k9_grid(h: int, nwin: int, s_max: int, dev) -> tuple[int, int, int]:
+    """(tiles, splits, split_len) of K9's launch, grid (tiles, splits,
+    nwin): ``tiles`` upper-triangle tiles of 128 x 128 pairs a window.  A
+    block holds a whole SM (its registers), so when the windows' tiles
+    give fewer blocks than the card has SMs, each window's sites are cut
+    into as many ranges as keep the blocks within two full waves, each of
+    whole staging steps and at least 16 of them; the ranges add their
+    counts with exact int32 atomics."""
+    t = -(-h // _K9_MMA_TILE)
+    tiles = t * (t + 1) // 2
+    blocks = tiles * max(nwin, 1)
+    sms = _sm_count(dev)
+    if blocks >= sms:
+        return tiles, 1, _NO_SPLIT
+    splits = min(2 * sms // blocks, s_max // _K9_MIN_SPLIT)
+    if splits <= 1:
+        return tiles, 1, _NO_SPLIT
+    split_len = -(-s_max // splits)
+    split_len = -(-split_len // _K9_MMA_STAGE) * _K9_MMA_STAGE
+    return tiles, -(-s_max // split_len), split_len
 
 
 def pair_counts_4state(alleles: torch.Tensor, first: torch.Tensor,
@@ -499,8 +530,8 @@ def pair_counts_4state(alleles: torch.Tensor, first: torch.Tensor,
     nwin = first.shape[0]
     if nwin > 65535:
         raise ValueError(f"{nwin} windows in one launch (at most 65535)")
-    splits, split_len = _k9_splits(h, nwin, S if s_max is None else s_max,
-                                   alleles.device)
+    _, splits, split_len = _k9_grid(h, nwin, S if s_max is None else s_max,
+                                    alleles.device)
     alloc = torch.zeros if splits > 1 else torch.empty
     m = alloc((nwin, h, h), dtype=torch.int32, device=alleles.device)
     s = alloc((nwin, h, h), dtype=torch.int32, device=alleles.device)

@@ -218,17 +218,29 @@ def sharded_axis(n: int, n_dev: int) -> list[tuple[int, int]]:
     return slabs(-(-n // n_dev) * n_dev, n_dev, n)
 
 
+def _raw_layout(h: int, s: int, w: int) -> tuple[int, int]:
+    """(row stride ld, size in bytes) of a :func:`pack_raw_span` buffer of
+    h rows, s sites and w windows.  ld is s rounded up to 16 bytes, so
+    every row starts 16-byte aligned and K9 copies it in whole chunks; the
+    buffer ends with ld - s bytes after the windows, so that for h >= 1
+    every s has a size of its own and :func:`raw_span_views` tells the
+    width from the size alone, without reading the buffer."""
+    ld = -(-max(s, 1) // 16) * 16
+    return ld, h * ld + 8 * w + ld - s
+
+
 def pack_raw_span(alleles: np.ndarray, first: np.ndarray,
                   n_sites: np.ndarray) -> np.ndarray:
     """One uint8 buffer for a raw flush upload (``GGT_PACKED_TRANSFER=0``):
-    ``[int8 alleles H x S | zero pad to 4 bytes | first int32[W] |
-    n_sites int32[W]]``, the matrix K9 reads and its windows."""
+    ``[int8 alleles H x ld | first int32[W] | n_sites int32[W] | ld - S
+    bytes]``, each row's S sites then -1 up to the stride ld
+    (:func:`_raw_layout`): the matrix K9 reads and its windows."""
     H, S = alleles.shape
-    base = -(-H * S // 4) * 4
     W = first.shape[0]
-    buf = np.zeros(base + 8 * W, dtype=np.uint8)
-    buf[:H * S].reshape(H, S)[:] = np.asarray(alleles).view(np.uint8)
-    meta = buf[base:].view(np.int32)
+    ld, size = _raw_layout(H, S, W)
+    buf = np.full(size, 0xFF, dtype=np.uint8)
+    buf[:H * ld].reshape(H, ld)[:, :S] = np.asarray(alleles).view(np.uint8)
+    meta = buf[H * ld:H * ld + 8 * W].view(np.int32)
     meta[:W] = first
     meta[W:] = n_sites
     return buf
@@ -236,13 +248,15 @@ def pack_raw_span(alleles: np.ndarray, first: np.ndarray,
 
 def raw_span_views(buf: torch.Tensor, h: int, s: int, w: int):
     """Views of a :func:`pack_raw_span` buffer (a uint8 tensor on any
-    device): (alleles int8 [h, s], first int32 [w], n_sites int32 [w])."""
-    base = -(-h * s // 4) * 4
-    if buf.dtype != torch.uint8 or buf.dim() != 1 or \
-            buf.numel() != base + 8 * w:
+    device): (alleles int8 [h, s] at the row stride, first int32 [w],
+    n_sites int32 [w])."""
+    ld, size = _raw_layout(h, s, w)
+    base = h * ld
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.numel() != size:
         raise ValueError(f"not a raw span buffer of h={h}, s={s}, w={w}")
-    meta = buf[base:].view(torch.int32)
-    return buf[:h * s].view(torch.int8).view(h, s), meta[:w], meta[w:]
+    meta = buf[base:base + 8 * w].view(torch.int32)
+    return (buf[:base].view(torch.int8).view(h, ld)[:, :s], meta[:w],
+            meta[w:])
 
 
 class Pending:

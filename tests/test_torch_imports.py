@@ -127,3 +127,23 @@ def test_card_scripts_need_cards_and_no_jax(script):
                        cwd=REPO, timeout=300)
     assert r.returncode != 0
     assert r.stdout.strip() == ""
+
+
+def test_timing_script_needs_a_card_and_no_jax():
+    """kernel_ab.py (two checkouts' K9, K12, K14 and K20 timed on one card)
+    imports nothing of JAX and, without a CUDA card, exits non-zero having
+    printed no result."""
+    r = subprocess.run([sys.executable, "-c", _PROBE, "kernel_ab"],
+                       capture_output=True, text=True, env=_env(), cwd=REPO,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    mods = json.loads(r.stdout.strip().splitlines()[-1])
+    assert "kernel_ab" in mods
+    assert not [m for m in mods if m.split(".")[0] in
+                ("jax", "jaxlib", "genomics_general_tpu")]
+    r = subprocess.run([sys.executable, "kernel_ab.py", "--base", "."],
+                       capture_output=True, text=True,
+                       env=_env(CUDA_VISIBLE_DEVICES=""), cwd=REPO,
+                       timeout=300)
+    assert r.returncode != 0
+    assert r.stdout.strip() == ""

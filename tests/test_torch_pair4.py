@@ -239,18 +239,22 @@ def test_k9_routes_refuse_windows_outside_the_span(port_cpu, monkeypatch):
 
 
 def test_raw_span_buffer_round_trip():
-    """pack_raw_span's views give back the matrix and the windows, with
-    H * S not a multiple of 4 (the windows start after the pad)."""
+    """pack_raw_span's views give back the matrix and the windows, with S
+    not a multiple of 4 or 16 (rows padded to a 16-byte stride, the
+    windows after them); a buffer of another width is refused, also one
+    whose rows pad to the same stride."""
     a, first, n = messy(13, 1001, 10)
     buf = port_transfer.pack_raw_span(a[:, :999], first, n)
     al, f, k = port_transfer.raw_span_views(torch.from_numpy(buf), 13, 999,
                                             first.shape[0])
+    assert al.stride(0) % 16 == 0
     np.testing.assert_array_equal(al.numpy(), a[:, :999])
     np.testing.assert_array_equal(f.numpy(), first)
     np.testing.assert_array_equal(k.numpy(), n)
-    with pytest.raises(ValueError):
-        port_transfer.raw_span_views(torch.from_numpy(buf), 13, 1000,
-                                     first.shape[0])
+    for s in (1000, 998, 1009):
+        with pytest.raises(ValueError):
+            port_transfer.raw_span_views(torch.from_numpy(buf), 13, s,
+                                         first.shape[0])
 
 
 def test_device_alleles_uploads_raw_bytes(port_cpu):
