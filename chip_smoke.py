@@ -45,16 +45,21 @@ not build, launch or agree, or an output is wrong):
    pair_counts_v2 + K2 against their plain versions and against K1 + K2
    on the same flushes, with K3 (bit for bit), K4 and K5 on both; K14
    pair_counts_4state_rows on row blocks that cut K9's tiles against K9's
-   rows and its plain version (the split path too), and the mesh's data-
-   and tensor-parallel pair counts on two shards of the card against K9
-   (two-window shards on K9's split path);
+   rows and its plain version (the split path too), also at K9's tile
+   edges (rows 100..300 and 127..129 at H = 512, 999..1000 at H = 1000; on
+   K9's four layouts, so both staging paths; split on and off), and the
+   mesh's data- and tensor-parallel pair counts on two shards of the card
+   against K9 (two-window shards on K9's split path);
    K15 global_sfs_hist on counts built to tie against its plain version
    (uint16 and int32); K16 stacked_reduce (sum, min; int64 beyond 2^31,
    int32) against torch.sum / torch.amin; window_stats_step over 66,000
    windows (past the 65,535 a K9 or K11 launch takes) equal to its chunks
    run one at a time; K17 pair_allele_tables (H = 160 and 77, S = 0, 1,
    33, 517, codes -7..5, strided rows), K18 site_nonmissing (1 and 5
-   populations, a 10-row overlapping mask) and K19 sample_base_counts
+   populations, a 10-row overlapping mask; at an odd row stride, spans
+   ending inside a block at 16 and 8 lanes, one population of 600 rows,
+   an all-zero mask row, rows in no population, 70 mask rows) and K19
+   sample_base_counts
    exactly; K20 flush_pair_counts on flushes with 0- and 1-site, pad and
    s_max-cut windows, unaligned metadata and the int32 branch, equal to
    its plain version and to K9 + K4 on the unpacked flush;
@@ -107,7 +112,8 @@ not build, launch or agree, or an output is wrong):
    run F's cohort, one tree ending in ';' a window;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events over
-   calls as they come (K9's and K12's, and their yardsticks', also over
+   calls as they come (K9's, K12's, K14's and K18's, and their
+   yardsticks', also over
    calls replayed from a CUDA graph, logged beside: the device's time
    without the wrappers' host overhead),
    beside the bound computed from these inputs (K9 at run E's block and
@@ -232,6 +238,9 @@ MESH_SHARDS = 2
 SFS_POPS = ["pop1", "pop2", "pop3"]
 # K9's tile-edge checks: haplotype counts around its 128-row tiles
 K9_EDGE_H, K9_EDGE_S = (1, 17, 77, 160, 512, 1000), 5_003
+# K14's row blocks at those edges: blocks that cut K9's 128-row tiles
+K14_EDGE_BLOCKS = {512: [(100, 300), (127, 129), (0, 256), (256, 512)],
+                   1000: [(100, 300), (999, 1000)]}
 # window_stats_step past K9's and K11's 65,535-window grid axis
 STEP_WINDOWS, STEP_H, STEP_SITES = 66_000, 8, 70_000
 # run P: ld_matrix over the popDist cohort's first 32 windows of 50 kb,
@@ -1204,10 +1213,13 @@ def k9_edge_parity(pair, dev) -> int:
     layouts of the same codes (contiguous rows of odd length; a row stride
     that is a multiple of 16 with rows starting 5 bytes in, which takes the
     cp.async staging with a shifted origin; an odd stride; an aligned
-    stride): all 12 windows of :func:`k9_edge_input` in one launch, the 11
-    short ones (the site split off) and the long one alone (split on),
-    against the plain version exactly; on the codes cut to -1..3, against
-    the host executor too.  Returns the number of comparisons."""
+    stride, the raw upload's): all 12 windows of :func:`k9_edge_input` in
+    one launch, the 11 short ones (the site split off) and the long one
+    alone (split on), against the plain version exactly; on the codes cut
+    to -1..3, against the host executor too.  K14 on the row blocks of
+    K14_EDGE_BLOCKS, on the same layouts and windows (both staging paths,
+    the split on and off), against K9's rows and its plain version
+    exactly.  Returns the number of comparisons."""
     import torch
     checks = 0
     for H in K9_EDGE_H:
@@ -1239,6 +1251,28 @@ def k9_edge_parity(pair, dev) -> int:
                 check_equal(f"{tag} m vs plain", m, mp)
                 check_equal(f"{tag} s vs plain", s, sp)
                 checks += 2
+            for r0, r1 in K14_EDGE_BLOCKS.get(H, ()):
+                t = pair._K9_MMA_TILE
+                tiles = -(-(r1 - r0) // t) * -(-H // t)
+                splits = pair._k9_grid(H, fs.shape[0], s_max, dev, tiles)[1]
+                if (sname == "short" and splits != 1) or \
+                        (sname == "long" and splits < 2):
+                    raise AssertionError(
+                        f"K14 H={H} rows {r0}..{r1} {sname} windows: "
+                        f"{splits} site splits, against the case's aim")
+                mpr, spr = pair.pair_counts_4state_plain(at, fs, ks, r0, r1)
+                check_equal(f"K14 plain H={H} rows {r0}..{r1} vs K9 plain",
+                            torch.stack([mpr, spr]),
+                            torch.stack([mp, sp])[:, :, r0:r1])
+                for lname, al in layouts.items():
+                    m, s = pair.pair_counts_4state_rows(al, fs, ks, r0, r1,
+                                                        s_max)
+                    tag = (f"pair_counts_4state_rows H={H} rows {r0}..{r1} "
+                           f"{sname} windows, {lname}")
+                    check_equal(f"{tag} m vs plain", m, mpr)
+                    check_equal(f"{tag} s vs plain", s, spr)
+                    checks += 2
+                del mpr, spr
             del mp, sp
         b = np.where((a < 0) | (a > 3), -1, a).astype(np.int8)
         m, s = pair.pair_counts_4state(torch.from_numpy(b).to(dev), f, k,
@@ -1582,7 +1616,7 @@ def mesh_parity(pair, pmesh, mesh, a, first, n, m, s) -> None:
 
 
 def k14_parity(pair, at, f, k, m, s, s_max) -> None:
-    """K14 on row blocks that cut K9's 64-row tiles (K14_BLOCKS) against
+    """K14 on ragged row blocks of H = 160 and 77 (K14_BLOCKS) against
     the rows of K9's counts ``m``, ``s`` of the same windows (0, 1 and
     66,000 sites among them), one block against its plain version, and
     the first four windows alone (the split, atomic path)."""
@@ -1700,10 +1734,12 @@ def k14_bound(R: int, H: int, in_bytes: float, sites: float, nwin: int):
 
 
 def time_k14(pair, transfer, flush, dev) -> dict:
-    """K14 at run A's largest flush (all its windows in one launch) on
-    MESH_SHARDS row shards: each shard equal to K9's rows; the first
-    shard's launch timed beside its plain version and the bf16 one-hot
-    Grams of its row block."""
+    """K14 at run A's largest flush (all its windows in one launch, from
+    the padded raw upload) on MESH_SHARDS row shards and on row blocks
+    that cut K9's 128-row tiles: each equal to K9's rows; the first
+    shard's launch timed beside its plain version, the bf16 one-hot Grams
+    of its row block and K9 on the whole flush, per call and (logged
+    beside) in a CUDA graph."""
     import torch
     a, first, n = flush
     H, S = a.shape
@@ -1714,7 +1750,7 @@ def time_k14(pair, transfer, flush, dev) -> dict:
     m, s = pair.pair_counts_4state(al, f, k, s_max)
     q = -(-H // MESH_SHARDS)
     shards = [(r, min(r + q, H)) for r in range(0, H, q)]
-    for r0, r1 in shards:
+    for r0, r1 in shards + [(100, 300), (127, 129)]:
         mr, sr = pair.pair_counts_4state_rows(al, f, k, r0, r1, s_max)
         check_equal(f"pair_counts_4state_rows (run A flush, rows {r0}..{r1})"
                     " m vs K9", mr, m[:, r0:r1])
@@ -1734,14 +1770,16 @@ def time_k14(pair, transfer, flush, dev) -> dict:
     wa = al[:, torch.where(valid, idx, torch.zeros_like(idx))] \
         .permute(1, 0, 2)
     grams = gram_yardstick(wa, valid, slice(r0, r1))
+    k14 = lambda: pair.pair_counts_4state_rows(  # noqa: E731
+        al, f, k, r0, r1, s_max)
+    k9 = lambda: pair.pair_counts_4state(al, f, k, s_max)  # noqa: E731
     res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: pair.pair_counts_4state_rows(
-               al, f, k, r0, r1, s_max), 10),
+           "ms": cuda_ms(k14, 10), "graph_ms": graph_ms(k14, 10),
            "plain_ms": cuda_ms(lambda: pair.pair_counts_4state_plain(
                al, f, k, r0, r1), 2, 1),
            "library_ms": cuda_ms(grams, 5),
-           "k9_ms": cuda_ms(lambda: pair.pair_counts_4state(al, f, k, s_max),
-                            10)}
+           "library_graph_ms": graph_ms(grams, 5),
+           "k9_ms": cuda_ms(k9, 10), "k9_graph_ms": graph_ms(k9, 10)}
     covered = int((first + n).max() - first.min())
     res["bound"] = k14_bound(r1 - r0, H, H * min(covered, S),
                              float(n.astype(np.int64).sum()), W)
@@ -1992,15 +2030,52 @@ def dry_run(mods, entry) -> tuple[dict, dict]:
 
 # --------------------- K17-K20: LD tables, called counts, one-hot, flush
 
+def k18_edge_parity(counts, dev) -> int:
+    """K18 at the edges of its blocks, on odd-stride views of codes -7..5:
+    spans that end inside a block at both row widths (H = 160, 40,003
+    sites at 16 lanes and 517 at 8), one population of H = 600 rows (a
+    class of more than 255), and masks with an all-zero row, rows in no
+    population and 70 overlapping rows (two fold chunks), against the
+    plain version exactly.  Returns the number of comparisons."""
+    import torch
+    rng = np.random.default_rng(18)
+    checks = 0
+    widths = set()
+    for H, S in ((160, 40_003), (160, 517), (600, 1_001)):
+        wide = torch.from_numpy(rng.integers(-7, 6, size=(H, S + 8)).astype(
+            np.int8)).to(dev)
+        a = wide[:, 3:3 + S]
+        over = (rng.random((6, H)) < 0.4).astype(np.float64)
+        over[2] = 0.0
+        over[:, :5] = 0.0
+        masks = {"1 pop": np.ones((1, H)),
+                 "an all-zero row, rows in no pop": over,
+                 "70 overlapping rows": (rng.random((70, H)) < 0.2).astype(
+                     np.float64)}
+        for name, mask in masks.items():
+            widths.add(counts._k12_lanes(
+                S, -(-mask.shape[0] // counts._K18_FOLD_ROWS), dev))
+            check_equal(f"site_nonmissing H={H} S={S} {name} vs plain",
+                        counts.site_nonmissing(a, mask),
+                        counts.site_nonmissing_plain(
+                            a, torch.from_numpy(mask)))
+            checks += 1
+    if widths != {8, 16}:
+        raise AssertionError(f"K18's edge checks ran at lanes {widths}")
+    torch.cuda.synchronize()
+    return checks
+
+
 def k17_k20_parity(ldk, counts, pair, transfer, dev) -> None:
     """K17-K20 against their plain versions on the same CUDA tensors,
     exactly, on messy inputs: codes -7..5 read through a row stride; K17 at
     H = 160 and 77 with S = 0, 1, 33, 517 (ragged against its 16-site
     tiles); K18 with 1 and 5 disjoint populations and a 10-row overlapping
-    mask; K19; K20 on flushes with 0- and 1-site windows, pad windows, a
-    window running to the last site of an unaligned-metadata span, a cut
-    at s_max, and the int32 branch (one window of 66,000 sites), each also
-    equal to K9 + K4 on the unpacked flush."""
+    mask, and at its block edges (:func:`k18_edge_parity`); K19; K20 on
+    flushes with 0- and 1-site windows, pad windows, a window running to
+    the last site of an unaligned-metadata span, a cut at s_max, and the
+    int32 branch (one window of 66,000 sites), each also equal to K9 + K4
+    on the unpacked flush."""
     import torch
     rng = np.random.default_rng(17)
     for H in (160, 77):
@@ -2026,6 +2101,7 @@ def k17_k20_parity(ldk, counts, pair, transfer, dev) -> None:
         check_equal(f"sample_base_counts H={H} vs plain",
                     counts.sample_base_counts(a),
                     counts.sample_base_counts_plain(a))
+    k18_edge_parity(counts, dev)
     a, first, n, _ = messy_input(160)
     first = np.concatenate([first, [17]]).astype(np.int32)
     n = np.concatenate([n, [1]]).astype(np.int32)
@@ -2289,15 +2365,17 @@ def time_k18_k20(counts, pair, transfer, inputs, dev,
     mask_bf = torch.from_numpy(np.asarray(mask, np.float32)).to(
         dev, torch.bfloat16)
     pm = torch.from_numpy(np.asarray(mask, np.float64))
+    k18 = lambda: counts.site_nonmissing(at, mask)  # noqa: E731
+    lib18 = lambda: torch.matmul(mask_bf, called)  # noqa: E731
     res["site_nonmissing"] = {
         "max_abs_err": check_equal(
-            "site_nonmissing (run A span) vs plain",
-            counts.site_nonmissing(at, mask),
+            "site_nonmissing (run A span) vs plain", k18(),
             counts.site_nonmissing_plain(at, pm)),
-        "ms": cuda_ms(lambda: counts.site_nonmissing(at, mask), 20),
+        "ms": cuda_ms(k18, 20), "graph_ms": graph_ms(k18, 20),
         "plain_ms": cuda_ms(lambda: counts.site_nonmissing_plain(at, pm),
                             5, 1),
-        "library_ms": cuda_ms(lambda: torch.matmul(mask_bf, called), 20),
+        "library_ms": cuda_ms(lib18, 20),
+        "library_graph_ms": graph_ms(lib18, 20),
         "bound": bound(H * S + 4 * S * P, H * S, int32_rate),
         "shape": f"{S} sites, H={H}, P={P}"}
     del called
@@ -3355,7 +3433,8 @@ def main() -> int:
         f"{K9_EDGE_S}, codes -7, 5, 127, 12 windows at odd starts, s_max "
         "not a multiple of 32, the site split on and off, contiguous, "
         "stride%16 offset 5, odd-stride and aligned rows) == plain; == host "
-        "executor on codes -1..3")
+        f"executor on codes -1..3; K14 on rows {K14_EDGE_BLOCKS} of the "
+        "same layouts and windows == plain == K9's rows")
     sfs_parity(counts, dev)
     log("[parity] K15 on tie-built counts (8/8, 9/7, monomorphic, 3-allele, "
         "incomplete; uint16 and int32) == plain; K16 sum / min (int64 beyond "
@@ -3366,7 +3445,9 @@ def main() -> int:
         "equals its chunks run one at a time")
     k17_k20_parity(ldk, counts, pair, transfer, dev)
     log("[parity] K17 (H=160, 77; S=0, 1, 33, 517; codes -7..5; strided "
-        "rows), K18 (1 and 5 pops, a 10-row overlapping mask), K19 == "
+        "rows), K18 (1 and 5 pops, a 10-row overlapping mask; spans ending "
+        "mid-block at 16 and 8 lanes, one 600-row population, an all-zero "
+        "mask row, rows in no pop, 70 mask rows), K19 == "
         "plain; K20 on flushes with 0- and 1-site, pad and s_max-cut "
         "windows, unaligned metadata and the int32 branch == plain == K9 + "
         "K4")
@@ -3497,14 +3578,23 @@ def main() -> int:
             dev)
         r = res["pair_counts_4state_rows"]
         log(f"[kernel] pair_counts_4state_rows at run A's flush: K14 "
-            f"{r['ms']:.4f} ms on one row shard, K9 on the whole flush "
-            f"{r['k9_ms']:.4f} ms; each shard == K9's rows")
+            f"{r['ms']:.4f} ms on one row shard ({r['graph_ms']:.4f} ms in "
+            f"a CUDA graph), two bf16 Grams of its rows {r['library_ms']:.4f}"
+            f" ms ({r['library_graph_ms']:.4f} in a CUDA graph), K9 on the "
+            f"whole flush {r['k9_ms']:.4f} ms ({r['k9_graph_ms']:.4f} in a "
+            "CUDA graph); each shard and rows 100..300, 127..129 == K9's "
+            "rows")
         res.update(sfs_full_width(counts, pmesh, shard_mesh(pmesh, dev),
                                   geno, pops, dev))
         res["pair_allele_tables"] = time_k17(ldk, runs["run_P"][1], dev)
         res.update(time_k18_k20(counts, pair, transfer, runs["run_R"][1],
                                 dev, INT32_PER_CLK_SM * sm_count
                                 * clk_mhz * 1e6))
+        r = res["site_nonmissing"]
+        log(f"[kernel] site_nonmissing at run A's span: K18 {r['ms']:.4f} "
+            f"ms ({r['graph_ms']:.4f} ms in a CUDA graph), bf16 matmul "
+            f"{r['library_ms']:.4f} ms ({r['library_graph_ms']:.4f} in a "
+            "CUDA graph)")
         for k in ("tri_pack", "site_pop_counts", "het_pairs",
                   "abba_site_terms", "abba_window_sums",
                   "pair_counts_4state", "window_stats_tail",

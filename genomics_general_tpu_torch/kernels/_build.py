@@ -41,7 +41,8 @@ _SIGNATURES = {
                                     _P],
         "ggt_global_sfs_hist": [_P, _I, _I, _I, _P, _L, _P, _P],
         "ggt_stacked_reduce": [_P, _I, _I, _L, _I, _P, _P],
-        "ggt_site_nonmissing": [_P, _L, _I, _P, _P, _I, _P, _I, _P, _P],
+        "ggt_site_nonmissing": [_P, _L, _I, _P, _P, _I, _P, _I, _I, _P,
+                                _P],
         "ggt_sample_base_counts": [_P, _L, _I, _I, _P, _P],
     },
     "abba": {

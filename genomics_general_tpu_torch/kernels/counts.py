@@ -295,11 +295,38 @@ def stacked_reduce_plain(x: torch.Tensor, op: str) -> torch.Tensor:
 
 # ------------------------------- K18 called counts, K19 the one-hot
 
+# mask rows one K18 block folds its classes into (counts.cu kFoldRows)
+_K18_FOLD_ROWS = 64
+
+
 def _check_alleles(alleles: torch.Tensor) -> None:
     if alleles.dim() != 2 or alleles.dtype != torch.int8:
         raise ValueError("alleles must be int8 [H, S]")
     if alleles.is_cuda and alleles.stride(1) != 1:
         raise ValueError("alleles must have contiguous sites")
+
+
+def _check_01(mask: np.ndarray) -> None:
+    if not np.isin(mask, (0, 1)).all():
+        raise ValueError("pop_mask must hold only 0 and 1")
+
+
+def _nonmissing_classes(mask: np.ndarray, dev: torch.device):
+    """(perm, offs, C, bits) K18 counts the 0/1 mask [P, H] on, checked,
+    built and uploaded once per distinct mask: its membership classes
+    (:class:`MaskClasses`) but the one in no mask row, which sorts first
+    and whose rows K18 then never reads; ``bits`` int32 [C, P]."""
+    def build(m: np.ndarray):
+        _check_01(m)
+        classes = MaskClasses(m, dev)
+        g = classes.groups
+        skip = int(not classes.bits[0].any())
+        n0 = int((~(m > 0).any(axis=0)).sum())
+        offs = g.offs[skip:] - n0
+        bits = classes.bits[skip:].astype(np.int32)
+        return (g.perm[n0:], offs, bits.shape[0],
+                torch.from_numpy(bits).to(dev))
+    return _run_const("nonmissing", mask, dev, build)
 
 
 def site_nonmissing(alleles: torch.Tensor, pop_mask) -> torch.Tensor:
@@ -310,30 +337,25 @@ def site_nonmissing(alleles: torch.Tensor, pop_mask) -> torch.Tensor:
     Replaces the JAX ``counts.site_nonmissing``."""
     _check_alleles(alleles)
     mask = np.asarray(pop_mask.cpu() if isinstance(pop_mask, torch.Tensor)
-                      else pop_mask, dtype=np.float64)
+                      else pop_mask)
     H, S = alleles.shape
     if mask.ndim != 2 or mask.shape[1] != H:
         raise ValueError(f"pop_mask must be [P, {H}]")
-    if not np.isin(mask, (0.0, 1.0)).all():
-        raise ValueError("pop_mask must hold only 0 and 1")
-    if not alleles.is_cuda:
-        return site_nonmissing_plain(alleles, torch.from_numpy(mask))
-    dev = alleles.device
     P = mask.shape[0]
-    out = torch.empty((S, P), dtype=torch.int32, device=dev)
-    if S == 0 or P == 0:
-        return out
-    if H == 0:
-        return out.zero_()
-    classes = _mask_classes(mask, dev)
-    bits = _run_const("class_bits", classes.bits.astype(np.int32), dev,
-                      lambda b: torch.from_numpy(b.copy()).to(dev))
-    g = classes.groups
-    _check_cuda(g.perm, g.offs, bits, out)
+    if not alleles.is_cuda:
+        _check_01(mask)
+        return site_nonmissing_plain(
+            alleles, torch.from_numpy(mask.astype(np.float64)))
+    if S * P * H == 0:
+        _check_01(mask)
+        return torch.zeros((S, P), dtype=torch.int32, device=alleles.device)
+    perm, offs, C, bits = _nonmissing_classes(mask, alleles.device)
+    out = torch.empty((S, P), dtype=torch.int32, device=alleles.device)
     code = _build.lib("counts").ggt_site_nonmissing(
-        alleles.data_ptr(), alleles.stride(0), S, g.perm.data_ptr(),
-        g.offs.data_ptr(), g.P, bits.data_ptr(), P, out.data_ptr(),
-        _stream_ptr(out))
+        alleles.data_ptr(), alleles.stride(0), S, perm.data_ptr(),
+        offs.data_ptr(), C, bits.data_ptr(), P,
+        _k12_lanes(S, -(-P // _K18_FOLD_ROWS), alleles.device),
+        out.data_ptr(), _stream_ptr(out))
     _build.check(code, "site_nonmissing")
     LAUNCHES["site_nonmissing"] += 1
     return out

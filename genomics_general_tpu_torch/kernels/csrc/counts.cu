@@ -91,7 +91,8 @@ site_pop_counts_kernel(const uint8_t* __restrict__ codes,
 //
 // Bound: bytes — one byte per (row, site) read against a few integer
 // operations, so the card must be filled with short chains of loads.
-// Design:
+// Design: the row-slot loop count_groups (below, shared with K18) on the
+// 4 one-hot planes:
 // - a block owns 4 * lanes sites of one group (blockIdx.y) and its 256
 //   threads form 256 / lanes row slots: the group's rows are dealt over
 //   the slots, so every warp reads its share.  lanes is 16 a row while the
@@ -128,30 +129,55 @@ __device__ __forceinline__ uint32_t load_codes4(const int8_t* row, int c,
 
 constexpr int kRowsAtOnce = 4;   // rows a row slot loads before counting
 
-template <typename T, int kLanes>
-__global__ void __launch_bounds__(kThreads)
-site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
-                           long long row_stride, int s0, int s1,
-                           const int32_t* __restrict__ perm,
-                           const int32_t* __restrict__ offs, int P,
-                           T* __restrict__ out) {
+// The 0/1 planes of a word of 4 codes, byte k for code k: kPlanes 4, the
+// codes 0..3 (K9's decode: bits 2..7 of a byte, moved to bits 1..6 and
+// added to 0x7E, carry into bit 7 unless they are all 0); kPlanes 1,
+// called (code >= 0).
+template <int kPlanes>
+__device__ __forceinline__ void planes_of(uint32_t v,
+                                          uint32_t (&pl)[kPlanes]) {
+  if constexpr (kPlanes == 1) {
+    pl[0] = ~(v >> 7) & kLow;
+  } else {
+    static_assert(kPlanes == 4, "4 one-hot planes or 1 called plane");
+    const uint32_t v1 = v >> 1;
+    const uint32_t t = (v1 & 0x7E7E7E7Eu) + 0x7E7E7E7Eu;
+    const uint32_t ia = ~(t >> 7) & kLow;         // code in 0..3
+    pl[0] = ia & ~v & ~v1;
+    pl[1] = ia & v & ~v1;
+    pl[2] = ia & ~v & v1;
+    pl[3] = ia & v & v1;
+  }
+}
+
+// Shared memory of count_groups' slot sums: [warp][lane][plane][site].
+template <int kPlanes, int kLanes>
+constexpr int kPartInts = kThreads / 32 * kLanes * 4 * kPlanes;
+
+// The row-slot loop K12 and K18 share.  A block owns sites b0 ..
+// b0 + 4 kLanes - 1 (those at or past s1 read as missing) and counts
+// groups g0, g0 + gstep, .. below G one after another (perm[offs[g] ..
+// offs[g + 1]) are the rows of g): for each, kPlanes x 4 counts a lane
+// over its slot's rows, summed over the slots into part; then
+// epi(g, part) reads the block's sums through slot_sum(), and the next
+// group's first rows load while the sums meet.
+template <int kPlanes, int kLanes, typename Epi>
+__device__ __forceinline__ void count_groups(
+    const int8_t* __restrict__ alleles, long long row_stride, int b0, int s1,
+    const int32_t* __restrict__ perm, const int32_t* __restrict__ offs,
+    int g0, int gstep, int G, int* part, Epi&& epi) {
   constexpr int kSlots = kThreads / kLanes;           // row slots
-  constexpr int kSites = 4 * kLanes;                  // sites a block
-  constexpr int kWarps = kThreads / 32;
-  // each warp's summed counters: [warp][lane][code][site]
-  __shared__ __align__(16) int part[kWarps * kLanes * 16];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int slot = tid / kLanes;
   const int lane_r = tid % kLanes;                    // lane in the row
-  const int b0 = s0 + blockIdx.x * kSites;
   const int c = b0 + 4 * lane_r;                      // this lane's sites
   // this lane's codes of rows r0, r0 + kSlots, .. (kRowsAtOnce of them)
-  // of group p, -1 words past the group: independent loads, in flight
+  // of group g, -1 words past the group: independent loads, in flight
   // together
   uint32_t x[kRowsAtOnce];
-  auto fetch = [&](int p, int r0) {
-    const int r_end = offs[p + 1];
+  auto fetch = [&](int g, int r0) {
+    const int r_end = offs[g + 1];
 #pragma unroll
     for (int u = 0; u < kRowsAtOnce; ++u) {
       const int r = r0 + u * kSlots;
@@ -160,28 +186,25 @@ site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
                        : ~0u;
     }
   };
-  const int p0 = blockIdx.y;                          // groups p0, p0 + ..
-  if (p0 < P) fetch(p0, offs[p0] + slot);
-  for (int p = p0; p < P; p += gridDim.y) {
-    int cnt[4][4];                                    // [code][site]
+  if (g0 < G) fetch(g0, offs[g0] + slot);
+  for (int g = g0; g < G; g += gstep) {
+    int cnt[kPlanes][4];                              // [plane][site]
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < kPlanes; ++a)
 #pragma unroll
       for (int k = 0; k < 4; ++k) cnt[a][k] = 0;
-    uint32_t acc[4] = {0u, 0u, 0u, 0u};               // byte k: site k
+    uint32_t acc[kPlanes];                            // byte k: site k
+#pragma unroll
+    for (int a = 0; a < kPlanes; ++a) acc[a] = 0u;
     int packed = 0;                                   // rows in acc
-    const int r_end = offs[p + 1];
-    for (int r0 = offs[p] + slot;;) {
+    const int r_end = offs[g + 1];
+    for (int r0 = offs[g] + slot;;) {
 #pragma unroll
       for (int u = 0; u < kRowsAtOnce; ++u) {
-        const uint32_t v = x[u];
-        const uint32_t v1 = v >> 1;
-        const uint32_t t = (v1 & 0x7E7E7E7Eu) + 0x7E7E7E7Eu;
-        const uint32_t ia = ~(t >> 7) & kLow;         // code in 0..3
-        acc[0] += ia & ~v & ~v1;
-        acc[1] += ia & v & ~v1;
-        acc[2] += ia & ~v & v1;
-        acc[3] += ia & v & v1;
+        uint32_t pl[kPlanes];
+        planes_of<kPlanes>(x[u], pl);
+#pragma unroll
+        for (int a = 0; a < kPlanes; ++a) acc[a] += pl[a];
       }
       packed += kRowsAtOnce;
       r0 += kRowsAtOnce * kSlots;
@@ -189,7 +212,7 @@ site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
       if (!more || packed > 255 - kRowsAtOnce) {
         // widen the byte lanes before they could pass 255
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < kPlanes; ++a) {
 #pragma unroll
           for (int k = 0; k < 4; ++k) cnt[a][k] += (acc[a] >> (8 * k)) & 0xFF;
           acc[a] = 0u;
@@ -197,40 +220,63 @@ site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
         packed = 0;
       }
       if (!more) break;
-      fetch(p, r0);
+      fetch(g, r0);
     }
     // the next group's first rows load during this group's sums
-    if (p + gridDim.y < P) fetch(p + gridDim.y, offs[p + gridDim.y] + slot);
+    if (g + gstep < G) fetch(g + gstep, offs[g + gstep] + slot);
     // sum the warp's slots (lanes kLanes apart), then the warps
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < kPlanes; ++a)
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
         for (int o = kLanes; o < 32; o <<= 1)
           cnt[a][k] += __shfl_xor_sync(0xFFFFFFFFu, cnt[a][k], o);
     if ((tid & 31) < kLanes) {
-      int4* mine = reinterpret_cast<int4*>(part + 16 * (warp * kLanes +
-                                                        lane_r));
+      int4* mine = reinterpret_cast<int4*>(
+          part + 4 * kPlanes * (warp * kLanes + lane_r));
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < kPlanes; ++a)
         mine[a] = make_int4(cnt[a][0], cnt[a][1], cnt[a][2], cnt[a][3]);
     }
     __syncthreads();
-    // element e: site e / 4 of the block, code e % 4, summed over warps
-    for (int e = tid; e < 4 * kSites; e += kThreads) {
-      const int site = e >> 2;
-      const int a = e & 3;
-      if (b0 + site < s1) {
-        const int* src = part + 16 * (site >> 2) + 4 * a + (site & 3);
-        int sum = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += src[16 * kLanes * w];
-        out[((size_t)(b0 + site - s0) * P + p) * 4 + a] = (T)sum;
-      }
-    }
+    epi(g, (const int*)part);
     __syncthreads();
   }
+}
+
+// The block's count of plane a at its site `site` (0 .. 4 kLanes - 1),
+// summed over the warps' slot sums in part.
+template <int kPlanes, int kLanes>
+__device__ __forceinline__ int slot_sum(const int* part, int site, int a) {
+  const int* src = part + 4 * kPlanes * (site >> 2) + 4 * a + (site & 3);
+  int sum = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w)
+    sum += src[4 * kPlanes * kLanes * w];
+  return sum;
+}
+
+template <typename T, int kLanes>
+__global__ void __launch_bounds__(kThreads)
+site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
+                           long long row_stride, int s0, int s1,
+                           const int32_t* __restrict__ perm,
+                           const int32_t* __restrict__ offs, int P,
+                           T* __restrict__ out) {
+  __shared__ __align__(16) int part[kPartInts<4, kLanes>];
+  const int b0 = s0 + blockIdx.x * 4 * kLanes;
+  // element e: site e / 4 of the block, code e % 4
+  count_groups<4, kLanes>(
+      alleles, row_stride, b0, s1, perm, offs, blockIdx.y, gridDim.y, P, part,
+      [&](int p, const int* sums) {
+        for (int e = threadIdx.x; e < 16 * kLanes; e += kThreads) {
+          const int site = e >> 2;
+          if (b0 + site < s1)
+            out[((size_t)(b0 + site - s0) * P + p) * 4 + (e & 3)] =
+                (T)slot_sum<4, kLanes>(sums, site, e & 3);
+        }
+      });
 }
 
 // ---------------------------------------------------------------- K15
@@ -322,13 +368,25 @@ stacked_reduce_kernel(const T* __restrict__ x, int k, long long n,
 //   out[s, p] = #rows r with mask[p, r] == 1 and alleles[r, s] >= 0
 // the JAX matmul of the 0/1 mask with the called matrix.  Any 0/1 mask is
 // counted on its membership classes (perm / offs as in K6, one group per
-// distinct mask column); bits[c, p] says whether class c lies in mask row
-// p, so overlapping rows and rows in no mask count as in the matmul.
+// distinct mask column; the wrapper leaves out the class in no mask row);
+// bits[c, p] says whether class c lies in mask row p, so overlapping rows
+// and rows in no mask count as in the matmul.
 //
 // Bound: bytes — one byte per (row, site) read against one comparison.
-// Design: one thread per site walks the rows class by class (a warp reads
-// 32 consecutive bytes of one row per step) and adds each class's count
-// into its own row of out, which it zeroed first: no atomics.
+// Design: K12's row-slot loop (count_groups) on the one called plane, with
+// the classes folded into mask rows inside the block:
+// - a block owns 4 * lanes sites (lanes as K12's) and every class of them,
+//   one class after another, and up to kFoldRows mask rows (blockIdx.y);
+// - after each class, the block's thread e adds the class's count of site
+//   e / pc into its (site, mask row) sums in registers where bits say so:
+//   out is written once, with no zeroing pass and no atomics, in a fixed
+//   order, so the counts are exact.
+// On the H100 each class adds a step to the block's time; keeping two to
+// four rounds of rows in flight a slot (the next class's loading while
+// this one counts) ran no faster, and cost K12 registers.
+constexpr int kFoldRows = 64;    // mask rows a block folds its classes into
+
+template <int kLanes>
 __global__ void __launch_bounds__(kThreads)
 site_nonmissing_kernel(const int8_t* __restrict__ alleles,
                        long long row_stride, int S,
@@ -336,19 +394,35 @@ site_nonmissing_kernel(const int8_t* __restrict__ alleles,
                        const int32_t* __restrict__ offs, int C,
                        const int32_t* __restrict__ bits, int P,
                        int32_t* __restrict__ out) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
-  int32_t* o = out + (size_t)s * P;
-  for (int p = 0; p < P; ++p) o[p] = 0;
-  for (int c = 0; c < C; ++c) {
-    int cnt = 0;
-    const int r_end = offs[c + 1];
-    for (int r = offs[c]; r < r_end; ++r)
-      cnt += alleles[(long long)perm[r] * row_stride + s] >= 0;
-    if (cnt == 0) continue;
-    const int32_t* b = bits + (size_t)c * P;
-    for (int p = 0; p < P; ++p)
-      if (b[p]) o[p] += cnt;
+  constexpr int kSites = 4 * kLanes;
+  constexpr int kPer = kSites * kFoldRows / kThreads;  // sums a thread
+  __shared__ __align__(16) int part[kPartInts<1, kLanes>];
+  const int b0 = blockIdx.x * kSites;
+  const int p0 = blockIdx.y * kFoldRows;
+  const int pc = min(P - p0, kFoldRows);
+  const int n = kSites * pc;               // element e: site e / pc
+  int sum[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) sum[i] = 0;
+  count_groups<1, kLanes>(
+      alleles, row_stride, b0, S, perm, offs, 0, 1, C, part,
+      [&](int c, const int* sums) {
+        const int32_t* b = bits + (size_t)c * P + p0;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int e = threadIdx.x + i * kThreads;
+          if (e < n) {
+            const int site = e / pc;
+            if (b[e - site * pc]) sum[i] += slot_sum<1, kLanes>(sums, site, 0);
+          }
+        }
+      });
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int site = e / pc;
+    if (e < n && b0 + site < S)
+      out[(size_t)(b0 + site) * P + p0 + e - site * pc] = sum[i];
   }
 }
 
@@ -474,14 +548,26 @@ int ggt_stacked_reduce(const void* x, int is64, int k, long long n,
 
 // alleles: int8 rows of row_stride bytes (sites contiguous, columns
 // 0 .. S - 1); perm, offs: the C membership classes; bits: int32 [C, P]
-// 0/1; out: int32 [S, P].
+// 0/1; out: int32 [S, P]; lanes (16 or 8) a row, 4 sites a lane.
 int ggt_site_nonmissing(const void* alleles, long long row_stride, int S,
                         const void* perm, const void* offs, int C,
-                        const void* bits, int P, void* out, void* stream) {
-  const unsigned blocks = (unsigned)((S + kThreads - 1) / kThreads);
-  site_nonmissing_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)alleles, row_stride, S, (const int32_t*)perm,
-      (const int32_t*)offs, C, (const int32_t*)bits, P, (int32_t*)out);
+                        const void* bits, int P, int lanes, void* out,
+                        void* stream) {
+  const dim3 blocks((unsigned)((S + 4 * lanes - 1) / (4 * lanes)),
+                    (unsigned)((P + kFoldRows - 1) / kFoldRows));
+  const int8_t* a = (const int8_t*)alleles;
+  const int32_t* pm = (const int32_t*)perm;
+  const int32_t* of = (const int32_t*)offs;
+  const int32_t* bt = (const int32_t*)bits;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lanes == 16)
+    site_nonmissing_kernel<16><<<blocks, kThreads, 0, st>>>(
+        a, row_stride, S, pm, of, C, bt, P, (int32_t*)out);
+  else if (lanes == 8)
+    site_nonmissing_kernel<8><<<blocks, kThreads, 0, st>>>(
+        a, row_stride, S, pm, of, C, bt, P, (int32_t*)out);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

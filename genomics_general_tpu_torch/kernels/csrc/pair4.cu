@@ -1,10 +1,11 @@
 // General 4-state pair counts for Hopper (sm_90a): per-window masked-Hamming
 // counts straight from the int8 allele matrix, for distMat --windType cat,
 // the device-array and raw-upload routes of the tri counts, the long-span
-// helper, the window-stats step and the mesh's window slabs (K9, on the
-// int8 tensor cores), for the mesh's row blocks of the tensor-parallel
-// counts (K14), and the same counts read in place from a one-transfer
-// flush buffer and tri-packed (K20).
+// helper, the window-stats step and the mesh's window slabs (K9), and for
+// the mesh's row blocks of the tensor-parallel counts (K14): one kernel on
+// the int8 tensor cores, walking the upper triangle (K9) or a rectangle of
+// rows (K14); and the same counts read in place from a one-transfer flush
+// buffer and tri-packed (K20, on the CUDA cores).
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/pairdist.py).  The launch goes on the caller's stream, does not
@@ -26,21 +27,19 @@ constexpr int kGroups = kStage / 32;       // 32-site groups per step
 constexpr int kRawWords = kStage / 4 + 1;  // raw row: 132 bytes (33 words)
 constexpr int kPackWords = 5 * kGroups + 1;  // 4 one-hot + 1 called per group
 
-// The staging and count loop K14 and K20 share (CUDA cores, AND +
-// popcount on repacked bit words; K9 has its own tensor-core loop in
-// namespace k9 below): one block counts the
-// pair tile of rows i0 .. i0 + 63 and columns j0 .. j0 + 63 over sites
+// K20's staging and count loop (CUDA cores, AND + popcount on repacked
+// bit words; K9 and K14 run on the tensor cores in namespace k9 below, so
+// K20 on that loop would leave this one without a user): one block counts
+// the pair tile of rows i0 .. i0 + 63 and columns j0 .. j0 + 63 over sites
 // lo .. hi - 1 of the window that starts at f, into thread (ty, tx)'s
 // rows i0 + ty + 16 a and columns j0 + tx + 16 b.  Rows at or past h, and
-// columns outside 0 .. S - 1, read as missing.  The codes come from an
-// int8 matrix of rows of ld bytes (K9, K14), or with kWire from a span
-// wire (kernels/transfer.py pack_span, K20): 2-bit codes in rows of c4
-// bytes, then the miss bits in rows of m8 bytes (a set bit is missing).
-template <bool kWire>
+// columns outside 0 .. S - 1, read as missing.  The codes come from a span
+// wire (kernels/transfer.py pack_span): 2-bit codes in rows of c4 bytes,
+// then the miss bits in rows of m8 bytes (a set bit is missing).
 __device__ __forceinline__ void count_tile(
-    const int8_t* __restrict__ alleles, long long ld, long long S,
-    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ miss,
-    int c4, int m8, long long f, int lo, int hi, int h, int i0, int j0,
+    long long S, const uint8_t* __restrict__ codes,
+    const uint8_t* __restrict__ miss, int c4, int m8, long long f, int lo,
+    int hi, int h, int i0, int j0,
     uint32_t (*raw)[kRawWords], uint32_t (*packed)[kPackWords],
     int (&acc_s)[kMicro][kMicro], int (&acc_t)[kMicro][kMicro]) {
   const int tid = threadIdx.x;
@@ -60,15 +59,10 @@ __device__ __forceinline__ void count_tile(
       const int row = r < kTile ? i0 + r : j0 + r - kTile;
       const long long col = f + off + c;
       int8_t v = -1;
-      if (row < h && off + c < hi && col >= 0 && col < S) {
-        if constexpr (kWire) {
-          if (!((miss[(long long)row * m8 + (col >> 3)] >> (col & 7)) & 1))
-            v = (int8_t)((codes[(long long)row * c4 + (col >> 2)] >>
-                          (2 * (col & 3))) & 3);
-        } else {
-          v = alleles[(long long)row * ld + col];
-        }
-      }
+      if (row < h && off + c < hi && col >= 0 && col < S &&
+          !((miss[(long long)row * m8 + (col >> 3)] >> (col & 7)) & 1))
+        v = (int8_t)((codes[(long long)row * c4 + (col >> 2)] >>
+                      (2 * (col & 3))) & 3);
       rawb[r * kRawWords * 4 + c] = v;
     }
     __syncthreads();
@@ -138,7 +132,7 @@ __device__ __forceinline__ void put(int32_t* cell, int v, int atomic) {
     atomicAdd(cell, v);
 }
 
-// ---------------------------------------------------------------- K9
+// ------------------------------------------------------------ K9, K14
 // pair_counts_4state — replaces genomics_general_tpu/kernels/pairdist.py
 // pairwise_counts with gather_window_batch (and so _gathered_pair_counts'
 // count stage).  For window w = [first, first + n) and haplotypes i, j:
@@ -170,11 +164,12 @@ __device__ __forceinline__ void put(int32_t* cell, int v, int atomic) {
 //   step ahead into the other of two buffers, as five planes in wgmma's
 //   no-swizzle K-major layout (8-row x 16-byte core matrices) that both
 //   warpgroups read;
-// - a block owns one window (blockIdx.z), one 128 x 128 upper-triangle
-//   tile (blockIdx.x; a diagonal tile stages its 128 rows once) and one
-//   range of the window's sites (blockIdx.y: split-K when the tiles alone
-//   leave SMs idle, the ranges then adding with exact int32 atomics into
-//   the zeroed output);
+// - a block owns one window (blockIdx.z), one 128 x 128 tile (blockIdx.x:
+//   of the upper triangle, or with kRect of K14's rectangle; a tile whose
+//   rows are its columns stages its 128 rows once) and one range of the
+//   window's sites (blockIdx.y: split-K when the tiles alone leave SMs
+//   idle, the ranges then adding with exact int32 atomics into the zeroed
+//   output);
 // - staging, double-buffered with cp.async: when the row stride is a
 //   multiple of 16 every row has the same alignment, so the stage origin
 //   moves back to a 16-byte boundary, whole chunks land in place, and the
@@ -186,6 +181,16 @@ __device__ __forceinline__ void put(int32_t* cell, int v, int atomic) {
 // - the epilogue goes through a 128 x 129 int32 tile in shared memory, so
 //   the (i, j) rows and the mirrored (j, i) rows both leave as coalesced
 //   128-byte stores (or atomics under split-K).
+//
+// pair_counts_4state_rows (K14) — replaces the row-sharded pair counts of
+// genomics_general_tpu/parallel/mesh.py sharded_pair_counts_tp (the JAX
+// gather_window_batch + pairwise_counts with the [W, H, H] output's rows
+// split over the mesh): K9's counts for the rectangle of rows r0 .. r1 - 1
+// and all h columns of every window, into [nwin, r1 - r0, h].  Bound:
+// operations, as K9's, over the rectangle.  Design: K9's kernel with kRect:
+// blockIdx.x walks the 128-row tiles from r0 times the 128-column tiles of
+// [0, h), and the epilogue writes the rows below r1 at i - r0 with no
+// mirror (staged rows at or past r1 are counted, not written).
 namespace k9 {
 
 constexpr int kTile = 128;             // pair tile: 128 x 128 haplotypes
@@ -325,30 +330,39 @@ __device__ __forceinline__ void load_a(uint32_t codes, uint32_t off, int kk,
   }
 }
 
-template <bool kUniform>
+// rows r0 .. r1 - 1 of the counts go to rows 0 .. r1 - r0 - 1 of each
+// window's [r1 - r0, h] output (K9: r0 = 0, r1 = h); tiles: the upper
+// triangle's tiles a side (K9), the column tiles (kRect)
+template <bool kUniform, bool kRect>
 __global__ void __launch_bounds__(kThreads, 1)
 pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
                           long long S, const int32_t* __restrict__ first,
                           const int32_t* __restrict__ n_sites, int h,
-                          int tiles, int split_len, int atomic,
-                          int32_t* __restrict__ m_out,
+                          int r0, int r1, int tiles, int split_len,
+                          int atomic, int32_t* __restrict__ m_out,
                           int32_t* __restrict__ s_out) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* planes = smem;
   uint8_t* bufs = smem + 2 * kPlanes;
   const int wl = blockIdx.z;
 
-  // upper-triangle tile (ti <= tj), row by row
-  int ti = 0;
-  int rem = blockIdx.x;
-  while (rem >= tiles - ti) {
-    rem -= tiles - ti;
-    ++ti;
+  int i0, j0;
+  if (kRect) {
+    // rectangle tile: row tiles from r0 times column tiles
+    i0 = r0 + (blockIdx.x / tiles) * kTile;
+    j0 = (blockIdx.x % tiles) * kTile;
+  } else {
+    // upper-triangle tile (ti <= tj), row by row
+    int ti = 0;
+    int rem = blockIdx.x;
+    while (rem >= tiles - ti) {
+      rem -= tiles - ti;
+      ++ti;
+    }
+    i0 = ti * kTile;
+    j0 = (ti + rem) * kTile;
   }
-  const int tj = ti + rem;
-  const int i0 = ti * kTile;
-  const int j0 = tj * kTile;
-  const bool diag = ti == tj;
+  const bool diag = i0 == j0;
   const int rows = diag ? kTile : 2 * kTile;     // staged rows
   const int jbase = diag ? 0 : kTile;            // the j rows' first
 
@@ -541,12 +555,13 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
   __syncthreads();
 
   // epilogue: shared, then mismatch = shared - match, each through the
-  // 128 x 129 tile; (i, j) and, off the diagonal tiles, the mirror (j, i)
-  // (a diagonal tile holds both, so each cell is written once per block)
+  // 128 x 129 tile; (i, j) for i below r1 and, off K9's diagonal tiles,
+  // the mirror (j, i) (a diagonal tile holds both, so each cell is written
+  // once per block)
   int* tile = reinterpret_cast<int*>(smem);
   const int g = lane >> 2;
   const int t = lane & 3;
-  const size_t base = (size_t)wl * h * h;
+  const size_t base = (size_t)wl * (r1 - r0) * h;
 #pragma unroll
   for (int which = 0; which < 2; ++which) {
 #pragma unroll
@@ -557,15 +572,15 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
             acc_s[4 * j + e] - (which ? acc_m[4 * j + e] : 0);
     __syncthreads();
     int32_t* out = (which ? m_out : s_out) + base;
-    for (int rr = warp; rr < kTile && i0 + rr < h; rr += kThreads / 32)
+    for (int rr = warp; rr < kTile && i0 + rr < r1; rr += kThreads / 32)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int cc = lane + 32 * e;
         if (j0 + cc < h)
-          put(&out[(size_t)(i0 + rr) * h + j0 + cc],
+          put(&out[(size_t)(i0 + rr - r0) * h + j0 + cc],
               tile[rr * kOutPitch + cc], atomic);
       }
-    if (!diag)
+    if (!kRect && !diag)
       for (int cc = warp; cc < kTile && j0 + cc < h; cc += kThreads / 32)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -579,62 +594,6 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
 }
 
 }  // namespace k9
-
-// --------------------------------------------------------------- K14
-// pair_counts_4state_rows — replaces the row-sharded pair counts of
-// genomics_general_tpu/parallel/mesh.py sharded_pair_counts_tp (the JAX
-// gather_window_batch + pairwise_counts with the [W, H, H] output's rows
-// split over the mesh): K9's counts for the rectangle of rows r0 .. r1 - 1
-// and all h columns of every window, into [nwin, r1 - r0, h].
-//
-// Bound: operations, as K9's, over the rectangle.  Design: the CUDA-core
-// staging and count loop (count_tile) on full rectangular 64 x 64 tiles
-// with no mirror: blockIdx.x walks the row tiles of [r0, r1) times the
-// column tiles of [0, h); rows past r1 are counted with the tile but not
-// written, rows and columns past h read as missing.  The site split
-// (pairdist._k9_splits) adds its ranges with int32 atomics.
-__global__ void __launch_bounds__(kThreads)
-pair_counts_4state_rows_kernel(const int8_t* __restrict__ alleles,
-                               long long ld, long long S,
-                               const int32_t* __restrict__ first,
-                               const int32_t* __restrict__ n_sites, int h,
-                               int r0, int r1, int col_tiles, int split_len,
-                               int atomic, int32_t* __restrict__ m_out,
-                               int32_t* __restrict__ s_out) {
-  __shared__ uint32_t raw[kRows][kRawWords];
-  __shared__ uint32_t packed[kRows][kPackWords];
-  const int wl = blockIdx.z;
-  const int i0 = r0 + (blockIdx.x / col_tiles) * kTile;
-  const int j0 = (blockIdx.x % col_tiles) * kTile;
-
-  const int n = n_sites[wl];
-  const int lo = blockIdx.y * split_len;
-  const int hi = min(n, lo + split_len);
-  if (atomic && lo >= hi) return;          // the zeroed output stands
-
-  int acc_s[kMicro][kMicro];
-  int acc_t[kMicro][kMicro];
-  count_tile<false>(alleles, ld, S, nullptr, nullptr, 0, 0, first[wl], lo,
-                    hi, h, i0, j0, raw, packed, acc_s, acc_t);
-
-  const int ty = threadIdx.x / kSide;
-  const int tx = threadIdx.x % kSide;
-  const int rows = r1 - r0;
-  const size_t base = (size_t)wl * rows * h;
-#pragma unroll
-  for (int a = 0; a < kMicro; ++a) {
-    const int i = i0 + ty + kSide * a;
-#pragma unroll
-    for (int b = 0; b < kMicro; ++b) {
-      const int j = j0 + tx + kSide * b;
-      if (i >= r1 || j >= h) continue;
-      const int sv = acc_s[a][b];
-      const size_t o = base + (size_t)(i - r0) * h + j;
-      put(&s_out[o], sv, atomic);
-      put(&m_out[o], sv - acc_t[a][b], atomic);
-    }
-  }
-}
 
 // --------------------------------------------------------------- K20
 // flush_pair_counts — replaces genomics_general_tpu/kernels/pairdist.py
@@ -688,8 +647,8 @@ flush_pair_counts_kernel(const uint8_t* __restrict__ buf, int h, int sp,
 
   int acc_s[kMicro][kMicro];
   int acc_t[kMicro][kMicro];
-  count_tile<true>(nullptr, 0, sp, buf, miss, c4, m8, f, 0, max(n, 0), h, i0,
-                   j0, raw, packed, acc_s, acc_t);
+  count_tile(sp, buf, miss, c4, m8, f, 0, max(n, 0), h, i0, j0, raw, packed,
+             acc_s, acc_t);
 
   const int ty = threadIdx.x / kSide;
   const int tx = threadIdx.x % kSide;
@@ -710,26 +669,21 @@ flush_pair_counts_kernel(const uint8_t* __restrict__ buf, int h, int sp,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// alleles: int8 rows of ld elements, columns 0 .. S - 1 valid; first,
-// n_sites: int32 [nwin]; m_out, s_out: int32 [nwin, h, h], zeroed by the
-// caller when splits > 1 (the splits then add with atomics).
-int ggt_pair_counts_4state(const void* alleles, long long ld, long long S,
-                           const void* first, const void* n_sites, int h,
-                           int nwin, int splits, int split_len, void* m_out,
-                           void* s_out, void* stream) {
-  const int tiles = (h + k9::kTile - 1) / k9::kTile;
-  dim3 grid(tiles * (tiles + 1) / 2, splits, nwin);
+// K9 or K14 (kRect) on grid (tiles, splits, nwin): the kernel variant of
+// the row stride, its shared-memory limit raised once per device and
+// variant (not at every launch, so launches can be captured in a CUDA
+// graph).
+template <bool kRect>
+int launch_4state(const void* alleles, long long ld, long long S,
+                  const void* first, const void* n_sites, int h, int r0,
+                  int r1, int tiles, int grid_tiles, int nwin, int splits,
+                  int split_len, void* m_out, void* s_out, void* stream) {
+  const dim3 grid(grid_tiles, splits, nwin);
   // a row stride that is a multiple of 16 gives every row one alignment
   const bool uniform = ld % 16 == 0;
-  auto kernel = uniform ? k9::pair_counts_4state_kernel<true>
-                        : k9::pair_counts_4state_kernel<false>;
+  auto kernel = uniform ? k9::pair_counts_4state_kernel<true, kRect>
+                        : k9::pair_counts_4state_kernel<false, kRect>;
   const int smem = uniform ? k9::kSmemUniform : k9::kSmemRealign;
-  // the shared-memory limit is raised once per device and variant (not at
-  // every launch, so launches can be captured in a CUDA graph)
   static bool raised[2][64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -743,9 +697,26 @@ int ggt_pair_counts_4state(const void* alleles, long long ld, long long S,
   }
   kernel<<<grid, k9::kThreads, smem, (cudaStream_t)stream>>>(
       (const int8_t*)alleles, ld, S, (const int32_t*)first,
-      (const int32_t*)n_sites, h, tiles, split_len, splits > 1 ? 1 : 0,
-      (int32_t*)m_out, (int32_t*)s_out);
+      (const int32_t*)n_sites, h, r0, r1, tiles, split_len,
+      splits > 1 ? 1 : 0, (int32_t*)m_out, (int32_t*)s_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// alleles: int8 rows of ld elements, columns 0 .. S - 1 valid; first,
+// n_sites: int32 [nwin]; m_out, s_out: int32 [nwin, h, h], zeroed by the
+// caller when splits > 1 (the splits then add with atomics).
+int ggt_pair_counts_4state(const void* alleles, long long ld, long long S,
+                           const void* first, const void* n_sites, int h,
+                           int nwin, int splits, int split_len, void* m_out,
+                           void* s_out, void* stream) {
+  const int tiles = (h + k9::kTile - 1) / k9::kTile;
+  return launch_4state<false>(alleles, ld, S, first, n_sites, h, 0, h, tiles,
+                              tiles * (tiles + 1) / 2, nwin, splits,
+                              split_len, m_out, s_out, stream);
 }
 
 // As ggt_pair_counts_4state for rows r0 .. r1 - 1 (0 <= r0 < r1 <= h) and
@@ -755,15 +726,11 @@ int ggt_pair_counts_4state_rows(const void* alleles, long long ld,
                                 const void* n_sites, int h, int r0, int r1,
                                 int nwin, int splits, int split_len,
                                 void* m_out, void* s_out, void* stream) {
-  const int row_tiles = (r1 - r0 + kTile - 1) / kTile;
-  const int col_tiles = (h + kTile - 1) / kTile;
-  dim3 grid(row_tiles * col_tiles, splits, nwin);
-  pair_counts_4state_rows_kernel<<<grid, kThreads, 0,
-                                   (cudaStream_t)stream>>>(
-      (const int8_t*)alleles, ld, S, (const int32_t*)first,
-      (const int32_t*)n_sites, h, r0, r1, col_tiles, split_len,
-      splits > 1 ? 1 : 0, (int32_t*)m_out, (int32_t*)s_out);
-  return (int)cudaGetLastError();
+  const int row_tiles = (r1 - r0 + k9::kTile - 1) / k9::kTile;
+  const int col_tiles = (h + k9::kTile - 1) / k9::kTile;
+  return launch_4state<true>(alleles, ld, S, first, n_sites, h, r0, r1,
+                             col_tiles, row_tiles * col_tiles, nwin, splits,
+                             split_len, m_out, s_out, stream);
 }
 
 // buf: a flush buffer of h rows, sp sites and wp windows; windows w0 ..

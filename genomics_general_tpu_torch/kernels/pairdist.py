@@ -285,14 +285,21 @@ _MAX_CONSTS = 8
 def _run_const(kind: str, arr: np.ndarray, device: torch.device, build):
     """``build(arr)`` once per distinct (kind, bytes, device): the CLI hands
     every flush the same mask, and a pageable upload per flush would block
-    dispatch until the previous flush's work had drained."""
-    key = (kind, arr.dtype.str, arr.shape, arr.tobytes())
-    cache = _CONSTS.setdefault(str(device), {})
-    if key not in cache:
-        if len(cache) >= _MAX_CONSTS:
-            cache.clear()
-        cache[key] = build(arr)
-    return cache[key]
+    dispatch until the previous flush's work had drained.  The bytes are
+    compared, not hashed: each call's bytes object is new, so a key of
+    them would hash a whole mask (16 KB at [4, 512]) every call, where a
+    comparison with the few cached entries is a memcmp."""
+    key = (kind, arr.dtype.str, arr.shape)
+    data = arr.tobytes()
+    cache = _CONSTS.setdefault(str(device), [])
+    for k, d, value in cache:
+        if k == key and d == data:
+            return value
+    if len(cache) >= _MAX_CONSTS:
+        cache.clear()
+    value = build(arr)
+    cache.append((key, data, value))
+    return value
 
 
 def _pop_groups(pop_mask: np.ndarray, device: torch.device) -> PopGroups:
@@ -442,13 +449,9 @@ def het_pairs_plain(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
 
 # ------------------------------------------- K9 general 4-state counts
 
-# K14's geometry (pair4.cu count_tile, the CUDA-core loop): 64 x 64
-# haplotype pairs per block, 128 sites staged per step
-_K9_TILE = 64
-_K9_STAGE = 128
-# K9's geometry (pair4.cu namespace k9, the tensor-core loop): 128 x 128
-# pairs per block, 128 sites staged per step, split ranges of at least 16
-# steps
+# K9's and K14's geometry (pair4.cu namespace k9, the tensor-core loop):
+# 128 x 128 pairs per block, 128 sites staged per step, split ranges of at
+# least 16 steps
 _K9_MMA_TILE = 128
 _K9_MMA_STAGE = 128
 _K9_MIN_SPLIT = 16 * _K9_MMA_STAGE
@@ -466,37 +469,19 @@ def _sm_count(dev: torch.device) -> int:
     return _SM_COUNT[key]
 
 
-def _k9_splits(h: int, nwin: int, s_max: int, dev,
-               tiles: int | None = None) -> tuple[int, int]:
-    """(splits, split_len) of K14's site axis (the CUDA-core count loop):
-    when the chunk's pair tiles (``tiles`` a window; default the upper
-    triangle of h rows in 64 x 64 tiles) give fewer than two blocks per SM,
-    each window's sites are cut into up to that many ranges of at least 16
-    staging steps (the ranges add their counts with exact int32
-    atomics)."""
+def _k9_grid(h: int, nwin: int, s_max: int, dev,
+             tiles: int | None = None) -> tuple[int, int, int]:
+    """(tiles, splits, split_len) of K9's or K14's launch, grid (tiles,
+    splits, nwin): ``tiles`` tiles of 128 x 128 pairs a window (default
+    K9's upper triangle of h rows; K14 passes its rectangle's).  A block
+    holds a whole SM (its registers), so when the windows' tiles give
+    fewer blocks than the card has SMs, each window's sites are cut into
+    as many ranges as keep the blocks within two full waves, each of whole
+    staging steps and at least 16 of them; the ranges add their counts
+    with exact int32 atomics."""
     if tiles is None:
-        t = -(-h // _K9_TILE)
+        t = -(-h // _K9_MMA_TILE)
         tiles = t * (t + 1) // 2
-    blocks = tiles * max(nwin, 1)
-    target = 2 * _sm_count(dev)
-    splits = min(-(-target // blocks), -(-s_max // (16 * _K9_STAGE)))
-    if splits <= 1:
-        return 1, _NO_SPLIT
-    split_len = -(-s_max // splits)
-    split_len = -(-split_len // _K9_STAGE) * _K9_STAGE
-    return -(-s_max // split_len), split_len
-
-
-def _k9_grid(h: int, nwin: int, s_max: int, dev) -> tuple[int, int, int]:
-    """(tiles, splits, split_len) of K9's launch, grid (tiles, splits,
-    nwin): ``tiles`` upper-triangle tiles of 128 x 128 pairs a window.  A
-    block holds a whole SM (its registers), so when the windows' tiles
-    give fewer blocks than the card has SMs, each window's sites are cut
-    into as many ranges as keep the blocks within two full waves, each of
-    whole staging steps and at least 16 of them; the ranges add their
-    counts with exact int32 atomics."""
-    t = -(-h // _K9_MMA_TILE)
-    tiles = t * (t + 1) // 2
     blocks = tiles * max(nwin, 1)
     sms = _sm_count(dev)
     if blocks >= sms:
@@ -608,9 +593,9 @@ def pair_counts_4state_rows(alleles: torch.Tensor, first: torch.Tensor,
     nwin = first.shape[0]
     if nwin > 65535:
         raise ValueError(f"{nwin} windows in one launch (at most 65535)")
-    tiles = -(-(r1 - r0) // _K9_TILE) * -(-h // _K9_TILE)
-    splits, split_len = _k9_splits(h, nwin, S if s_max is None else s_max,
-                                   alleles.device, tiles)
+    tiles = -(-(r1 - r0) // _K9_MMA_TILE) * -(-h // _K9_MMA_TILE)
+    _, splits, split_len = _k9_grid(h, nwin, S if s_max is None else s_max,
+                                    alleles.device, tiles)
     alloc = torch.zeros if splits > 1 else torch.empty
     m = alloc((nwin, r1 - r0, h), dtype=torch.int32, device=alleles.device)
     s = alloc((nwin, r1 - r0, h), dtype=torch.int32, device=alleles.device)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's K9, K12, K14 and K20 kernels of two checkouts on one
+"""Time the port's K9, K12, K14, K18 and K20 kernels of two checkouts on one
 NVIDIA GPU, in one process, on the same inputs:
 
     python3 kernel_ab.py --base DIR [--only TEXT] [--out FILE]
@@ -19,6 +19,9 @@ its output allocation), on inputs made here from a seed at the shapes of
   through the bucket-padded upload's stride), with the 256 individuals in
   9 populations as 9 classes and with all 512 rows as one class;
 * K14 ``pair_counts_4state_rows``: rows 0..255 of run A's flush;
+* K18 ``site_nonmissing``: run A's largest span (32,647 sites, a
+  contiguous matrix, so an odd row stride) on its 4 populations of 128
+  rows, and on one population of all 512;
 * K20 ``flush_pair_counts``: run A's flush as a one-transfer buffer.
 
 ``--only`` times just the cases whose name holds TEXT (for example
@@ -52,6 +55,7 @@ H = 512
 S_E = 1 << 18
 W_A, N_A = 32, 625
 S_H = 16_176
+S_R = 32_647                      # run A's largest count span (K18)
 H_POPS = (56,) * 8 + (64,)        # run H: 8 x 28 + 32 individuals, diploid
 
 
@@ -122,12 +126,15 @@ def main() -> int:
     a_h = transfer.upload_span(codes(rng, H, S_H), dev)[:, :S_H]
     pop_mask = np.repeat(np.eye(len(H_POPS)), H_POPS, axis=1)
     one_class = np.ones((1, H))
+    a_r = torch.from_numpy(codes(rng, H, S_R)).to(dev)
+    pops_r = np.repeat(np.eye(4), H // 4, axis=1)
     wp = W_A
     fbuf_np, sp = transfer.pack_flush_buffer(a_a_np, f_a, n_a, wp)
     fbuf = torch.from_numpy(fbuf_np).to(dev)
     log(f"[inputs] E: [{H}, {S_E}], one window; A: [{H}, {s_a}] (row "
         f"stride {a_a.stride(0)}), {W_A} windows, longest {smax_a}; H: "
-        f"[{H}, {S_H}] (row stride {a_h.stride(0)}), {len(H_POPS)} classes")
+        f"[{H}, {S_H}] (row stride {a_h.stride(0)}), {len(H_POPS)} classes; "
+        f"R: [{H}, {S_R}], 4 populations")
 
     def k12(mask):
         def make(port):
@@ -148,6 +155,11 @@ def main() -> int:
         "K14 run A flush rows 0..255": (
             lambda p: lambda: p["pairdist"].pair_counts_4state_rows(
                 a_a, f_a_t, n_a_t, 0, H // 2, smax_a), 20),
+        "K18 run A span": (lambda p: lambda: p["counts"].site_nonmissing(
+            a_r, pops_r), 50),
+        "K18 run A span, one population": (
+            lambda p: lambda: p["counts"].site_nonmissing(a_r, one_class),
+            50),
         "K20 run A flush": (
             lambda p: lambda: p["pairdist"]._fused_flush_pair_counts(
                 fbuf, sp, H, wp, smax_a, wp), 20),

@@ -130,9 +130,9 @@ def test_card_scripts_need_cards_and_no_jax(script):
 
 
 def test_timing_script_needs_a_card_and_no_jax():
-    """kernel_ab.py (two checkouts' K9, K12, K14 and K20 timed on one card)
-    imports nothing of JAX and, without a CUDA card, exits non-zero having
-    printed no result."""
+    """kernel_ab.py (two checkouts' K9, K12, K14, K18 and K20 timed on one
+    card) imports nothing of JAX and, without a CUDA card, exits non-zero
+    having printed no result."""
     r = subprocess.run([sys.executable, "-c", _PROBE, "kernel_ab"],
                        capture_output=True, text=True, env=_env(), cwd=REPO,
                        timeout=300)

@@ -109,24 +109,27 @@ def test_strided_rows_and_no_launch_on_cpu():
 
 
 @pytest.mark.parametrize("h, nwin, s_max, splits", [
-    (512, 1, 262144, 8), (512, 1, 237856, 8), (512, 32, 700, 1),
-    (40, 1, 7092, 4), (77, 1, 100, 1), (160, 128, 5003, 1)])
+    (512, 1, 262144, 33), (512, 1, 237856, 33), (512, 32, 700, 1),
+    (40, 1, 7092, 3), (77, 1, 100, 1), (160, 128, 5003, 1)])
 def test_k9_site_splits_cover_each_window(h, nwin, s_max, splits):
-    """The split of K9's site axis (two blocks per SM on a 132-SM card):
-    whole 128-site steps, ranges covering [0, s_max) with none empty."""
+    """The split of K14's site axis (the first of two row shards, its
+    rectangle of 128 x 128 tiles given to _k9_grid; a 132-SM card): whole
+    128-site steps, ranges covering [0, s_max) with none empty."""
+    r1 = -(-h // 2)
+    tiles = -(-r1 // port_pair._K9_MMA_TILE) * -(-h // port_pair._K9_MMA_TILE)
     old = dict(port_pair._SM_COUNT)
     port_pair._SM_COUNT[0] = 132
     try:
-        got, length = port_pair._k9_splits(h, nwin, s_max,
-                                           torch.device("cuda", 0))
+        got_tiles, got, length = port_pair._k9_grid(
+            h, nwin, s_max, torch.device("cuda", 0), tiles=tiles)
     finally:
         port_pair._SM_COUNT.clear()
         port_pair._SM_COUNT.update(old)
-    assert got == splits
+    assert got_tiles == tiles and got == splits
     if got == 1:
         assert length >= s_max
     else:
-        assert length % port_pair._K9_STAGE == 0
+        assert length % port_pair._K9_MMA_STAGE == 0
         assert (got - 1) * length < s_max <= got * length
 
 
