@@ -18,7 +18,10 @@ not build, launch or agree, or an output is wrong):
    K4 tri_pack on its uint16 and (one window of 66,000 sites) int32
    branches; K5 het_pairs and K3 on a population mask and on an individual
    mask with haploid (r1 == r2) individuals; K6 site_pop_counts with 1 and
-   5 groups, against the C site counter too; on ABBA inputs (an uncalled
+   5 groups, against the C site counter too, and at the edges of its
+   row-slot loop (blocks from s0 = 0 and nonzero multiples of 8 ending
+   mid-word, 8 and 16 lanes, a 33-row group, 8,300 rows in one group, a
+   10-row overlapping mask's classes; uint16 and int32); on ABBA inputs (an uncalled
    outgroup block, 50/50 tie sites, fixed sites) in every mode, panel and
    minData 0.3 / 0, on disjoint and overlapping populations: K6 on the
    membership-class partition against the C site counter, K7
@@ -55,7 +58,8 @@ not build, launch or agree, or an output is wrong):
    int32) against torch.sum / torch.amin; window_stats_step over 66,000
    windows (past the 65,535 a K9 or K11 launch takes) equal to its chunks
    run one at a time; K17 pair_allele_tables (H = 160 and 77, S = 0, 1,
-   33, 517, codes -7..5, strided rows), K18 site_nonmissing (1 and 5
+   33, 517, codes -7..5, strided rows; at its tile edges, H = 1, 77, 160,
+   512 with S = 1, 31, 33, 597, 2,048, and S = 597 on strided rows), K18 site_nonmissing (1 and 5
    populations, a 10-row overlapping mask; at an odd row stride, spans
    ending inside a block at 16 and 8 lanes, one population of 600 rows,
    an all-zero mask row, rows in no population, 70 mask rows) and K19
@@ -112,8 +116,8 @@ not build, launch or agree, or an output is wrong):
    run F's cohort, one tree ending in ';' a window;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events over
-   calls as they come (K9's, K12's, K14's and K18's, and their
-   yardsticks', also over
+   calls as they come (K6's, K9's, K12's, K14's, K17's and K18's, and
+   their yardsticks', also over
    calls replayed from a CUDA graph, logged beside: the device's time
    without the wrappers' host overhead),
    beside the bound computed from these inputs (K9 at run E's block and
@@ -124,7 +128,8 @@ not build, launch or agree, or an output is wrong):
    K14 at run A's largest flush on two row shards; K15 and K16 over the
    500,000-site cohort's first three populations made complete, 129^3
    bins, against the mesh's sharded_global_sfs on two shards; K17 at run
-   P's first window and at 2,048 sites beside the bf16 one-hot Gram, K18,
+   P's first window and at 2,048 sites beside the bf16 one-hot Gram and
+   torch._int_mm of the int8 one-hot, K18,
    K19 and K20 at run R's inputs, K20 beside K9 + K4);
 4. the popDist goldens and the full-panel popgen_coord.csv golden of
    tests/golden through the port's CLI on the card, the fused
@@ -241,6 +246,13 @@ K9_EDGE_H, K9_EDGE_S = (1, 17, 77, 160, 512, 1000), 5_003
 # K14's row blocks at those edges: blocks that cut K9's 128-row tiles
 K14_EDGE_BLOCKS = {512: [(100, 300), (127, 129), (0, 256), (256, 512)],
                    1000: [(100, 300), (999, 1000)]}
+# K17's edges: its 128 x 128 Gram tiles are 32 x 32 sites, its K steps 32
+# haplotypes; K6's: site blocks from s0 (a multiple of 8) ending mid-word,
+# a group past 255 rows a slot, a mask's classes, 16 lanes a row
+K17_EDGE_H, K17_EDGE_S = (1, 77, 160, 512), (1, 31, 33, 597, 2048)
+K6_EDGE = ((77, 1003, 0, 1003), (77, 1003, 8, 1003), (33, 517, 24, 517),
+           (129, 131, 0, 129), (5, 9, 8, 9), (600, 37, 16, 35),
+           (8300, 13, 8, 13), (77, 70003, 8, 70001))
 # window_stats_step past K9's and K11's 65,535-window grid axis
 STEP_WINDOWS, STEP_H, STEP_SITES = 66_000, 8, 70_000
 # run P: ld_matrix over the popDist cohort's first 32 windows of 50 kb,
@@ -1027,7 +1039,10 @@ def time_het(pair, transfer, flush, dev):
 
 
 def time_counts(counts, transfer, flush, dev):
-    """K6 over the first launch block of run A's largest count span."""
+    """K6 over the first launch block of run A's largest count span, per
+    call and in a CUDA graph, beside a bf16 ``torch.matmul`` of the mask
+    with a one-hot and K12 on the same alleles in a CUDA graph (the
+    row-slot loop on int8 rows)."""
     import torch
     a, mask = flush
     H, S = a.shape
@@ -1046,15 +1061,27 @@ def time_counts(counts, transfer, flush, dev):
     onehot = (al[:, :, None] == torch.arange(4, device=dev, dtype=torch.int8)
               ).to(torch.bfloat16).reshape(H, s1 * 4)
     mask_bf = groups.mask.to(dev, torch.bfloat16)
-    res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: counts.site_pop_counts(
-               dbuf, Sp, H, 0, s1, groups, out), 20),
+    k12_out = torch.empty_like(out)
+    k6 = lambda: counts.site_pop_counts(  # noqa: E731
+        dbuf, Sp, H, 0, s1, groups, out)
+    k12 = lambda: counts.site_pop_counts_raw(  # noqa: E731
+        al, 0, s1, groups, k12_out)
+    lib = lambda: torch.matmul(mask_bf, onehot)  # noqa: E731
+    k12()
+    check_equal("site_pop_counts_raw vs site_pop_counts (run A span)",
+                k12_out, out)
+    res = {"max_abs_err": err, "ms": cuda_ms(k6, 20),
+           "graph_ms": graph_ms(k6, 20),
            "plain_ms": cuda_ms(lambda: counts.site_pop_counts_plain(
                dbuf, Sp, H, 0, s1, groups.mask), 3, 1),
-           "library_ms": cuda_ms(lambda: torch.matmul(mask_bf, onehot), 20)}
+           "library_ms": cuda_ms(lib, 20),
+           "library_graph_ms": graph_ms(lib, 20),
+           "k12_graph_ms": graph_ms(k12, 20)}
     out_bytes = 2 if dt == torch.uint16 else 4
     res["bound"] = bound(H * s1 * 3 / 8 + 4 * out_bytes * s1 * P)
     res["shape"] = f"{s1} sites, H={H}, P={P}"
+    del onehot
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2139,6 +2166,94 @@ def k17_k20_parity(ldk, counts, pair, transfer, dev) -> None:
     torch.cuda.synchronize()
 
 
+def edge_codes(H: int, S: int, seed: int) -> np.ndarray:
+    """Codes 0..3 with 10 % missing and codes -7, 5 and 127 on 3 % of cells
+    each (-7 missing, 5 and 127 called but matching nothing)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 4, size=(H, S)).astype(np.int8)
+    hit = rng.random((H, S))
+    a[hit < 0.1] = -1
+    for k, code in enumerate((-7, 5, 127)):
+        a[(hit >= 0.1 + 0.03 * k) & (hit < 0.13 + 0.03 * k)] = code
+    return a
+
+
+def k17_edge_parity(ldk, dev) -> int:
+    """K17 at the edges of its 32-site tiles and 32-haplotype steps: every
+    H of K17_EDGE_H with every S of K17_EDGE_S on contiguous rows, and S =
+    597 on rows read through an odd stride, against the plain version
+    exactly (codes from :func:`edge_codes`).  Returns the number of
+    comparisons."""
+    import torch
+    checks = 0
+    for H in K17_EDGE_H:
+        wide = torch.from_numpy(edge_codes(H, max(K17_EDGE_S) + 5,
+                                           170 + H)).to(dev)
+        for S in K17_EDGE_S:
+            a = wide[:, :S].contiguous()
+            check_equal(f"pair_allele_tables H={H} S={S} vs plain",
+                        ldk.pair_allele_tables(a),
+                        ldk.pair_allele_tables_plain(a))
+            checks += 1
+        a = wide[:, 3:600]
+        check_equal(f"pair_allele_tables H={H} S=597 strided vs plain",
+                    ldk.pair_allele_tables(a),
+                    ldk.pair_allele_tables_plain(a))
+        checks += 1
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return checks
+
+
+def k6_edge_parity(counts, transfer, pair, dev) -> int:
+    """K6 at the edges of its row-slot loop on span wires, uint16 and int32
+    out, against its plain version exactly: each (H, S, s0, s1) of K6_EDGE
+    (s0 = 0 and nonzero multiples of 8, s1 not a multiple of 4, and one
+    block of 70,000 sites, which takes 16 lanes a row) on a partition of
+    four groups with a 33-row group, or at H = 8,300 on one group, whose
+    byte lanes widen past 255 rows a slot; and a 10-row overlapping mask
+    with rows in no mask as its classes at H = 77; codes from
+    :func:`edge_codes` cut to the wire's -1..3.  Returns the number of
+    comparisons."""
+    import torch
+    checks = 0
+    widths = set()
+    for H, S, s0, s1 in K6_EDGE:
+        a = edge_codes(H, S, 60 + H + S)
+        a = np.where((a < 0) | (a > 3), -1, a).astype(np.int8)
+        buf, sp = transfer.pack_span(a)
+        dbuf = torch.from_numpy(buf).to(dev)
+        rng = np.random.default_rng(H + S)
+        cls = rng.integers(0, 4, H)
+        cls[:min(33, H)] = 0
+        part = np.zeros((4, H))
+        part[cls, np.arange(H)] = 1.0
+        masks = {"4 groups": pair.PopGroups(part, dev)}
+        if H > 255 * 32:
+            masks = {"one group": pair.PopGroups(np.ones((1, H)), dev)}
+        if H == 77:
+            over = (rng.random((10, H)) < 0.3).astype(np.float64)
+            over[9] = 1.0
+            over[:, :5] = 0.0
+            masks["10-row mask's classes"] = counts.MaskClasses(
+                over, dev).groups
+        for name, groups in masks.items():
+            widths.add(counts._k12_lanes(s1 - s0, groups.P, dev))
+            want = counts.site_pop_counts_plain(dbuf, sp, H, s0, s1,
+                                                groups.mask)
+            for dt in (torch.uint16, torch.int32):
+                out = torch.empty((s1 - s0, groups.P, 4), dtype=dt,
+                                  device=dev)
+                counts.site_pop_counts(dbuf, sp, H, s0, s1, groups, out)
+                check_equal(f"site_pop_counts H={H} {s0}..{s1} {name} "
+                            f"{dt} vs plain", out, want)
+                checks += 1
+    if widths != {8, 16}:
+        raise AssertionError(f"K6's edge checks ran at lanes {widths}")
+    torch.cuda.synchronize()
+    return checks
+
+
 def cohort_windows(geno, pops, n_windows: int, size: int = 50_000):
     """The cohort's first ``n_windows`` coordinate windows of ``size`` bp
     on its first scaffold, as int8 [H, S] arrays (the port's reader)."""
@@ -2311,10 +2426,14 @@ def run_q(clis, geno_f, work):
 
 def time_k17(ldk, wins, dev):
     """K17 at run P's first window (~625 sites) and at its first 2,048
-    sites, beside its plain version and the bf16 one-hot torch.matmul Gram
-    (bf16 output rounds counts above 256, so it is timed, not compared).
-    Bound: the alleles read and the tables written once, and the one-hot
-    Gram's 2 (4 S)^2 H operations at the dense int8 tensor rate."""
+    sites, per call and in a CUDA graph, beside its plain version, the
+    bf16 one-hot torch.matmul Gram (bf16 output rounds counts above 256, so
+    it is timed, not compared) and torch._int_mm of the int8 one-hot (an
+    exact int32 [4S, 4S] Gram, the same output bytes; its operands' sides
+    padded with zeros to multiples of 8 as it requires, the second one
+    column-major).  Bound: the alleles read and the tables written once,
+    and the one-hot Gram's 2 (4 S)^2 H operations at the dense int8 tensor
+    rate."""
     import torch
     out = {}
     span = np.concatenate(wins, axis=1)
@@ -2328,24 +2447,35 @@ def time_k17(ldk, wins, dev):
         del got
         flat = (a[:, :, None] == torch.arange(4, device=dev, dtype=torch.int8)
                 ).to(torch.bfloat16).reshape(H, 4 * S)
-        r = {"max_abs_err": err,
-             "ms": cuda_ms(lambda: ldk.pair_allele_tables(a), 10),
+        oh8 = torch.zeros((-(-4 * S // 8) * 8, -(-H // 8) * 8),
+                          dtype=torch.int8, device=dev)
+        oh8[:4 * S, :H] = flat.T.to(torch.int8)
+        k17 = lambda: ldk.pair_allele_tables(a)  # noqa: E731
+        gram = lambda: torch.matmul(flat.T, flat)  # noqa: E731
+        int_mm = lambda: torch._int_mm(oh8, oh8.T)  # noqa: E731
+        r = {"max_abs_err": err, "ms": cuda_ms(k17, 10),
+             "graph_ms": graph_ms(k17, 10),
              "plain_ms": cuda_ms(lambda: ldk.pair_allele_tables_plain(a),
                                  3, 1),
-             "library_ms": cuda_ms(lambda: torch.matmul(flat.T, flat), 10),
+             "library_ms": cuda_ms(gram, 10),
+             "library_graph_ms": graph_ms(gram, 10),
+             "int_mm_ms": cuda_ms(int_mm, 10),
+             "int_mm_graph_ms": graph_ms(int_mm, 10),
              "bound": bound(H * S + 64 * S * S, 2 * 16 * S * S * H,
                             INT8_OPS_PER_S),
              "shape": f"{S} sites, H={H}"}
         out[S] = r
         log(f"[kernel] pair_allele_tables at {r['shape']}: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})")
-        del flat
+            f"{r['ms']:.4f} ms ({r['graph_ms']:.4f} in a CUDA graph), plain "
+            f"{r['plain_ms']:.4f} ms, bf16 Gram {r['library_ms']:.4f} ms "
+            f"({r['library_graph_ms']:.4f} in a CUDA graph), int8 _int_mm "
+            f"{r['int_mm_ms']:.4f} ms ({r['int_mm_graph_ms']:.4f} in a CUDA "
+            f"graph), bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        del flat, oh8
         torch.cuda.empty_cache()
     res = dict(out[first])
-    res["at_2048"] = {k: out[2048][k] for k in ("ms", "plain_ms",
-                                                 "library_ms", "bound")}
+    res["at_2048"] = {k: v for k, v in out[2048].items()
+                      if k not in ("max_abs_err", "shape")}
     return res
 
 
@@ -3444,6 +3574,13 @@ def main() -> int:
         f"{STEP_H}): K9 alone refuses them; the step launches {step} and "
         "equals its chunks run one at a time")
     k17_k20_parity(ldk, counts, pair, transfer, dev)
+    n_k17 = k17_edge_parity(ldk, dev)
+    n_k6 = k6_edge_parity(counts, transfer, pair, dev)
+    log(f"[parity] K17 tile edges ({n_k17} comparisons: H={K17_EDGE_H}, "
+        f"S={K17_EDGE_S}, codes -7, 5, 127, contiguous and strided rows) "
+        f"== plain; K6 loop edges ({n_k6} comparisons: (H, S, s0, s1) in "
+        f"{K6_EDGE}, 4 groups and a 10-row mask's classes, uint16 and "
+        "int32, 8 and 16 lanes) == plain")
     log("[parity] K17 (H=160, 77; S=0, 1, 33, 517; codes -7..5; strided "
         "rows), K18 (1 and 5 pops, a 10-row overlapping mask; spans ending "
         "mid-block at 16 and 8 lanes, one 600-row population, an all-zero "
@@ -3525,6 +3662,12 @@ def main() -> int:
         res["site_pop_counts"] = time_counts(
             counts, transfer, runs["run_A"][1]["site_pop_counts_dispatch"],
             dev)
+        r = res["site_pop_counts"]
+        log(f"[kernel] site_pop_counts at run A's span: K6 {r['ms']:.4f} ms "
+            f"({r['graph_ms']:.4f} ms in a CUDA graph), bf16 matmul "
+            f"{r['library_ms']:.4f} ms ({r['library_graph_ms']:.4f} in a "
+            f"CUDA graph), K12 on the same alleles {r['k12_graph_ms']:.4f} "
+            "ms in a CUDA graph; K12 == K6")
         res["het_pairs"] = time_het(
             pair, transfer,
             runs["run_B"][1]["window_pair_ind_blocks_dispatch"], dev)

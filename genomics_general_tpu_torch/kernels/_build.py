@@ -36,7 +36,8 @@ _SIGNATURES = {
         "ggt_het_pairs": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     },
     "counts": {
-        "ggt_site_pop_counts": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+        "ggt_site_pop_counts": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P,
+                                _P],
         "ggt_site_pop_counts_raw": [_P, _L, _I, _I, _P, _P, _I, _I, _I, _P,
                                     _P],
         "ggt_global_sfs_hist": [_P, _I, _I, _I, _P, _L, _P, _P],
@@ -92,11 +93,12 @@ def _command(src: Path, extra: list[str]):
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/{name}.cu`` (cached) and return the library path;
-    ``nvcc``'s register and spill report is beside it with ``.log``."""
+    """Compile ``csrc/{name}.cu`` (cached, keyed on it and the shared
+    ``csrc/*.cuh`` headers) and return the library path; ``nvcc``'s
+    register and spill report is beside it with ``.log``."""
     src = _CSRC / f"{name}.cu"
     try:
-        return cached_build(name, [src],
+        return cached_build(name, [src, *sorted(_CSRC.glob("*.cuh"))],
                             _command(src, _EXTRA_FLAGS.get(name, [])))
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"nvcc failed on {src}:\n{e.stdout}{e.stderr}") \

@@ -96,8 +96,8 @@ def site_pop_counts(buf: torch.Tensor, sp: int, h: int, s0: int, s1: int,
         return
     code = _build.lib("counts").ggt_site_pop_counts(
         buf.data_ptr(), h, sp, s0, s1, groups.perm.data_ptr(),
-        groups.offs.data_ptr(), P, int(out.dtype == torch.uint16),
-        out.data_ptr(), _stream_ptr(buf))
+        groups.offs.data_ptr(), P, _k12_lanes(s1 - s0, P, buf.device),
+        int(out.dtype == torch.uint16), out.data_ptr(), _stream_ptr(buf))
     _build.check(code, "site_pop_counts")
     LAUNCHES["site_pop_counts"] += 1
 
@@ -135,10 +135,10 @@ def count_span(buf: torch.Tensor, sp: int, h: int, S: int,
 # ---------------------------------------------------- K12 raw counts
 
 def _k12_lanes(n: int, P: int, dev) -> int:
-    """Lanes a row of K12's blocks (4 sites a lane, 256 threads, one group
-    a block, so a block covers 4 * lanes sites of one of the P groups): 16
-    while the blocks over ``n`` sites give four a SM (up to 8 are
-    resident), else 8."""
+    """Lanes a row of the row-slot loop's blocks (K6, K12, K18: 4 sites a
+    lane, 256 threads, one group a block, so a block covers 4 * lanes
+    sites of one of the P groups): 16 while the blocks over ``n`` sites
+    give four a SM (up to 8 are resident), else 8."""
     blocks = -(-n // 64) * min(P, 65535)
     return 16 if blocks >= 4 * _sm_count(dev) else 8
 

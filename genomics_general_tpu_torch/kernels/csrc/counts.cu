@@ -23,89 +23,40 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// ---------------------------------------------------------------- K6
-// site_pop_counts — replaces genomics_general_tpu/kernels/counts.py
-// site_pop_counts / _site_pop_counts_u16 and the _unpack of
-// kernels/transfer.py unpack_span:
+// ------------------------------------------------------------- K6, K12
+// site_pop_counts (K6) — replaces genomics_general_tpu/kernels/counts.py
+// site_pop_counts / _site_pop_counts_u16 with the _unpack of
+// kernels/transfer.py unpack_span, on the span wire; site_pop_counts_raw
+// (K12) — the same JAX functions on an int8 [H, S] allele matrix:
 //   out[s - s0, p, a] = #rows r of group p with a called code a at site s
-// for s in [s0, s1).  Rows are grouped (perm[offs[p] .. offs[p+1]) are the
-// rows of p); the wrapper checks that every row is in exactly one group,
-// which is the JAX one-hot matmul for such a 0/1 mask.
-//
-// Bound: bytes — 3/8 byte per (row, site) read against a few integer
-// operations.  Design: one thread per code byte (4 sites) walks the rows
-// group by group; a warp's 32 threads read 32 consecutive code bytes and 16
-// miss bytes of one row per step, and keep 16 counters (4 sites x 4
-// alleles) in registers.  s0 is a multiple of 8, so the block starts on a
-// whole byte of both planes.  Counts are exact integers; the wrapper picks
-// uint16 only when h < 2^16.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-site_pop_counts_kernel(const uint8_t* __restrict__ codes,
-                       const uint8_t* __restrict__ miss, int c4, int m8,
-                       int s0, int s1, const int32_t* __restrict__ perm,
-                       const int32_t* __restrict__ offs, int P,
-                       T* __restrict__ out) {
-  const int b = s0 / 4 + blockIdx.x * kThreads + threadIdx.x;
-  const int site0 = 4 * b;
-  if (site0 >= s1) return;
-  const int shift = (b & 1) * 4;
-  for (int p = 0; p < P; ++p) {
-    int cnt[4][4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int a = 0; a < 4; ++a) cnt[k][a] = 0;
-    const int r_end = offs[p + 1];
-    for (int r = offs[p]; r < r_end; ++r) {
-      const size_t row = (size_t)perm[r];
-      const unsigned c = codes[row * c4 + b];
-      const unsigned mb = (miss[row * m8 + (b >> 1)] >> shift) & 0xFu;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const unsigned a = (c >> (2 * k)) & 3u;
-        const int called = !((mb >> k) & 1u);
-#pragma unroll
-        for (int x = 0; x < 4; ++x) cnt[k][x] += called & (a == (unsigned)x);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int site = site0 + k;
-      if (site < s1) {
-        T* o = out + ((size_t)(site - s0) * P + p) * 4;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) o[a] = (T)cnt[k][a];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- K12
-// site_pop_counts_raw — replaces genomics_general_tpu/kernels/counts.py
-// site_pop_counts / _site_pop_counts_u16 on an int8 [H, S] allele matrix:
-//   out[s - s0, p, a] = #rows r of group p with alleles[r, s] == a
 // for s in [s0, s1) and a in 0..3, the JAX one-hot matmul for a partition
-// (perm / offs as in K6).  A code below 0 is missing and a code above 3
+// (perm[offs[p] .. offs[p+1]) are the rows of p; the wrapper checks that
+// every row is in exactly one group).  On the span wire a set miss bit is
+// missing; in an int8 matrix a code below 0 is missing and a code above 3
 // counts nowhere, as in the JAX one-hot.
 //
-// Bound: bytes — one byte per (row, site) read against a few integer
-// operations, so the card must be filled with short chains of loads.
-// Design: the row-slot loop count_groups (below, shared with K18) on the
-// 4 one-hot planes:
+// Bound: bytes — 3/8 byte (K6) or one byte (K12) per (row, site) read
+// against a few integer operations, so the card must be filled with short
+// chains of loads.  Design: the row-slot loop count_groups (below, shared
+// with K18) on the 4 one-hot planes, the rows read through a policy
+// (ByteRows for int8 rows, SpanRows for the span wire) that gives a lane
+// the codes of 4 sites of a row as one word of 4 int8 codes:
 // - a block owns 4 * lanes sites of one group (blockIdx.y) and its 256
 //   threads form 256 / lanes row slots: the group's rows are dealt over
 //   the slots, so every warp reads its share.  lanes is 16 a row while the
 //   span's blocks still give four a SM, else 8, so that a few groups fill
 //   the card too (on the H100, 32 lanes ran no faster than 16 with many
 //   groups, and 8 lanes were faster only with few);
-// - a lane reads 4 sites of a row as one 32-bit word (two aligned words
-//   and a funnel shift where the row's address is not 4-byte aligned:
-//   rows are read through their stride, which may be odd), a warp's lanes
-//   along the row, and counts them in packed byte lanes: the 4 one-hot
-//   planes of the word (K9's decode) are added as 4 bytes at once, widened
-//   into 32-bit counters after at most 255 rows; a slot loads 4 rows at
-//   once;
+// - K12's lane reads 4 sites of a row as one 32-bit word (two aligned
+//   words and a funnel shift where the row's address is not 4-byte
+//   aligned: rows are read through their stride, which may be odd); K6's
+//   lane reads one code byte and the miss nibble beside it (s0 is a
+//   multiple of 8, so a lane's 4 sites start on a code byte and a miss
+//   nibble) and spreads them into the same word;
+// - a warp's lanes lie along the row, and count the word in packed byte
+//   lanes: its 4 one-hot planes (K9's decode) are added as 4 bytes at
+//   once, widened into 32-bit counters after at most 255 rows; a slot
+//   loads 4 rows at once;
 // - the slots' counters meet through warp shuffles, then in shared
 //   memory, and the block writes its group's [sites, 4] once: no global
 //   atomics, so the order is fixed and the counts exact.  The wrapper
@@ -126,6 +77,41 @@ __device__ __forceinline__ uint32_t load_codes4(const int8_t* row, int c,
   if (nv < 4) v |= ~0u << (8 * nv);
   return v;
 }
+
+// int8 rows of `stride` bytes, sites contiguous (K12, K18).
+struct ByteRows {
+  const int8_t* alleles;
+  long long stride;
+  int s1;
+  __device__ __forceinline__ uint32_t operator()(int row, int c) const {
+    return load_codes4(alleles + row * stride, c, s1);
+  }
+};
+
+// The span wire's rows (K6): codes, c4 bytes a row, site 4 b + k in bits
+// 2 k .. 2 k + 1 of byte b; miss, m8 bytes a row, site 8 b + k in bit k of
+// byte b.  A lane's sites c .. c + 3 (c a multiple of 4) are code byte
+// c / 4 and the miss nibble at bit c & 4 of byte c / 8: the code byte's
+// pairs go to bits 0..1 of bytes 0..3, the nibble's bits to bit 0 of
+// bytes 0..3 (its four shifted copies occupy disjoint bits, so nothing
+// carries), and a missing site's byte becomes 0xFF (-1); sites at or past
+// s1 read as missing, and nothing is read past a row.
+struct SpanRows {
+  const uint8_t* codes;
+  const uint8_t* miss;
+  int c4, m8, s1;
+  __device__ __forceinline__ uint32_t operator()(int row, int c) const {
+    const int nv = s1 - c;
+    if (nv <= 0) return ~0u;
+    const uint32_t b = codes[(long long)row * c4 + (c >> 2)];
+    const uint32_t m = (miss[(long long)row * m8 + (c >> 3)] >> (c & 4)) &
+                       0xFu;
+    const uint32_t x = (b | b << 6 | b << 12 | b << 18) & 0x03030303u;
+    uint32_t v = x | ((m * 0x00204081u) & kLow) * 0xFFu;
+    if (nv < 4) v |= ~0u << (8 * nv);
+    return v;
+  }
+};
 
 constexpr int kRowsAtOnce = 4;   // rows a row slot loads before counting
 
@@ -154,18 +140,19 @@ __device__ __forceinline__ void planes_of(uint32_t v,
 template <int kPlanes, int kLanes>
 constexpr int kPartInts = kThreads / 32 * kLanes * 4 * kPlanes;
 
-// The row-slot loop K12 and K18 share.  A block owns sites b0 ..
-// b0 + 4 kLanes - 1 (those at or past s1 read as missing) and counts
-// groups g0, g0 + gstep, .. below G one after another (perm[offs[g] ..
-// offs[g + 1]) are the rows of g): for each, kPlanes x 4 counts a lane
-// over its slot's rows, summed over the slots into part; then
-// epi(g, part) reads the block's sums through slot_sum(), and the next
-// group's first rows load while the sums meet.
-template <int kPlanes, int kLanes, typename Epi>
+// The row-slot loop K6, K12 and K18 share.  A block owns sites b0 ..
+// b0 + 4 kLanes - 1 (rows(row, c) gives the codes of sites c .. c + 3 of
+// a row, -1 at and past the span's end) and counts groups g0, g0 + gstep,
+// .. below G one after another (perm[offs[g] .. offs[g + 1]) are the rows
+// of g): for each, kPlanes x 4 counts a lane over its slot's rows, summed
+// over the slots into part; then epi(g, part) reads the block's sums
+// through slot_sum(), and the next group's first rows load while the sums
+// meet.
+template <int kPlanes, int kLanes, typename Rows, typename Epi>
 __device__ __forceinline__ void count_groups(
-    const int8_t* __restrict__ alleles, long long row_stride, int b0, int s1,
-    const int32_t* __restrict__ perm, const int32_t* __restrict__ offs,
-    int g0, int gstep, int G, int* part, Epi&& epi) {
+    Rows rows, int b0, const int32_t* __restrict__ perm,
+    const int32_t* __restrict__ offs, int g0, int gstep, int G, int* part,
+    Epi&& epi) {
   constexpr int kSlots = kThreads / kLanes;           // row slots
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -181,9 +168,7 @@ __device__ __forceinline__ void count_groups(
 #pragma unroll
     for (int u = 0; u < kRowsAtOnce; ++u) {
       const int r = r0 + u * kSlots;
-      x[u] = r < r_end ? load_codes4(alleles + (long long)perm[r] * row_stride,
-                                     c, s1)
-                       : ~0u;
+      x[u] = r < r_end ? rows(perm[r], c) : ~0u;
     }
   };
   if (g0 < G) fetch(g0, offs[g0] + slot);
@@ -257,18 +242,18 @@ __device__ __forceinline__ int slot_sum(const int* part, int site, int a) {
   return sum;
 }
 
-template <typename T, int kLanes>
-__global__ void __launch_bounds__(kThreads)
-site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
-                           long long row_stride, int s0, int s1,
-                           const int32_t* __restrict__ perm,
-                           const int32_t* __restrict__ offs, int P,
-                           T* __restrict__ out) {
+// K6's and K12's body: sites s0 .. s1 - 1 of every group, rows read
+// through `rows`, into out [s1 - s0, P, 4].
+template <typename T, int kLanes, typename Rows>
+__device__ __forceinline__ void count_sites(Rows rows, int s0, int s1,
+                                            const int32_t* __restrict__ perm,
+                                            const int32_t* __restrict__ offs,
+                                            int P, T* __restrict__ out) {
   __shared__ __align__(16) int part[kPartInts<4, kLanes>];
   const int b0 = s0 + blockIdx.x * 4 * kLanes;
   // element e: site e / 4 of the block, code e % 4
   count_groups<4, kLanes>(
-      alleles, row_stride, b0, s1, perm, offs, blockIdx.y, gridDim.y, P, part,
+      rows, b0, perm, offs, blockIdx.y, gridDim.y, P, part,
       [&](int p, const int* sums) {
         for (int e = threadIdx.x; e < 16 * kLanes; e += kThreads) {
           const int site = e >> 2;
@@ -277,6 +262,30 @@ site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
                 (T)slot_sum<4, kLanes>(sums, site, e & 3);
         }
       });
+}
+
+// The kernels take the rows' fields as scalars: with a struct parameter
+// K12 took more registers, and one block a SM fewer fit.
+template <typename T, int kLanes>
+__global__ void __launch_bounds__(kThreads)
+site_pop_counts_kernel(const uint8_t* __restrict__ codes,
+                       const uint8_t* __restrict__ miss, int c4, int m8,
+                       int s0, int s1, const int32_t* __restrict__ perm,
+                       const int32_t* __restrict__ offs, int P,
+                       T* __restrict__ out) {
+  count_sites<T, kLanes>(SpanRows{codes, miss, c4, m8, s1}, s0, s1, perm,
+                         offs, P, out);
+}
+
+template <typename T, int kLanes>
+__global__ void __launch_bounds__(kThreads)
+site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
+                           long long row_stride, int s0, int s1,
+                           const int32_t* __restrict__ perm,
+                           const int32_t* __restrict__ offs, int P,
+                           T* __restrict__ out) {
+  count_sites<T, kLanes>(ByteRows{alleles, row_stride, s1}, s0, s1, perm,
+                         offs, P, out);
 }
 
 // ---------------------------------------------------------------- K15
@@ -405,7 +414,7 @@ site_nonmissing_kernel(const int8_t* __restrict__ alleles,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) sum[i] = 0;
   count_groups<1, kLanes>(
-      alleles, row_stride, b0, S, perm, offs, 0, 1, C, part,
+      ByteRows{alleles, row_stride, S}, b0, perm, offs, 0, 1, C, part,
       [&](int c, const int* sums) {
         const int32_t* b = bits + (size_t)c * P + p0;
 #pragma unroll
@@ -449,33 +458,62 @@ sample_base_counts_kernel(const int8_t* __restrict__ alleles,
   }
 }
 
+// The kernel of the rows' kind: K6 for the span wire, K12 for int8 rows.
+template <typename T, int kLanes>
+void launch_rows(const SpanRows& r, dim3 blocks, cudaStream_t st, int s0,
+                 int s1, const int32_t* perm, const int32_t* offs, int P,
+                 void* out) {
+  site_pop_counts_kernel<T, kLanes><<<blocks, kThreads, 0, st>>>(
+      r.codes, r.miss, r.c4, r.m8, s0, s1, perm, offs, P, (T*)out);
+}
+
+template <typename T, int kLanes>
+void launch_rows(const ByteRows& r, dim3 blocks, cudaStream_t st, int s0,
+                 int s1, const int32_t* perm, const int32_t* offs, int P,
+                 void* out) {
+  site_pop_counts_raw_kernel<T, kLanes><<<blocks, kThreads, 0, st>>>(
+      r.alleles, r.stride, s0, s1, perm, offs, P, (T*)out);
+}
+
+// K6 or K12 on grid (site blocks, groups): the kernel variant of lanes
+// (16 or 8) a row and the output type.
+template <typename Rows>
+int launch_site_counts(const Rows& rows, int s0, int s1, const void* perm,
+                       const void* offs, int P, int lanes, int u16,
+                       void* out, void* stream) {
+  const dim3 blocks((unsigned)((s1 - s0 + 4 * lanes - 1) / (4 * lanes)),
+                    (unsigned)(P < 65535 ? P : 65535));
+  const int32_t* pm = (const int32_t*)perm;
+  const int32_t* of = (const int32_t*)offs;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lanes == 16 && u16)
+    launch_rows<uint16_t, 16>(rows, blocks, st, s0, s1, pm, of, P, out);
+  else if (lanes == 16)
+    launch_rows<int32_t, 16>(rows, blocks, st, s0, s1, pm, of, P, out);
+  else if (lanes == 8 && u16)
+    launch_rows<uint16_t, 8>(rows, blocks, st, s0, s1, pm, of, P, out);
+  else if (lanes == 8)
+    launch_rows<int32_t, 8>(rows, blocks, st, s0, s1, pm, of, P, out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// buf: the span wire of [h, sp]; out: [s1 - s0, P, 4] for sites s0 .. s1-1,
-// uint16 when u16 != 0, else int32.
+// buf: the span wire of [h, sp]; out: [s1 - s0, P, 4] for sites s0 .. s1-1
+// (s0 a multiple of 8), uint16 when u16 != 0, else int32; lanes (16 or 8)
+// a row, 4 sites a lane.
 int ggt_site_pop_counts(const void* buf, int h, int sp, int s0, int s1,
-                        const void* perm, const void* offs, int P, int u16,
-                        void* out, void* stream) {
-  const int c4 = sp / 4;
-  const int m8 = sp / 8;
+                        const void* perm, const void* offs, int P, int lanes,
+                        int u16, void* out, void* stream) {
   const uint8_t* codes = (const uint8_t*)buf;
-  const uint8_t* miss = codes + (size_t)h * c4;
-  const int nbytes = (s1 - s0 + 3) / 4;
-  const unsigned blocks = (unsigned)((nbytes + kThreads - 1) / kThreads);
-  if (u16) {
-    site_pop_counts_kernel<uint16_t><<<blocks, kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-        codes, miss, c4, m8, s0, s1, (const int32_t*)perm,
-        (const int32_t*)offs, P, (uint16_t*)out);
-  } else {
-    site_pop_counts_kernel<int32_t><<<blocks, kThreads, 0,
-                                      (cudaStream_t)stream>>>(
-        codes, miss, c4, m8, s0, s1, (const int32_t*)perm,
-        (const int32_t*)offs, P, (int32_t*)out);
-  }
-  return (int)cudaGetLastError();
+  const SpanRows rows{codes, codes + (size_t)h * (sp / 4), sp / 4, sp / 8,
+                      s1};
+  return launch_site_counts(rows, s0, s1, perm, offs, P, lanes, u16, out,
+                            stream);
 }
 
 // alleles: int8 rows of row_stride bytes (sites contiguous); out:
@@ -485,27 +523,9 @@ int ggt_site_pop_counts_raw(const void* alleles, long long row_stride,
                             int s0, int s1, const void* perm,
                             const void* offs, int P, int lanes, int u16,
                             void* out, void* stream) {
-  const dim3 blocks((unsigned)((s1 - s0 + 4 * lanes - 1) / (4 * lanes)),
-                    (unsigned)(P < 65535 ? P : 65535));
-  const int8_t* a = (const int8_t*)alleles;
-  const int32_t* pm = (const int32_t*)perm;
-  const int32_t* of = (const int32_t*)offs;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (lanes == 16 && u16)
-    site_pop_counts_raw_kernel<uint16_t, 16><<<blocks, kThreads, 0, st>>>(
-        a, row_stride, s0, s1, pm, of, P, (uint16_t*)out);
-  else if (lanes == 16)
-    site_pop_counts_raw_kernel<int32_t, 16><<<blocks, kThreads, 0, st>>>(
-        a, row_stride, s0, s1, pm, of, P, (int32_t*)out);
-  else if (lanes == 8 && u16)
-    site_pop_counts_raw_kernel<uint16_t, 8><<<blocks, kThreads, 0, st>>>(
-        a, row_stride, s0, s1, pm, of, P, (uint16_t*)out);
-  else if (lanes == 8)
-    site_pop_counts_raw_kernel<int32_t, 8><<<blocks, kThreads, 0, st>>>(
-        a, row_stride, s0, s1, pm, of, P, (int32_t*)out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const ByteRows rows{(const int8_t*)alleles, row_stride, s1};
+  return launch_site_counts(rows, s0, s1, perm, offs, P, lanes, u16, out,
+                            stream);
 }
 
 // counts: [S, P, 4], uint16 when u16 != 0, else int32; n_hap: int32 [P];

@@ -8,9 +8,10 @@ window's pairwise 4x4 joint allele tables
     N[x, y, a, b] = sum_h [alleles[h,x] = a] [alleles[h,y] = b]
 
 come from one CUDA kernel, :func:`pair_allele_tables` (K17,
-kernels/csrc/ld.cu): each site's four code planes packed as haplotype
-bitmasks, then AND + popcount per site pair.  A code outside 0..3
-(missing is -1) sets no bit, so only jointly called haplotypes count.  All
+kernels/csrc/ld.cu): the one-hot Gram on the int8 tensor cores, its
+upper triangle's tiles written with their mirrors.  A code outside 0..3
+(missing is -1) one-hots to zero, so only jointly called haplotypes
+count.  All
 float64 probability math happens on the host from the exact integer tables
 (stats/ld.ld_from_tables), preserving the reference's per-pair biallelic
 gate and major-allele tie-breaks.
@@ -52,15 +53,21 @@ def pair_allele_tables(alleles: torch.Tensor) -> torch.Tensor:
     out = torch.empty((S, S, 4, 4), dtype=torch.int32, device=alleles.device)
     if S == 0:
         return out
-    planes = torch.empty(S * 4 * max(-(-h // 32), 1), dtype=torch.int32,
+    onehot = torch.empty(onehot_bytes(h, S), dtype=torch.uint8,
                          device=alleles.device)
-    _check_cuda(planes, out)
+    _check_cuda(onehot, out)
     code = _build.lib("ld").ggt_pair_allele_tables(
-        alleles.data_ptr(), alleles.stride(0), h, S, planes.data_ptr(),
+        alleles.data_ptr(), alleles.stride(0), h, S, onehot.data_ptr(),
         out.data_ptr(), _stream_ptr(out))
     _build.check(code, "pair_allele_tables")
     LAUNCHES["pair_allele_tables"] += 1
     return out
+
+
+def onehot_bytes(h: int, S: int) -> int:
+    """Bytes of K17's K-major one-hot scratch: a 4 KB block per 32 sites
+    and 32 haplotypes (one step at least)."""
+    return -(-S // 32) * max(-(-h // 32), 1) * 4096
 
 
 def pair_allele_tables_plain(alleles: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time the port's K9, K12, K14, K18 and K20 kernels of two checkouts on one
-NVIDIA GPU, in one process, on the same inputs:
+"""Time the port's K6, K9, K12, K14, K17, K18 and K20 kernels of two
+checkouts on one NVIDIA GPU, in one process, on the same inputs:
 
     python3 kernel_ab.py --base DIR [--only TEXT] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR``).
 Each checkout's port is imported under a package name of its own and
-builds its ``pair4.cu`` and ``counts.cu`` into its own ``build/``; each
+builds its ``pair4.cu``, ``counts.cu`` and ``ld.cu`` into its own
+``build/``; each
 kernel is called through that checkout's wrapper (its launch geometry,
 its output allocation), on inputs made here from a seed at the shapes of
 ``chip_smoke.py``'s timings (H = 512):
 
+* K6 ``site_pop_counts``: the span wire of run A's largest span (32,647
+  sites) on its 4 populations of 128 rows;
 * K9 ``pair_counts_4state``: run E's block (one window of 262,144 sites,
   a contiguous matrix) and run A's largest flush (32 windows of about 625
   sites, in the raw upload's layout);
@@ -19,6 +22,8 @@ its output allocation), on inputs made here from a seed at the shapes of
   through the bucket-padded upload's stride), with the 256 individuals in
   9 populations as 9 classes and with all 512 rows as one class;
 * K14 ``pair_counts_4state_rows``: rows 0..255 of run A's flush;
+* K17 ``pair_allele_tables``: run P's first window (596 sites) and 2,048
+  sites;
 * K18 ``site_nonmissing``: run A's largest span (32,647 sites, a
   contiguous matrix, so an odd row stride) on its 4 populations of 128
   rows, and on one population of all 512;
@@ -55,7 +60,8 @@ H = 512
 S_E = 1 << 18
 W_A, N_A = 32, 625
 S_H = 16_176
-S_R = 32_647                      # run A's largest count span (K18)
+S_R = 32_647                      # run A's largest count span (K6, K18)
+S_P = (596, 2048)                 # run P's first window; K17's 2,048 sites
 H_POPS = (56,) * 8 + (64,)        # run H: 8 x 28 + 32 individuals, diploid
 
 
@@ -70,7 +76,7 @@ def load_port(root: Path, alias: str) -> dict:
     sys.modules[alias] = mod
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"{alias}.kernels.{name}")
-            for name in ("_build", "pairdist", "counts", "transfer")}
+            for name in ("_build", "pairdist", "counts", "transfer", "ld")}
 
 
 def codes(rng, h: int, s: int) -> np.ndarray:
@@ -102,8 +108,8 @@ def main() -> int:
     log(card)
     with ThreadPoolExecutor(4) as ex:
         futs = {(tag, name): ex.submit(port["_build"].build, name)
-                for tag, port in ports.items() for name in ("pair4",
-                                                            "counts")}
+                for tag, port in ports.items()
+                for name in ("pair4", "counts", "ld")}
         for (tag, name), fut in futs.items():
             so = fut.result()
             log(f"[build] {tag} {name}.cu: " + so.with_suffix(".log")
@@ -131,10 +137,14 @@ def main() -> int:
     wp = W_A
     fbuf_np, sp = transfer.pack_flush_buffer(a_a_np, f_a, n_a, wp)
     fbuf = torch.from_numpy(fbuf_np).to(dev)
+    span_r, sp_r = transfer.pack_span(codes(rng, H, S_R))
+    span_r = torch.from_numpy(span_r).to(dev)
+    a_p = {s: torch.from_numpy(codes(rng, H, s)).to(dev) for s in S_P}
     log(f"[inputs] E: [{H}, {S_E}], one window; A: [{H}, {s_a}] (row "
         f"stride {a_a.stride(0)}), {W_A} windows, longest {smax_a}; H: "
         f"[{H}, {S_H}] (row stride {a_h.stride(0)}), {len(H_POPS)} classes; "
-        f"R: [{H}, {S_R}], 4 populations")
+        f"R: [{H}, {S_R}], 4 populations (K6: its span wire, {sp_r} "
+        f"sites); P: [{H}, S] for S in {S_P}")
 
     def k12(mask):
         def make(port):
@@ -145,7 +155,17 @@ def main() -> int:
                 a_h, 0, S_H, groups, out) or out
         return make
 
+    def k6(port):
+        groups = port["pairdist"].PopGroups(pops_r, dev)
+        out = torch.empty((S_R, 4, 4), dtype=torch.uint16, device=dev)
+        return lambda: port["counts"].site_pop_counts(
+            span_r, sp_r, H, 0, S_R, groups, out) or out
+
+    def k17(s):
+        return lambda p: lambda: p["ld"].pair_allele_tables(a_p[s])
+
     cases = {
+        "K6 run A span": (k6, 50),
         "K9 run E block": (lambda p: lambda: p["pairdist"].pair_counts_4state(
             a_e, f_e, n_e, S_E), 5),
         "K9 run A flush": (lambda p: lambda: p["pairdist"].pair_counts_4state(
@@ -155,6 +175,8 @@ def main() -> int:
         "K14 run A flush rows 0..255": (
             lambda p: lambda: p["pairdist"].pair_counts_4state_rows(
                 a_a, f_a_t, n_a_t, 0, H // 2, smax_a), 20),
+        "K17 run P window": (k17(S_P[0]), 20),
+        "K17 2,048 sites": (k17(S_P[1]), 10),
         "K18 run A span": (lambda p: lambda: p["counts"].site_nonmissing(
             a_r, pops_r), 50),
         "K18 run A span, one population": (
