@@ -130,7 +130,18 @@ not build, launch or agree, or an output is wrong):
    bins, against the mesh's sharded_global_sfs on two shards; K17 at run
    P's first window and at 2,048 sites beside the bf16 one-hot Gram and
    torch._int_mm of the int8 one-hot, K18,
-   K19 and K20 at run R's inputs, K20 beside K9 + K4);
+   K19 and K20 at run R's inputs, K20 beside K9 + K4); K2 and K3 at the
+   popDist chunk also in a CUDA graph (K2 with its per-window entry index
+   built once, as each flush builds it, and that index's time); K3 on the
+   popDist chunk's counts with popDist's mask, ind_layout(512)'s and two
+   masks of uneven groups (an empty group, a one-row group; one in each
+   launch shape), and on run B's individual mask, each against its plain
+   version and bit-equal across two launches (the individual masks also
+   to the host executor's blocks), and its two launch shapes (a thread or a block per
+   cell) timed side by side on groups of 2 to 128 rows; K2 exactly against
+   its plain version on a chunk at w0 = 3 and on a half-step overlapping
+   flush (entries not sorted by window); K16 also in a CUDA graph beside
+   torch.sum;
 4. the popDist goldens and the full-panel popgen_coord.csv golden of
    tests/golden through the port's CLI on the card, the fused
    individual-blocks route against GGT_HOST_DIST_FINALIZE=1 on four
@@ -515,12 +526,19 @@ def parity(pair, transfer, a, first, n, mask, min_sites, dev, chunk=None,
     res["pair_counts_v3"]["plain_ms"] = cuda_ms(
         lambda: pair.pair_counts_v3_plain(wire, 0, nwin), 3, 1)
     mt, st = m.clone(), s.clone()
-    res["exception_patch"]["ms"] = cuda_ms(
-        lambda: pair.exception_patch(mt, st, wire, 0), 20)
+    # the main path builds K2's entry index once per flush
+    index = pair.exception_index(wire)
+    k2 = lambda: pair.exception_patch(mt, st, wire, 0, index)  # noqa: E731
+    res["exception_patch"]["ms"] = cuda_ms(k2, 20)
+    res["exception_patch"]["graph_ms"] = graph_ms(k2, 20)
+    res["exception_patch"]["index_ms"] = cuda_ms(
+        lambda: pair.exception_index(wire), 20)
     res["exception_patch"]["plain_ms"] = cuda_ms(
         lambda: pair.exception_patch_plain(mt, st, wire, 0), 3, 1)
-    res["blocks_tail"]["ms"] = cuda_ms(
-        lambda: pair.blocks_tail(mk, sk, groups, min_sites, out), 20)
+    k3 = lambda: pair.blocks_tail(  # noqa: E731
+        mk, sk, groups, min_sites, out)
+    res["blocks_tail"]["ms"] = cuda_ms(k3, 20)
+    res["blocks_tail"]["graph_ms"] = graph_ms(k3, 20)
     res["blocks_tail"]["plain_ms"] = cuda_ms(
         lambda: pair.blocks_tail_plain(mk, sk, mask_dev, min_sites), 5)
 
@@ -611,14 +629,8 @@ def epilogue_parity(pair, transfer, a, first, n, pop_mask, min_sites, dev):
                     pair.het_pairs_plain(m, s, r1, r2))
         check_equal(f"het_pairs ({kind} mask) vs host executor", het,
                     pair.het_pairs_plain(hm, hs, r1.cpu(), r2.cpu()))
-        blk = torch.empty((nwin, 2, groups.P, groups.P), dtype=torch.float64,
-                          device=dev)
-        pair.blocks_tail(m, s, groups, min_sites, blk)
-        want = pair.blocks_tail_plain(m, s, groups.mask.to(dev), min_sites)
-        check_equal(f"blocks_tail ({kind} mask) counts", blk[:, 1],
-                    want[:, 1])
-        err = max(err, check_close(f"blocks_tail ({kind} mask) sums",
-                                   blk[:, 0], want[:, 0]))
+        err = max(err, hold_blocks_tail(pair, m, s, groups, min_sites,
+                                        f"{kind} mask", kind == "ind"))
     torch.cuda.synchronize()
     return u16, nwin, err
 
@@ -1023,19 +1035,158 @@ def time_het(pair, transfer, flush, dev):
     groups = pair.PopGroups(ind_mask, dev)
     blk = torch.empty((nwin, 2, groups.P, groups.P), dtype=torch.float64,
                       device=dev)
-    pair.blocks_tail(m, s, groups, gate, blk)
-    want = pair.blocks_tail_plain(m, s, groups.mask.to(dev), gate)
-    check_equal("blocks_tail (run B individual mask) counts", blk[:, 1],
-                want[:, 1])
-    k3_err = check_close("blocks_tail (run B individual mask) sums",
-                         blk[:, 0], want[:, 0])
-    k3_ms = cuda_ms(lambda: pair.blocks_tail(m, s, groups, gate, blk), 5)
+    k3_err = hold_blocks_tail(pair, m, s, groups, gate,
+                              "run B individual mask", host=True)
+    k3 = lambda: pair.blocks_tail(m, s, groups, gate, blk)  # noqa: E731
+    k3_ms, k3_graph = cuda_ms(k3, 20), graph_ms(k3, 20)
     P = groups.P
     k3_bound = blocks_tail_bound(nwin, H, P)
-    log(f"[kernel] blocks_tail on run B's individual mask (P={P}, "
-        f"{nwin} windows): kernel {k3_ms:.4f} ms, bound "
-        f"{k3_bound[0]:.4f} ms ({k3_bound[1]}), max abs err {k3_err}")
+    log(f"[kernel] blocks_tail on run B's individual mask (P={P}, largest "
+        f"group {groups.max_rows}, {nwin} windows, "
+        f"{'wide' if pair.blocks_tail_wide(groups) else 'narrow'}): kernel "
+        f"{k3_ms:.4f} ms ({k3_graph:.4f} ms in a CUDA graph), bound "
+        f"{k3_bound[0]:.4f} ms ({k3_bound[1]}), max abs err {k3_err}; two "
+        "launches and the host executor's blocks bit-equal")
     return res
+
+
+def hold_blocks_tail(pair, m, s, groups, min_sites, what: str,
+                     host: bool = False) -> float:
+    """K3 on ``groups`` against its plain version (counts exactly, sums at
+    RTOL) and against a second launch (bit for bit); with ``host``, groups
+    of at most 2 rows, also against the host executor's blocks bit for
+    bit (the narrow walk adds in its order)."""
+    import torch
+    nwin, P = m.shape[0], groups.P
+    blk = torch.empty((nwin, 2, P, P), dtype=torch.float64, device=m.device)
+    again = torch.empty_like(blk)
+    pair.blocks_tail(m, s, groups, min_sites, blk)
+    pair.blocks_tail(m, s, groups, min_sites, again)
+    want = pair.blocks_tail_plain(m, s, groups.mask.to(m.device), min_sites)
+    check_equal(f"blocks_tail ({what}) counts", blk[:, 1], want[:, 1])
+    err = check_close(f"blocks_tail ({what}) sums", blk[:, 0], want[:, 0])
+    if not torch.equal(blk, again):
+        raise AssertionError(f"blocks_tail ({what}): two launches differ")
+    if host:
+        sums, cnts = pair._blocks_from_counts(
+            m.cpu().numpy(), s.cpu().numpy(), groups.mask.numpy(), min_sites)
+        if not torch.equal(blk.cpu(), torch.from_numpy(
+                np.stack([sums, cnts], axis=1))):
+            raise AssertionError(f"blocks_tail ({what}) != the host "
+                                 "executor's blocks bit for bit")
+    return err
+
+
+# K3's launch-shape sweep: groups of g rows over the popDist chunk's
+# counts, each shape timed in a CUDA graph (pair._K3_NARROW_ROWS comes
+# from it)
+K3_SWEEP_ROWS = (2, 4, 8, 16, 32, 128)
+
+
+def uneven_groups(H: int, cap: int, seed: int = 11) -> np.ndarray:
+    """A mask of uneven interleaved groups over H rows: one of 1 row, an
+    empty one, one of 3, then groups of ``cap`` rows (the last shorter)."""
+    rng = np.random.default_rng(seed)
+    rest = H - 4
+    sizes = [1, 0, 3] + [cap] * (rest // cap) + [rest % cap]
+    groups = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    mask = np.zeros((len(sizes), H))
+    mask[groups, np.arange(H)] = 1.0
+    return mask
+
+
+def half_step_windows(first: np.ndarray, n: np.ndarray):
+    """Overlapping windows from a flush's windows: each window, then one
+    from its middle to the next one's middle (a -s half the window)."""
+    mid = first + n // 2
+    f2 = np.empty(2 * first.size - 1, np.int32)
+    n2 = np.empty_like(f2)
+    f2[0::2], n2[0::2] = first, n
+    f2[1::2] = mid[:-1]
+    n2[1::2] = mid[1:] - mid[:-1]
+    return f2, n2
+
+
+def tails_phase(pair, transfer, flush, dev) -> None:
+    """K3 and K2 at full width on the popDist flush: K3 on popDist's mask,
+    ind_layout(512) and a mask of uneven groups (an empty group, a 1-row
+    group), each against its plain version and a second launch; both
+    launch shapes timed over K3_SWEEP_ROWS; K2 against its plain version
+    exactly on a chunk at w0 > 0 and on a half-step overlapping flush
+    (ex_w unsorted), timed per call and in a CUDA graph."""
+    import torch
+    a, first, n, mask, min_sites = flush
+    v3, wire, m, s, nwin = flush_counts(pair, transfer, a, first, n, dev)
+    H = v3.h
+    for what, msk in (("popDist mask", mask),
+                      (f"ind_layout({H})", ind_layout(H)[0]),
+                      ("uneven groups up to 13 rows", uneven_groups(H, 13)),
+                      ("uneven groups up to 300 rows",
+                       uneven_groups(H, 300))):
+        groups = pair.PopGroups(msk, dev)
+        pairs = groups.max_rows <= 2
+        err = hold_blocks_tail(pair, m, s, groups, min_sites, what, pairs)
+        shape = "wide" if pair.blocks_tail_wide(groups) else "narrow"
+        log(f"[parity] blocks_tail on the popDist chunk's counts, {what} "
+            f"(P={groups.P}, largest group {groups.max_rows}, {shape}): == "
+            f"plain (max abs err {err}); two launches"
+            + (" and the host executor's blocks" if pairs else "")
+            + " bit-equal")
+    for g in K3_SWEEP_ROWS:
+        groups = pair.PopGroups(np.repeat(np.eye(H // g), g, axis=1), dev)
+        outs, times = [], []
+        for wide in (False, True):
+            out = torch.empty((nwin, 2, groups.P, groups.P),
+                              dtype=torch.float64, device=dev)
+            fn = lambda: pair._blocks_tail_launch(  # noqa: E731
+                m, s, groups, min_sites, out, wide)
+            fn()
+            outs.append(out)
+            times.append(graph_ms(fn, 3))
+        check_equal(f"blocks_tail narrow vs wide counts (groups of {g})",
+                    outs[0][:, 1], outs[1][:, 1])
+        check_close(f"blocks_tail narrow vs wide sums (groups of {g})",
+                    outs[0][:, 0], outs[1][:, 0])
+        log(f"[kernel] blocks_tail launch shapes, groups of {g} (P="
+            f"{groups.P}, {nwin} windows): narrow {times[0]:.4f} ms, wide "
+            f"{times[1]:.4f} ms in a CUDA graph, bound "
+            f"{blocks_tail_bound(nwin, H, groups.P)[0]:.4f} ms; narrow == "
+            "wide")
+        del outs
+    torch.cuda.empty_cache()
+    # K2 on a chunk inside the flush and on an overlapping flush
+    W = first.shape[0]
+    w0 = min(3, W - 1)
+    k = min(nwin, W - w0)
+    m1, s1 = pair.pair_counts_v3(wire, w0, k)
+    m1p, s1p = m1.clone(), s1.clone()
+    pair.exception_patch(m1, s1, wire, w0, pair.exception_index(wire))
+    pair.exception_patch_plain(m1p, s1p, wire, w0)
+    check_equal(f"exception_patch m (w0={w0})", m1, m1p)
+    check_equal(f"exception_patch s (w0={w0})", s1, s1p)
+    del m1, s1, m1p, s1p
+    f2, n2 = half_step_windows(first, n)
+    v3o = pair._v3_flush_args(a, f2, n2)
+    wo = v3o.wire(torch.from_numpy(v3o.buf).to(dev))
+    ex_w = wo.ex_w.cpu().numpy()
+    if not (np.diff(ex_w[ex_w < wo.wp]) < 0).any():
+        raise AssertionError("the half-step flush's entries should "
+                             "interleave windows")
+    index = pair.exception_index(wo)
+    for w0 in range(0, f2.shape[0], v3o.chunk):
+        k = min(v3o.chunk, f2.shape[0] - w0)
+        mo, so = pair.pair_counts_v3(wo, w0, k)
+        mop, sop = mo.clone(), so.clone()
+        pair.exception_patch(mo, so, wo, w0, index)
+        pair.exception_patch_plain(mop, sop, wo, w0)
+        check_equal(f"exception_patch m (half-step flush, w0={w0})", mo, mop)
+        check_equal(f"exception_patch s (half-step flush, w0={w0})", so, sop)
+    del mo, so, mop, sop
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[parity] exception_patch == plain on the popDist flush at w0=3 "
+        f"and on its half-step overlapping flush ({f2.shape[0]} windows, "
+        f"{int((ex_w < wo.wp).sum())} entries, ex_w unsorted)")
 
 
 def time_counts(counts, transfer, flush, dev):
@@ -1892,6 +2043,10 @@ def sfs_full_width(counts, pmesh, mesh, geno, pops, dev) -> dict:
                stack, "sum"), 20),
            "library_ms": cuda_ms(lambda: torch.sum(stack, dim=0,
                                                    dtype=stack.dtype), 20),
+           "graph_ms": graph_ms(lambda: counts.stacked_reduce(stack, "sum"),
+                                20),
+           "library_graph_ms": graph_ms(lambda: torch.sum(
+               stack, dim=0, dtype=stack.dtype), 20),
            # the stack read once, one row written
            "bound": bound(stack.numel() * stack.element_size()
                           + nbins * stack.element_size()),
@@ -1899,6 +2054,10 @@ def sfs_full_width(counts, pmesh, mesh, geno, pops, dev) -> dict:
     log(f"[kernel] global_sfs_hist at full width ({k15['shape']}): K15 == "
         f"plain == {MESH_SHARDS} shards + K16 (== plain) == "
         f"sharded_global_sfs on {mesh} == torch.bincount")
+    log(f"[kernel] stacked_reduce at {k16['shape']}: K16 {k16['ms']:.4f} ms "
+        f"({k16['graph_ms']:.4f} ms in a CUDA graph), torch.sum "
+        f"{k16['library_ms']:.4f} ms ({k16['library_graph_ms']:.4f} in a "
+        "CUDA graph)")
     del at, c, flat, stack, parts
     torch.cuda.empty_cache()
     return {"global_sfs_hist": k15, "stacked_reduce": k16}
@@ -3656,6 +3815,15 @@ def main() -> int:
         log(f"[parity] popDist flush: W={flush[1].shape[0]} windows, "
             f"chunk {shapes['nwin']}, H={shapes['H']}, P={shapes['P']}, "
             f"ep={shapes['ep']}")
+        for k in ("pair_counts_v3", "exception_patch", "blocks_tail"):
+            r = res[k]
+            log(f"[kernel] {k} at the popDist chunk: {r['ms']:.4f} ms"
+                + (f" ({r['graph_ms']:.4f} ms in a CUDA graph)"
+                   if "graph_ms" in r else "")
+                + f", bound {bnd[k][0]:.4f} ms ({bnd[k][1]})")
+        log(f"[kernel] exception_index (once per flush) "
+            f"{res['exception_patch']['index_ms']:.4f} ms")
+        tails_phase(pair, transfer, flush, dev)
         res["tri_pack"] = time_tri(
             pair, transfer,
             runs["run_A"][1]["window_pair_counts_dispatch"], dev)

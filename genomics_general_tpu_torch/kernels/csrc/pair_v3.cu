@@ -14,7 +14,9 @@
 // class ranges meta int32 [7, wp] = firstB, nB, firstC, nC, firstD, nD,
 // nconst.  v2: the called and alt planes in the same word layout, then
 // first, n_sites int32 [wp].  Both end with the exception section ex_w
-// int32 [ep] (== wp for padding entries) and ex_codes int8 [ep, h].
+// int32 [ep] (== wp for padding entries) and ex_codes int8 [ep, h]; the
+// exception patch reads them through a per-window entry index that the
+// wrapper builds once per flush.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -25,8 +27,11 @@ constexpr int kTile = 32;        // K1/K13 pair tile: 32 x 32 pairs
 constexpr int kWords = 32;       // words staged per plane per step
 constexpr int kThreads = 256;    // 8 warps; warp y owns tile rows y + 8r
 constexpr int kRowsPerThread = kTile / (kThreads / kTile);
-constexpr int kExRows = 8;       // K2 rows of the pair matrix per block
+constexpr int kExBatch = 32;     // K2 entries staged per step
+constexpr int kExCols = 4;       // K2 column tiles a block
 constexpr int kTailThreads = 256;
+constexpr int kTailWarps = kTailThreads / 32;
+constexpr int kWideRows = 8;     // K3 wide: rows of loads in flight a thread
 
 // One class range of a pair tile, shared by K1 and K13: adds to the
 // thread's accumulators, for its rows of the 32 x 32 tile (i0.., j0..), the
@@ -221,36 +226,91 @@ pair_counts_v2_kernel(const uint32_t* __restrict__ called,
 // window) adds 1 to shared[w, i, j] where both haplotypes are called
 // (code >= 0) and 1 to mismatch[w, i, j] where they also differ.
 //
-// Bound: the read-modify-write of the touched windows' [h, h] counts.
-// Design: one block per (entry, 8-row slab); the entry's h codes sit in
-// shared memory and each thread patches pairs with int32 atomicAdd —
-// integer atomics are exact and order-independent, so overlapping entries
-// of one window need no ordering.  Entries outside the chunk
-// [w0, w0 + nwin), and the padding entries (ex_w == wp), return at once.
+// Bound: the read-modify-write of the touched windows' [h, h] counts (the
+// codes are small and stay in L2).  Design: the wrapper sorts the entries
+// by window once per flush (order, starts: window w's entries are
+// order[starts[w] .. starts[w+1]), padding entries after starts[wp]);
+// one block per (window of the chunk, 32 x 128 pairs: four of K1's tiles
+// side by side) walks its window's entries kExBatch at a time, the tile's
+// row and column codes staged in shared memory, adds both-called and
+// unequal pairs in int registers on top of its tile of m and s, read
+// first (16 loads a thread in flight), and writes the tile back once.  No
+// atomics: each (window, pair) belongs to one block, and integer sums are
+// exact in any order.  A window with no entries returns at once.
 __global__ void __launch_bounds__(kThreads)
-exception_patch_kernel(const int32_t* __restrict__ ex_w,
-                       const int8_t* __restrict__ ex_codes,
-                       int h, int wp, int w0, int nwin,
+exception_patch_kernel(const int32_t* __restrict__ order,
+                       const int32_t* __restrict__ starts,
+                       const int8_t* __restrict__ ex_codes, int h, int w0,
                        int32_t* __restrict__ m, int32_t* __restrict__ s) {
-  extern __shared__ int8_t codes[];
-  const int e = blockIdx.x;
-  const int w = ex_w[e];
-  if (w >= wp || w < w0 || w >= w0 + nwin) return;
-  const int8_t* c = ex_codes + (size_t)e * h;
-  for (int t = threadIdx.x; t < h; t += blockDim.x) codes[t] = c[t];
-  __syncthreads();
-  const int i0 = blockIdx.y * kExRows;
-  const size_t base = (size_t)(w - w0) * h * h;
-  for (int t = threadIdx.x; t < kExRows * h; t += blockDim.x) {
-    const int i = i0 + t / h;
-    const int j = t % h;
-    if (i >= h) break;
-    const int ci = codes[i];
-    const int cj = codes[j];
-    if (ci >= 0 && cj >= 0) {
-      const size_t o = base + (size_t)i * h + j;
-      atomicAdd(&s[o], 1);
-      if (ci != cj) atomicAdd(&m[o], 1);
+  constexpr int kCols = kExCols * kTile;
+  __shared__ int8_t ci_s[kExBatch][kTile];       // [entry][tile row]
+  __shared__ int8_t cj_s[kExBatch][kCols];       // [entry][tile column]
+  const int wl = blockIdx.z;
+  const int e0 = starts[w0 + wl];
+  const int e1 = starts[w0 + wl + 1];
+  if (e0 >= e1) return;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kCols;
+  const int tx = threadIdx.x % kTile;
+  const int ty = threadIdx.x / kTile;
+  // the tile's counts, loaded first: their latency overlaps the walk
+  int acc_s[kRowsPerThread][kExCols] = {};
+  int acc_m[kRowsPerThread][kExCols] = {};
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerThread; ++rr) {
+    const int i = i0 + ty + rr * (kThreads / kTile);
+#pragma unroll
+    for (int cc = 0; cc < kExCols; ++cc) {
+      const int j = j0 + tx + cc * kTile;
+      if (i < h && j < h) {
+        const size_t o = ((size_t)wl * h + i) * h + j;
+        acc_m[rr][cc] = m[o];
+        acc_s[rr][cc] = s[o];
+      }
+    }
+  }
+  for (int eb = e0; eb < e1; eb += kExBatch) {
+    const int nb = min(kExBatch, e1 - eb);
+    for (int idx = threadIdx.x; idx < nb * (kTile + kCols);
+         idx += kThreads) {
+      const int k = idx / (kTile + kCols);
+      const int r = idx % (kTile + kCols);
+      const int g = r < kTile ? i0 + r : j0 + r - kTile;
+      const int8_t c =
+          g < h ? ex_codes[(size_t)order[eb + k] * h + g] : (int8_t)-1;
+      if (r < kTile) {
+        ci_s[k][r] = c;
+      } else {
+        cj_s[k][r - kTile] = c;
+      }
+    }
+    __syncthreads();
+    for (int k = 0; k < nb; ++k) {
+#pragma unroll
+      for (int cc = 0; cc < kExCols; ++cc) {
+        const int cj = cj_s[k][tx + cc * kTile];
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerThread; ++rr) {
+          const int ci = ci_s[k][ty + rr * (kThreads / kTile)];
+          const int both = (ci >= 0) & (cj >= 0);
+          acc_s[rr][cc] += both;
+          acc_m[rr][cc] += both & (ci != cj);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerThread; ++rr) {
+    const int i = i0 + ty + rr * (kThreads / kTile);
+#pragma unroll
+    for (int cc = 0; cc < kExCols; ++cc) {
+      const int j = j0 + tx + cc * kTile;
+      if (i < h && j < h) {
+        const size_t o = ((size_t)wl * h + i) * h + j;
+        m[o] = acc_m[rr][cc];
+        s[o] = acc_s[rr][cc];
+      }
     }
   }
 }
@@ -265,56 +325,160 @@ exception_patch_kernel(const int32_t* __restrict__ ex_w,
 // which is the JAX einsum("whg,ph,qg->wpq") for a 0/1 mask in which every
 // haplotype row belongs to exactly one group (the wrapper checks this and
 // passes the rows grouped: perm[offs[p] .. offs[p+1]) are the rows of p).
+// The diagonal is left out by haplotype row (i != j), so groups may
+// interleave.  Each division is the correctly rounded one (the source is
+// built without fast math); only the order of the sums differs from the
+// einsum, and it is fixed: no floating-point atomics, so the sums are
+// identical run to run.
 //
-// Bound: bytes — 8 bytes of counts read per pair against a few f64
-// operations.  Design: one block per (window, p, q) walks exactly its
-// block's pairs (each count is read once over all blocks), accumulates in
-// f64 in a fixed per-thread order and reduces with a fixed shared-memory
-// tree: no floating-point atomics, so the sums are identical run to run.
+// Bound: bytes — 8 bytes of counts read per pair and 16 written per cell,
+// against a few f64 operations.  Each count is read once over all cells.
+// The wrapper picks one of two launch shapes from the largest group:
+//
+// narrow (no group of more than pairdist._K3_NARROW_ROWS = 16 rows, where
+// it beats the wide shape on the card; an individual mask, P ~ H/2, has a
+// handful of pairs a cell): one thread per (window, p, q) cell, q
+// fastest, on a 1-D grid.  The thread sums each column of its block over
+// the rows in order, then adds the columns' sums in order: the order of the
+// host executor's pm @ d0 @ pm.T, so groups of at most 2 rows (an
+// individual mask) give its sums bit for bit.  It walks kColSums columns
+// at a time row by row, their sums in registers and their loads in flight
+// together: 8 columns for groups of 3 to 16 rows, 1 for groups of at most 2
+// (there the registers of more cost more blocks a SM than the loads gain).
+// No shared memory and no barrier; a warp's loads of one row and its stores
+// of out[w, 0|1, p, q .. q+31] are contiguous runs when the groups are.
+template <int kColSums>
 __global__ void __launch_bounds__(kTailThreads)
-blocks_tail_kernel(const int32_t* __restrict__ m,
-                   const int32_t* __restrict__ s,
-                   const int32_t* __restrict__ perm,
-                   const int32_t* __restrict__ offs,
-                   int P, int h, int min_sites, double* __restrict__ out) {
-  __shared__ double red_sum[kTailThreads];
-  __shared__ long long red_cnt[kTailThreads];
-  const int q = blockIdx.x;
-  const int p = blockIdx.y;
-  const int wl = blockIdx.z;
+blocks_tail_narrow_kernel(const int32_t* __restrict__ m,
+                          const int32_t* __restrict__ s,
+                          const int32_t* __restrict__ perm,
+                          const int32_t* __restrict__ offs, int P, int h,
+                          int nwin, int min_sites, double* __restrict__ out) {
+  const long long pq = (long long)P * P;
+  const long long cell = (long long)blockIdx.x * kTailThreads + threadIdx.x;
+  if (cell >= nwin * pq) return;
+  const int wl = (int)(cell / pq);
+  const int pqi = (int)(cell - wl * pq);
+  const int p = pqi / P;
+  const int q = pqi - p * P;
   const int pa = offs[p];
+  const int pn = offs[p + 1] - pa;
   const int qa = offs[q];
-  const long long pn = offs[p + 1] - pa;
-  const long long qn = offs[q + 1] - qa;
+  const int qn = offs[q + 1] - qa;
   const int ms = max(min_sites, 1);
   const size_t base = (size_t)wl * h * h;
   double sum = 0.0;
+  int cnt = 0;
+  for (int b0 = 0; b0 < qn; b0 += kColSums) {
+    int js[kColSums];
+    double col[kColSums];
+#pragma unroll
+    for (int u = 0; u < kColSums; ++u) {
+      js[u] = b0 + u < qn ? perm[qa + b0 + u] : -1;
+      col[u] = 0.0;
+    }
+    for (int a = 0; a < pn; ++a) {
+      const int i = perm[pa + a];
+      const size_t row = base + (size_t)i * h;
+#pragma unroll
+      for (int u = 0; u < kColSums; ++u) {
+        if (js[u] < 0) continue;
+        const int sv = s[row + js[u]];
+        const int mv = m[row + js[u]];
+        if (i != js[u] && sv >= ms) {
+          col[u] += (double)mv / (double)sv;
+          cnt += 1;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kColSums; ++u) sum += col[u];
+  }
+  out[(size_t)wl * 2 * pq + pqi] = sum;
+  out[((size_t)wl * 2 + 1) * pq + pqi] = (double)cnt;
+}
+
+// wide (a larger group: popDist's 4 x 128): one block per (window,
+// p, q).  Lane l takes the columns b = l, l + 32, ... of q's rows, warp w
+// the rows a = w, w + 8, ... of p's, kWideRows rows in flight; all in
+// 32-bit ints.  A warp's loads of one row are a contiguous run when the groups
+// are.  Each thread sums in its fixed order, a fixed shuffle tree sums each
+// warp and thread 0 sums the warps in order.  Counts are 64-bit: a cell
+// holds up to h^2 pairs.
+__global__ void __launch_bounds__(kTailThreads)
+blocks_tail_wide_kernel(const int32_t* __restrict__ m,
+                        const int32_t* __restrict__ s,
+                        const int32_t* __restrict__ perm,
+                        const int32_t* __restrict__ offs, int P, int h,
+                        int min_sites, double* __restrict__ out) {
+  __shared__ double warp_sum[kTailWarps];
+  __shared__ long long warp_cnt[kTailWarps];
+  const int q = blockIdx.x;
+  const int p = blockIdx.y;
+  const int wl = blockIdx.z;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int pa = offs[p];
+  const int pn = offs[p + 1] - pa;
+  const int qa = offs[q];
+  const int qn = offs[q + 1] - qa;
+  const int ms = max(min_sites, 1);
+  const int32_t* mw = m + (size_t)wl * h * h;
+  const int32_t* sw = s + (size_t)wl * h * h;
+  double sum = 0.0;
   long long cnt = 0;
-  for (long long t = threadIdx.x; t < pn * qn; t += kTailThreads) {
-    const int i = perm[pa + t / qn];
-    const int j = perm[qa + t % qn];
-    if (i == j) continue;
-    const size_t o = base + (size_t)i * h + j;
-    const int sv = s[o];
-    if (sv >= ms) {
-      sum += (double)m[o] / (double)sv;
-      cnt += 1;
+  for (int b = lane; b < qn; b += 32) {
+    const int j = perm[qa + b];
+    int a = warp;
+    for (; a + (kWideRows - 1) * kTailWarps < pn;
+         a += kWideRows * kTailWarps) {
+      int i[kWideRows], sv[kWideRows], mv[kWideRows];
+#pragma unroll
+      for (int u = 0; u < kWideRows; ++u) {
+        i[u] = perm[pa + a + u * kTailWarps];
+        const size_t o = (size_t)i[u] * h + j;
+        sv[u] = sw[o];
+        mv[u] = mw[o];
+      }
+#pragma unroll
+      for (int u = 0; u < kWideRows; ++u) {
+        if (i[u] != j && sv[u] >= ms) {
+          sum += (double)mv[u] / (double)sv[u];
+          cnt += 1;
+        }
+      }
+    }
+    for (; a < pn; a += kTailWarps) {
+      const int i = perm[pa + a];
+      const size_t o = (size_t)i * h + j;
+      const int sv = sw[o];
+      const int mv = mw[o];
+      if (i != j && sv >= ms) {
+        sum += (double)mv / (double)sv;
+        cnt += 1;
+      }
     }
   }
-  red_sum[threadIdx.x] = sum;
-  red_cnt[threadIdx.x] = cnt;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sum += __shfl_down_sync(0xffffffffu, sum, off);
+    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+  }
+  if (lane == 0) {
+    warp_sum[warp] = sum;
+    warp_cnt[warp] = cnt;
+  }
   __syncthreads();
-  for (int stride = kTailThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      red_sum[threadIdx.x] += red_sum[threadIdx.x + stride];
-      red_cnt[threadIdx.x] += red_cnt[threadIdx.x + stride];
-    }
-    __syncthreads();
-  }
   if (threadIdx.x == 0) {
+    double total = 0.0;
+    long long pairs = 0;
+    for (int w = 0; w < kTailWarps; ++w) {
+      total += warp_sum[w];
+      pairs += warp_cnt[w];
+    }
     const size_t pq = (size_t)P * P;
-    out[((size_t)wl * 2) * pq + (size_t)p * P + q] = red_sum[0];
-    out[((size_t)wl * 2 + 1) * pq + (size_t)p * P + q] = (double)red_cnt[0];
+    out[((size_t)wl * 2) * pq + (size_t)p * P + q] = total;
+    out[((size_t)wl * 2 + 1) * pq + (size_t)p * P + q] = (double)pairs;
   }
 }
 
@@ -401,25 +565,41 @@ int ggt_pair_counts_v2(const void* called, const void* alt, const void* first,
   return (int)cudaGetLastError();
 }
 
-// m, s: int32 [nwin, h, h] for windows w0 .. w0 + nwin - 1, patched in place.
-int ggt_exception_patch(const void* ex_w, const void* ex_codes, int ep,
-                        int h, int wp, int w0, int nwin, void* m, void* s,
-                        void* stream) {
-  dim3 grid(ep, (h + kExRows - 1) / kExRows);
-  exception_patch_kernel<<<grid, kThreads, h, (cudaStream_t)stream>>>(
-      (const int32_t*)ex_w, (const int8_t*)ex_codes, h, wp, w0, nwin,
-      (int32_t*)m, (int32_t*)s);
+// m, s: int32 [nwin, h, h] for windows w0 .. w0 + nwin - 1, patched in
+// place; order int32 [ep] lists the entries window by window and window
+// w's are order[starts[w] .. starts[w + 1]) (starts int32 [wp + 1]).
+int ggt_exception_patch(const void* order, const void* starts,
+                        const void* ex_codes, int h, int w0, int nwin,
+                        void* m, void* s, void* stream) {
+  const int tiles = (h + kTile - 1) / kTile;
+  dim3 grid((tiles + kExCols - 1) / kExCols, tiles, nwin);
+  exception_patch_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)order, (const int32_t*)starts,
+      (const int8_t*)ex_codes, h, w0, (int32_t*)m, (int32_t*)s);
   return (int)cudaGetLastError();
 }
 
-// out: float64 [nwin, 2, P, P] (sums, then valid-pair counts).
+// out: float64 [nwin, 2, P, P] (sums, then valid-pair counts); wide picks
+// the block-per-cell shape, else a thread per cell; max_rows is the largest
+// group's row count.
 int ggt_blocks_tail(const void* m, const void* s, const void* perm,
                     const void* offs, int P, int h, int nwin, int min_sites,
-                    void* out, void* stream) {
-  dim3 grid(P, P, nwin);
-  blocks_tail_kernel<<<grid, kTailThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)m, (const int32_t*)s, (const int32_t*)perm,
-      (const int32_t*)offs, P, h, min_sites, (double*)out);
+                    int max_rows, int wide, void* out, void* stream) {
+  if (wide) {
+    dim3 grid(P, P, nwin);
+    blocks_tail_wide_kernel<<<grid, kTailThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)m, (const int32_t*)s, (const int32_t*)perm,
+        (const int32_t*)offs, P, h, min_sites, (double*)out);
+  } else {
+    const long long cells = (long long)nwin * P * P;
+    const unsigned blocks =
+        (unsigned)((cells + kTailThreads - 1) / kTailThreads);
+    auto narrow = max_rows <= 2 ? blocks_tail_narrow_kernel<1>
+                                : blocks_tail_narrow_kernel<8>;
+    narrow<<<blocks, kTailThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)m, (const int32_t*)s, (const int32_t*)perm,
+        (const int32_t*)offs, P, h, nwin, min_sites, (double*)out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -75,6 +75,12 @@ LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0,
 HOST_FLUSHES = 0
 # pair cells the plain K2 materializes per slab of exception entries
 _EX_SLAB_PAIRS = 1 << 24
+_K2_TILE = 32                # K2's pair tile side (pair_v3.cu kTile)
+# K3 runs a thread per (window, p, q) cell while no group has more rows
+# than this, else a block per cell: on the card (chip_smoke.py's sweep,
+# PERF.md) the thread per cell is faster up to groups of 16 rows, the
+# block per cell from 32
+_K3_NARROW_ROWS = 16
 
 
 def reset_launches() -> None:
@@ -209,24 +215,53 @@ def pair_counts_v2_plain(wire: transfer.PairWireV2, w0: int, nwin: int):
 
 # -------------------------------------------------- K2 exception patch
 
-def exception_patch(m: torch.Tensor, s: torch.Tensor, wire, w0: int) -> None:
+class ExceptionIndex(NamedTuple):
+    """A flush's exception entries window by window, as K2 reads them:
+    ``order`` int32 [ep] lists the entries sorted by window (stable), and
+    window w's are ``order[starts[w]:starts[w + 1]]`` (``starts`` int32
+    [wp + 1]); padding entries (``ex_w == wp``) sort last, after
+    ``starts[wp]``, where no window reads them."""
+    order: torch.Tensor
+    starts: torch.Tensor
+
+
+def exception_index(wire) -> ExceptionIndex:
+    """The per-window entry index of a wire-v3 or wire-v2 flush, on the
+    wire's device.  ``ex_w`` is not sorted by window: overlapping windows
+    interleave their entries, and unsorted plans emit any order."""
+    order = torch.argsort(wire.ex_w, stable=True)
+    windows = torch.arange(wire.wp + 1, dtype=wire.ex_w.dtype,
+                           device=wire.ex_w.device)
+    starts = torch.searchsorted(wire.ex_w[order], windows, out_int32=True)
+    return ExceptionIndex(order.to(torch.int32), starts)
+
+
+def exception_patch(m: torch.Tensor, s: torch.Tensor, wire, w0: int,
+                    index: ExceptionIndex | None = None) -> None:
     """Add, in place, the multi-allelic exception entries of windows
     w0 .. w0 + len(m) - 1 of a wire-v3 or wire-v2 flush to the chunk's
-    counts.  Padding entries (``ex_w == wp``) are skipped.  Replaces the
-    JAX ``_exception_patch``."""
+    counts.  Padding entries (``ex_w == wp``) are skipped.  ``index`` is
+    the flush's :func:`exception_index`, built once per flush by the
+    caller (or here when None).  Replaces the JAX ``_exception_patch``."""
     if not m.is_cuda:
         exception_patch_plain(m, s, wire, w0)
         return
     ep, h = wire.ex_codes.shape
-    if ep == 0:
+    nwin = m.shape[0]
+    if w0 < 0 or w0 + nwin > wire.wp:
+        raise ValueError(f"windows {w0}..{w0 + nwin} outside wp={wire.wp}")
+    if ep == 0 or nwin == 0:
         return
-    if h > 48 * 1024:
-        raise ValueError(f"exception_patch stages h={h} codes in 48 KB of "
-                         "shared memory")
-    _check_cuda(m, s, wire.ex_w, wire.ex_codes)
+    if max(-(-h // _K2_TILE), nwin) > 65535:
+        raise ValueError(f"exception_patch: {-(-h // _K2_TILE)} row tiles "
+                         f"and {nwin} windows in one launch (at most 65535)")
+    if index is None:
+        index = exception_index(wire)
+    _check_cuda(m, s, wire.ex_codes, *index)
     code = _build.lib("pair_v3").ggt_exception_patch(
-        wire.ex_w.data_ptr(), wire.ex_codes.data_ptr(), ep, h, wire.wp, w0,
-        m.shape[0], m.data_ptr(), s.data_ptr(), _stream_ptr(m))
+        index.order.data_ptr(), index.starts.data_ptr(),
+        wire.ex_codes.data_ptr(), h, w0, nwin, m.data_ptr(), s.data_ptr(),
+        _stream_ptr(m))
     _build.check(code, "exception_patch")
     LAUNCHES["exception_patch"] += 1
 
@@ -256,8 +291,9 @@ class PopGroups:
     """A 0/1 population mask [P, H] in which every haplotype row lies in
     exactly one group, as K3 takes it: ``perm`` int32 [H] lists the rows
     group by group and ``offs`` int32 [P + 1] bounds each group's run
-    (both on ``device``).  ``mask`` float64 [P, H] stays on the host: only
-    the plain version reads it."""
+    (both on ``device``), ``max_rows`` is the largest group's size (K3's
+    launch shape).  ``mask`` float64 [P, H] stays on the host: only the
+    plain version reads it."""
 
     def __init__(self, pop_mask: np.ndarray, device: torch.device):
         mask = np.asarray(pop_mask, dtype=np.float64)
@@ -270,9 +306,11 @@ class PopGroups:
         self.mask = torch.from_numpy(np.ascontiguousarray(mask))
         self.perm = torch.from_numpy(
             np.argsort(groups, kind="stable").astype(np.int32)).to(device)
+        sizes = np.bincount(groups, minlength=self.P)
         offs = np.zeros(self.P + 1, dtype=np.int32)
-        np.cumsum(np.bincount(groups, minlength=self.P), out=offs[1:])
+        np.cumsum(sizes, out=offs[1:])
         self.offs = torch.from_numpy(offs).to(device)
+        self.max_rows = int(sizes.max(initial=0))
 
 
 # per-run constants on each device, keyed on their bytes (a few at a time
@@ -321,6 +359,12 @@ def _het_rows(het_rows: np.ndarray, h: int, device: torch.device):
                                       for k in range(2)))
 
 
+def blocks_tail_wide(groups: PopGroups) -> bool:
+    """K3's launch shape: a block per (window, p, q) cell when a group has
+    more than ``_K3_NARROW_ROWS`` rows, else a thread per cell."""
+    return groups.max_rows > _K3_NARROW_ROWS
+
+
 def blocks_tail(m: torch.Tensor, s: torch.Tensor, groups: PopGroups,
                 min_sites: int, out: torch.Tensor) -> None:
     """Write float64 [nwin, 2, P, P] into ``out``: per window and pop block,
@@ -334,13 +378,22 @@ def blocks_tail(m: torch.Tensor, s: torch.Tensor, groups: PopGroups,
     if not m.is_cuda:
         out.copy_(blocks_tail_plain(m, s, groups.mask, min_sites))
         return
+    _blocks_tail_launch(m, s, groups, min_sites, out,
+                        blocks_tail_wide(groups))
+
+
+def _blocks_tail_launch(m, s, groups: PopGroups, min_sites: int, out,
+                        wide: bool) -> None:
+    """K3 on the card in the given launch shape (``chip_smoke.py`` times
+    both shapes to set ``_K3_NARROW_ROWS``)."""
     _check_cuda(m, s, groups.perm, groups.offs, out)
+    nwin, h, _ = m.shape
     if nwin == 0:
         return
     code = _build.lib("pair_v3").ggt_blocks_tail(
         m.data_ptr(), s.data_ptr(), groups.perm.data_ptr(),
-        groups.offs.data_ptr(), P, h, nwin, int(min_sites or 0),
-        out.data_ptr(), _stream_ptr(m))
+        groups.offs.data_ptr(), groups.P, h, nwin, int(min_sites or 0),
+        groups.max_rows, int(wide), out.data_ptr(), _stream_ptr(m))
     _build.check(code, "blocks_tail")
     LAUNCHES["blocks_tail"] += 1
 
@@ -718,7 +771,8 @@ def _chunks(counts, W: int, chunk: int, epilogue) -> None:
 def _flush(wire, W: int, chunk: int, epilogue) -> None:
     """Run K1 (wire v3) or K13 (wire v2), then K2, over windows 0 .. W-1
     of one wire, ``chunk`` windows at a time, on the wire's device, and
-    hand each chunk's counts to ``epilogue(m, s, w0, n)``."""
+    hand each chunk's counts to ``epilogue(m, s, w0, n)``.  K2's entry
+    index is built once for the whole wire."""
     v2 = isinstance(wire, transfer.PairWireV2)
     if wire.buf.device.type != "cuda" and W:
         # the plain K1 / K13 also hold float64 [chunk, H, s_max] factors
@@ -727,10 +781,11 @@ def _flush(wire, W: int, chunk: int, epilogue) -> None:
         while chunk > 8 and chunk * wire.h * s_max > (1 << 26):
             chunk //= 2
     pair_counts = pair_counts_v2 if v2 else pair_counts_v3
+    index = exception_index(wire)
 
     def counts(w0, n):
         m, s = pair_counts(wire, w0, n)
-        exception_patch(m, s, wire, w0)
+        exception_patch(m, s, wire, w0, index)
         return m, s
     _chunks(counts, W, chunk, epilogue)
 

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's K6, K9, K12, K14, K17, K18 and K20 kernels of two
-checkouts on one NVIDIA GPU, in one process, on the same inputs:
+"""Time the port's K2, K3, K6, K9, K12, K14, K17, K18 and K20 kernels of
+two checkouts on one NVIDIA GPU, in one process, on the same inputs:
 
     python3 kernel_ab.py --base DIR [--only TEXT] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR``).
 Each checkout's port is imported under a package name of its own and
-builds its ``pair4.cu``, ``counts.cu`` and ``ld.cu`` into its own
-``build/``; each
+builds its ``pair_v3.cu``, ``pair4.cu``, ``counts.cu`` and ``ld.cu``
+into its own ``build/``; each
 kernel is called through that checkout's wrapper (its launch geometry,
 its output allocation), on inputs made here from a seed at the shapes of
 ``chip_smoke.py``'s timings (H = 512):
 
+* K2 ``exception_patch``: the popDist chunk (128 windows of about 625
+  sites, 1 % of sites with a third allele in a few rows) of a wire-v3
+  flush, with the entry index built once where the checkout has one;
+* K3 ``blocks_tail``: 128 windows of counts on popDist's mask (4 groups
+  of 128 rows) and on run B's individual mask (256 groups of 2), min
+  sites 100;
 * K6 ``site_pop_counts``: the span wire of run A's largest span (32,647
   sites) on its 4 populations of 128 rows;
 * K9 ``pair_counts_4state``: run E's block (one window of 262,144 sites,
@@ -30,7 +36,9 @@ its output allocation), on inputs made here from a seed at the shapes of
 * K20 ``flush_pair_counts``: run A's flush as a one-transfer buffer.
 
 ``--only`` times just the cases whose name holds TEXT (for example
-``K12``).  The two outputs of each kernel must be equal.  Times are CUDA events over
+``K12``).  The two outputs of each kernel must be equal (K3's sums, taken
+in another fixed order by another design, within rtol 1e-12, its counts
+exactly).  Times are CUDA events over
 repeated warm calls of each wrapper, taken base, head, head, base: once
 as the calls come (host launch overhead included, which sets the pace of
 a kernel shorter than it) and once with the calls captured in a CUDA
@@ -62,6 +70,7 @@ W_A, N_A = 32, 625
 S_H = 16_176
 S_R = 32_647                      # run A's largest count span (K6, K18)
 S_P = (596, 2048)                 # run P's first window; K17's 2,048 sites
+W_K, N_K = 128, 625               # the popDist chunk (K2, K3)
 H_POPS = (56,) * 8 + (64,)        # run H: 8 x 28 + 32 individuals, diploid
 
 
@@ -77,6 +86,19 @@ def load_port(root: Path, alias: str) -> dict:
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"{alias}.kernels.{name}")
             for name in ("_build", "pairdist", "counts", "transfer", "ld")}
+
+
+def same(name: str, x, y) -> None:
+    """Integers and K3's counts exactly; K3's float64 sums within rtol
+    1e-12 (the two checkouts may add them in other orders)."""
+    import torch
+    if x.dtype == torch.float64 and name.startswith("K3"):
+        if torch.equal(x[:, 1], y[:, 1]) and torch.allclose(
+                x[:, 0], y[:, 0], rtol=1e-12, atol=1e-15):
+            return
+    elif torch.equal(x, y):
+        return
+    raise AssertionError(f"{name}: base and head differ")
 
 
 def codes(rng, h: int, s: int) -> np.ndarray:
@@ -109,7 +131,7 @@ def main() -> int:
     with ThreadPoolExecutor(4) as ex:
         futs = {(tag, name): ex.submit(port["_build"].build, name)
                 for tag, port in ports.items()
-                for name in ("pair4", "counts", "ld")}
+                for name in ("pair_v3", "pair4", "counts", "ld")}
         for (tag, name), fut in futs.items():
             so = fut.result()
             log(f"[build] {tag} {name}.cu: " + so.with_suffix(".log")
@@ -140,11 +162,27 @@ def main() -> int:
     span_r, sp_r = transfer.pack_span(codes(rng, H, S_R))
     span_r = torch.from_numpy(span_r).to(dev)
     a_p = {s: torch.from_numpy(codes(rng, H, s)).to(dev) for s in S_P}
+    # the popDist chunk: K3's counts, and K2's wire with a third allele
+    # at 1 % of sites (about 6 a window)
+    s_k = rng.integers(0, N_K, size=(W_K, H, H), dtype=np.int32)
+    m_k = torch.from_numpy((rng.random(s_k.shape) * (s_k + 1)).astype(
+        np.int32)).to(dev)
+    s_k = torch.from_numpy(s_k).to(dev)
+    a_k = rng.integers(0, 2, size=(H, W_K * N_K)).astype(np.int8)
+    a_k[rng.random(a_k.shape) < 0.05] = -1
+    for x in np.flatnonzero(rng.random(a_k.shape[1]) < 0.01):
+        a_k[rng.integers(0, H, 4), x] = 2
+    f_k = np.arange(0, W_K * N_K, N_K, dtype=np.int32)
+    v3_k = ports["head"]["pairdist"]._v3_flush_args(
+        a_k, f_k, np.full(W_K, N_K, np.int32))
+    wire_k = v3_k.wire(torch.from_numpy(v3_k.buf).to(dev))
     log(f"[inputs] E: [{H}, {S_E}], one window; A: [{H}, {s_a}] (row "
         f"stride {a_a.stride(0)}), {W_A} windows, longest {smax_a}; H: "
         f"[{H}, {S_H}] (row stride {a_h.stride(0)}), {len(H_POPS)} classes; "
         f"R: [{H}, {S_R}], 4 populations (K6: its span wire, {sp_r} "
-        f"sites); P: [{H}, S] for S in {S_P}")
+        f"sites); P: [{H}, S] for S in {S_P}; popDist chunk: {W_K} "
+        f"windows of {N_K} sites, "
+        f"{int((wire_k.ex_w < wire_k.wp).sum())} exception entries")
 
     def k12(mask):
         def make(port):
@@ -164,7 +202,30 @@ def main() -> int:
     def k17(s):
         return lambda p: lambda: p["ld"].pair_allele_tables(a_p[s])
 
+    def k2(port):
+        pd = port["pairdist"]
+        mt, st = m_k.clone(), s_k.clone()
+        if hasattr(pd, "exception_index"):     # built once per flush
+            index = pd.exception_index(wire_k)
+            return lambda: pd.exception_patch(
+                mt, st, wire_k, 0, index) or (mt, st)
+        return lambda: pd.exception_patch(mt, st, wire_k, 0) or (mt, st)
+
+    def k3(mask):
+        def make(port):
+            groups = port["pairdist"].PopGroups(mask, dev)
+            out = torch.empty((W_K, 2, groups.P, groups.P),
+                              dtype=torch.float64, device=dev)
+            return lambda: port["pairdist"].blocks_tail(
+                m_k, s_k, groups, 100, out) or out
+        return make
+
     cases = {
+        "K2 popDist chunk": (k2, 20),
+        "K3 popDist chunk, popDist mask": (
+            k3(np.repeat(np.eye(4), H // 4, axis=1)), 20),
+        "K3 popDist chunk, run B individual mask": (
+            k3(np.repeat(np.eye(H // 2), 2, axis=1)), 5),
         "K6 run A span": (k6, 50),
         "K9 run E block": (lambda p: lambda: p["pairdist"].pair_counts_4state(
             a_e, f_e, n_e, S_E), 5),
@@ -197,8 +258,7 @@ def main() -> int:
             got[tag] = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
         for x, y in zip(got["base"], got["head"]):
-            if not torch.equal(x, y):
-                raise AssertionError(f"{name}: base and head differ")
+            same(name, x, y)
         del got
         times = {"base": [], "head": [], "base_graph": [], "head_graph": []}
         for tag in ("base", "head", "head", "base"):
