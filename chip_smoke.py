@@ -46,7 +46,12 @@ not build, launch or agree, or an output is wrong):
    blocks at an odd row stride, run H's 10 mask rows as 9 classes, a
    33-row class, 33 rows as 33 classes, 8,300 rows in one class); K13
    pair_counts_v2 + K2 against their plain versions and against K1 + K2
-   on the same flushes, with K3 (bit for bit), K4 and K5 on both; K14
+   on the same flushes, with K3 (bit for bit), K4 and K5 on both; K1 and
+   K13 at the edges of their 64 x 64 upper-triangle tiles (H = 1 to 1,000
+   around the tile size, from w0 = 0, 1, 3 and in one-window chunks, class
+   ranges starting at every bit offset 0..31, empty, all-monomorphic and
+   one-class windows, one of 66,000 sites) exactly against their plain
+   versions with every (w, i, j) cell written, and K13 + K2 == K1 + K2; K14
    pair_counts_4state_rows on row blocks that cut K9's tiles against K9's
    rows and its plain version (the split path too), also at K9's tile
    edges (rows 100..300 and 127..129 at H = 512, 999..1000 at H = 1000; on
@@ -116,21 +121,24 @@ not build, launch or agree, or an output is wrong):
    run F's cohort, one tree ending in ';' a window;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events over
-   calls as they come (K6's, K9's, K12's, K14's, K17's and K18's, and
-   their yardsticks', also over
+   calls as they come (K1's, K6's, K9's, K12's, K13's, K14's, K17's,
+   K18's and K20's, and their yardsticks', also over
    calls replayed from a CUDA graph, logged beside: the device's time
    without the wrappers' host overhead),
    beside the bound computed from these inputs (K9 at run E's block and
    at run F's and run A's largest flushes, where the K9 + K4 and K1 + K2 +
    K4 routes are timed side by side; K10 and K11 at run G's shape; K12 at
-   run H's span beside K6, K13 at the popDist chunk beside K1, and K13 +
-   K2 + tails against K1 + K2 + tails on run A's and run B's flushes;
+   run H's span beside K6, K13 at the popDist chunk beside K1 (both also
+   in a CUDA graph) and K1 beside K9 at run A's flush, and K13 + K2 +
+   tails against K1 + K2 + tails on run A's and run B's flushes;
    K14 at run A's largest flush on two row shards; K15 and K16 over the
    500,000-site cohort's first three populations made complete, 129^3
    bins, against the mesh's sharded_global_sfs on two shards; K17 at run
    P's first window and at 2,048 sites beside the bf16 one-hot Gram and
    torch._int_mm of the int8 one-hot, K18,
-   K19 and K20 at run R's inputs, K20 beside K9 + K4); K2 and K3 at the
+   K19 and K20 at run R's inputs, K20 beside K9 + K4 and K9's two bf16
+   one-hot Grams; K11 beside one torch.einsum of the mask with per-window
+   code counts); K2 and K3 at the
    popDist chunk also in a CUDA graph (K2 with its per-window entry index
    built once, as each flush builds it, and that index's time); K3 on the
    popDist chunk's counts with popDist's mask, ind_layout(512)'s and two
@@ -225,7 +233,6 @@ FP64_PER_S = 34e12
 INT8_OPS_PER_S = 1979e12              # dense int8 tensor rate (K9's bound)
 # results per clock per SM for compute capability 9.0 (CUDA C++
 # Programming Guide, throughput of native arithmetic instructions)
-POPC_PER_CLK_SM = 16
 INT32_PER_CLK_SM = 64
 SECTOR = 32                           # bytes per device-memory sector
 RTOL, ATOL = 1e-12, 1e-15
@@ -264,6 +271,10 @@ K17_EDGE_H, K17_EDGE_S = (1, 77, 160, 512), (1, 31, 33, 597, 2048)
 K6_EDGE = ((77, 1003, 0, 1003), (77, 1003, 8, 1003), (33, 517, 24, 517),
            (129, 131, 0, 129), (5, 9, 8, 9), (600, 37, 16, 35),
            (8300, 13, 8, 13), (77, 70003, 8, 70001))
+# K1's and K13's tile edges: haplotype counts around their 64 x 64 pair
+# tiles; a cell no launch writes keeps SENTINEL
+K1_EDGE_H = (1, 12, 40, 63, 64, 65, 77, 160, 512, 1000)
+SENTINEL = -(1 << 30)
 # window_stats_step past K9's and K11's 65,535-window grid axis
 STEP_WINDOWS, STEP_H, STEP_SITES = 66_000, 8, 70_000
 # run P: ld_matrix over the popDist cohort's first 32 windows of 50 kb,
@@ -521,8 +532,9 @@ def parity(pair, transfer, a, first, n, mask, min_sites, dev, chunk=None,
 
     if not time_it:
         return res, None
-    res["pair_counts_v3"]["ms"] = cuda_ms(
-        lambda: pair.pair_counts_v3(wire, 0, nwin), 20)
+    k1 = lambda: pair.pair_counts_v3(wire, 0, nwin)  # noqa: E731
+    res["pair_counts_v3"]["ms"] = cuda_ms(k1, 20)
+    res["pair_counts_v3"]["graph_ms"] = graph_ms(k1, 20)
     res["pair_counts_v3"]["plain_ms"] = cuda_ms(
         lambda: pair.pair_counts_v3_plain(wire, 0, nwin), 3, 1)
     mt, st = m.clone(), s.clone()
@@ -564,17 +576,16 @@ def parity(pair, transfer, a, first, n, mask, min_sites, dev, chunk=None,
 
 def bounds(shapes, sm_count: int, clk_hz: float) -> dict:
     """Least time the card could take for K1-K3's work on these inputs:
-    max(bytes / HBM rate, operations / peak rate of their type)."""
+    max(bytes / HBM rate, operations / peak rate of their type).  K1's
+    1-bit tensor-core products have no data-sheet rate, so its bound is
+    its bytes: the covered words of each class plane read once, the
+    metadata, m and s written."""
     H, nwin, P = shapes["H"], shapes["nwin"], shapes["P"]
     meta = shapes["meta"].astype(np.int64)
-    pairs_tri = H * (H + 1) // 2
     words_read = 0
-    popc = 0
     for cls, planes in ((0, 1), (1, 1), (2, 2)):
         f, n = meta[2 * cls, :nwin], meta[2 * cls + 1, :nwin]
         has = n > 0
-        nw = np.where(has, ((f + n - 1) >> 5) - (f >> 5) + 1, 0)
-        popc += int(nw.sum()) * planes * pairs_tri
         if has.any():
             lo = int((f[has] >> 5).min())
             hi = int(((f[has] + n[has] - 1) >> 5).max())
@@ -585,8 +596,7 @@ def bounds(shapes, sm_count: int, clk_hz: float) -> dict:
     touched = np.unique(active).size
     k2_bytes = shapes["ex_bytes"] + 2 * 2 * 4 * touched * H * H
     return {
-        "pair_counts_v3": bound(k1_bytes, popc,
-                                POPC_PER_CLK_SM * sm_count * clk_hz),
+        "pair_counts_v3": bound(k1_bytes),
         "exception_patch": bound(k2_bytes, 3 * active.size * H * H,
                                  INT32_PER_CLK_SM * sm_count * clk_hz),
         "blocks_tail": blocks_tail_bound(nwin, H, P),
@@ -859,6 +869,130 @@ def v2_parity(pair, a, first, n, dev, masks, min_sites, het_rows=None,
         check_equal("het_pairs on K13 vs on K1 counts", h2, h3)
     torch.cuda.synchronize()
     return w2, nwin, v2.u16
+
+
+def class_input(H: int, cls: str, seed: int):
+    """Alleles whose sites are all of one wire-v3 class — "B" monomorphic
+    with missing calls, "C" clean biallelic, "D" biallelic with missing
+    calls — so each window's class range starts where the window does: 32
+    windows at sites 33 k (every bit offset 0..31 of a word) of 1 to 699
+    sites.  H >= 3."""
+    rng = np.random.default_rng(seed)
+    S = 33 * 32 + 700
+    a = np.ones((H, S), np.int8)
+    if cls != "B":
+        a = rng.integers(0, 2, size=(H, S)).astype(np.int8)
+        a[0], a[1] = 0, 1
+    if cls != "C":
+        a[2 + rng.integers(0, H - 2, S), np.arange(S)] = -1
+    k = np.arange(32)
+    return a, (33 * k).astype(np.int32), (1 + 97 * k % 699).astype(np.int32)
+
+
+def pair_counts_filled(pair, wire, w0: int, nwin: int):
+    """K1 (wire v3) or K13 (wire v2) launched as its wrapper launches it,
+    but into m and s filled with SENTINEL first (a test-only allocation:
+    the wrappers allocate with torch.empty), so a cell no block writes
+    shows.  Not counted in LAUNCHES."""
+    import torch
+    h = wire.h
+    m = torch.full((nwin, h, h), SENTINEL, dtype=torch.int32,
+                   device=wire.buf.device)
+    s = torch.full_like(m, SENTINEL)
+    lib = pair._build.lib("pair_v3")
+    stream = torch.cuda.current_stream(m.device).cuda_stream
+    if hasattr(wire, "called"):
+        code = lib.ggt_pair_counts_v2(
+            wire.called.data_ptr(), wire.alt.data_ptr(),
+            wire.first.data_ptr(), wire.n_sites.data_ptr(), h,
+            wire.called.shape[1], w0, nwin, m.data_ptr(), s.data_ptr(),
+            stream)
+    else:
+        code = lib.ggt_pair_counts_v3(
+            wire.cB.data_ptr(), wire.meta.data_ptr(), h, wire.cB.shape[1],
+            wire.aC.shape[1], wire.cD.shape[1], wire.wp, w0, nwin,
+            m.data_ptr(), s.data_ptr(), stream)
+    pair._build.check(code, "pair counts (sentinel-filled)")
+    return m, s
+
+
+def hold_pair_counts(pair, wires, w0: int, nwin: int, what: str) -> int:
+    """K1 on the wire-v3 and K13 on the wire-v2 buffer of one flush,
+    windows w0 .. w0 + nwin - 1: each exactly its plain version, every
+    (w, i, j) cell written (SENTINEL-filled launch), and K13 + K2 == K1 +
+    K2.  Returns the number of comparisons."""
+    import torch
+    w3, w2 = wires
+    patched = []
+    for name, wire, kernel, plain in (
+            ("K1", w3, pair.pair_counts_v3, pair.pair_counts_v3_plain),
+            ("K13", w2, pair.pair_counts_v2, pair.pair_counts_v2_plain)):
+        m, s = kernel(wire, w0, nwin)
+        mp, sp = plain(wire, w0, nwin)
+        mf, sf = pair_counts_filled(pair, wire, w0, nwin)
+        torch.cuda.synchronize()
+        unwritten = int((mf == SENTINEL).sum() + (sf == SENTINEL).sum())
+        if unwritten:
+            raise AssertionError(f"{name} ({what}): {unwritten} cells of m "
+                                 "and s never written")
+        for tag, got in (("", (m, s)), (", sentinel-filled", (mf, sf))):
+            check_equal(f"{name} m{tag} ({what})", got[0], mp)
+            check_equal(f"{name} s{tag} ({what})", got[1], sp)
+        pair.exception_patch(m, s, wire, w0)
+        patched.append((m, s))
+        del mp, sp, mf, sf
+    check_equal(f"K13 + K2 m vs K1 + K2 ({what})", patched[1][0],
+                patched[0][0])
+    check_equal(f"K13 + K2 s vs K1 + K2 ({what})", patched[1][1],
+                patched[0][1])
+    return 6
+
+
+def k1_k13_edge_parity(pair, dev) -> int:
+    """K1 and K13 at the edges of their 64 x 64 upper-triangle tiles:
+    messy_input at every H of K1_EDGE_H with four more windows (all
+    monomorphic and complete: nconst only; clean biallelic: classes B and
+    D empty; empty; 3 sites at the end), from w0 = 0, 1, 3, the last four
+    windows and the last window alone (a chunk of one); class_input's
+    windows, whose B, C and D ranges start at every bit offset 0..31, at H
+    = 77 and 512; and long_window_input's 66,000-site window.  Returns the
+    number of comparisons."""
+    import torch
+
+    def wires(a, first, n):
+        v3 = pair._v3_flush_args(a, first, n)
+        v2 = pair._v2_flush_args(a, first, n)
+        return (v3.wire(torch.from_numpy(v3.buf).to(dev)),
+                v2.wire(torch.from_numpy(v2.buf).to(dev))), v3.chunk
+    done = 0
+    for H in K1_EDGE_H:
+        a, first, n, _ = messy_input(H)
+        first = np.concatenate([first, [200, 600, 0, 5000]]).astype(np.int32)
+        n = np.concatenate([n, [200, 200, 0, 3]]).astype(np.int32)
+        ws, chunk = wires(a, first, n)
+        W = first.shape[0]
+        for w0, k in ((0, chunk), (1, chunk), (3, chunk), (W - 4, 4),
+                      (W - 1, 1)):
+            done += hold_pair_counts(pair, ws, w0, min(k, W - w0),
+                                     f"messy H={H}, w0={w0}")
+        del ws
+    for H in (77, 512):
+        for row, cls in ((0, "B"), (2, "C"), (4, "D")):
+            a, first, n = class_input(H, cls, 40 + row)
+            ws, chunk = wires(a, first, n)
+            meta = ws[0].meta.cpu().numpy()
+            starts = meta[row, :32][meta[row + 1, :32] > 0] & 31
+            if np.unique(starts).size != 32 or meta[row + 1, :32].sum() \
+                    != meta[1:6:2, :32].sum():
+                raise AssertionError(f"class_input {cls}: its ranges do not "
+                                     "start at every bit offset")
+            done += hold_pair_counts(pair, ws, 0, min(chunk, 32),
+                                     f"class {cls} ranges, H={H}")
+    a, first, n = long_window_input()
+    ws, _ = wires(a, first, n)
+    done += hold_pair_counts(pair, ws, 0, 2, "a 66,000-site window")
+    torch.cuda.empty_cache()
+    return done
 
 
 def abba_input(H: int = 160, S: int = 5003, seed: int = 7):
@@ -1602,8 +1736,10 @@ def time_k9_flush(pair, transfer, flush, dev, name: str) -> dict:
     grams = gram_yardstick(wa, valid)
     k9 = lambda: pair.pair_counts_4state(al, f[:nw], k[:nw],  # noqa: E731
                                          s_max)
+    k1 = lambda: pair.pair_counts_v3(wire, 0, nw)  # noqa: E731
     res = {
         "ms": cuda_ms(k9, 10), "graph_ms": graph_ms(k9, 10),
+        "k1_ms": cuda_ms(k1, 10), "k1_graph_ms": graph_ms(k1, 10),
         "plain_ms": cuda_ms(lambda: pair.pair_counts_4state_plain(
             al, f[:nw], k[:nw]), 2, 1),
         "library_ms": cuda_ms(grams, 5),
@@ -1620,7 +1756,8 @@ def time_k9_flush(pair, transfer, flush, dev, name: str) -> dict:
         f"{res['ms']:.4f} ms ({res['graph_ms']:.4f} ms in a CUDA graph), "
         f"plain {res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} "
         f"ms ({res['library_graph_ms']:.4f} in a CUDA graph), bound {res['bound'][0]:.4f} ms "
-        f"({res['bound'][1]}); whole flush: K9 + K4 "
+        f"({res['bound'][1]}); K1 on the same windows {res['k1_ms']:.4f} "
+        f"ms ({res['k1_graph_ms']:.4f} in a CUDA graph); whole flush: K9 + K4 "
         f"{res['route_k9_k4_ms']:.4f} ms, K1 + K2 + K4 "
         f"{res['route_k1_k2_k4_ms']:.4f} ms; K9 == K1 + K2")
     del wa, grams
@@ -1629,7 +1766,9 @@ def time_k9_flush(pair, transfer, flush, dev, name: str) -> dict:
 
 
 def time_stats(ws, g_inputs, g_out, dev) -> dict:
-    """K10 and K11 at run G's shape, against their plain versions."""
+    """K10 and K11 at run G's shape, against their plain versions; K11
+    beside one torch.einsum of the mask with per-window code counts."""
+    import torch
     at, f, k, pm = g_inputs
     m, s = g_out["mismatch"], g_out["shared"]
     B, H, _ = m.shape
@@ -1651,7 +1790,20 @@ def time_stats(ws, g_inputs, g_out, dev) -> dict:
            # the counts once, the mask, pi / dxy / fst written
            "bound": bound(8 * B * H * H + 4 * P * H + 4 * B * (P + 2 * P * P))}
     sites = int(k.sum())
-    k11 = {"max_abs_err": 0.0, "library_ms": None,
+    # K11's yardstick: one einsum of the population mask with per-window
+    # code counts [H, B, 4] (counted beforehand, untimed)
+    s_max = int(k.max())
+    offs = torch.arange(s_max, device=at.device)
+    idx = f.long()[:, None] + offs[None, :]
+    valid = offs[None, :] < k.long()[:, None]
+    wa = at[:, torch.where(valid, idx, torch.zeros_like(idx))]
+    per_row = torch.stack([((wa == c) & valid[None]).sum(dim=2)
+                           for c in range(4)], dim=-1).float()
+    member = (pm != 0).float()
+    del wa
+    lib11 = lambda: torch.einsum(  # noqa: E731
+        "ph,hbc->bpc", member, per_row)
+    k11 = {"max_abs_err": 0.0, "library_ms": cuda_ms(lib11, 20),
            "ms": cuda_ms(lambda: ws.window_pop_counts(at, f, k, pm), 20),
            "plain_ms": cuda_ms(lambda: ws.window_pop_counts_plain(
                at, f, k, pm), 3, 1),
@@ -1713,11 +1865,11 @@ def time_k12(counts, transfer, flush, dev):
     return res
 
 
-def time_k13(pair, transfer, flush, dev, sm_count: int, clk_hz: float):
+def time_k13(pair, transfer, flush, dev):
     """K13 at the popDist run's largest chunk (its wire-v2 flush), after
-    :func:`v2_parity` there; K1 on the same chunk's wire-v3 flush and three
-    bf16 Gram ``torch.matmul``s of the gathered called / alt factors
-    beside it."""
+    :func:`v2_parity` there, per call and in a CUDA graph; K1 on the same
+    chunk's wire-v3 flush and three bf16 Gram ``torch.matmul``s of the
+    gathered called / alt factors beside it."""
     import torch
     a, first, n, mask, min_sites = flush
     w2, nwin, _ = v2_parity(pair, a, first, n, dev, [mask], min_sites)
@@ -1734,14 +1886,17 @@ def time_k13(pair, transfer, flush, dev, sm_count: int, clk_hz: float):
         torch.matmul(c, c.transpose(1, 2))
         torch.matmul(ca, ca.transpose(1, 2))
         torch.matmul(ca, c.transpose(1, 2))
+    k13 = lambda: pair.pair_counts_v2(w2, 0, nwin)  # noqa: E731
+    k1 = lambda: pair.pair_counts_v3(w3, 0, nwin)  # noqa: E731
     res = {"max_abs_err": 0.0,
-           "ms": cuda_ms(lambda: pair.pair_counts_v2(w2, 0, nwin), 20),
+           "ms": cuda_ms(k13, 20), "graph_ms": graph_ms(k13, 20),
            "plain_ms": cuda_ms(lambda: pair.pair_counts_v2_plain(
                w2, 0, nwin), 3, 1),
-           "k1_ms": cuda_ms(lambda: pair.pair_counts_v3(w3, 0, nwin), 20),
+           "k1_ms": cuda_ms(k1, 20), "k1_graph_ms": graph_ms(k1, 20),
            "library_ms": cuda_ms(grams, 20)}
-    # popcounts of the upper triangle over each window's words of both
-    # planes; the covered words of both planes read once, m and s written
+    # bytes (the 1-bit tensor-core products have no data-sheet rate): the
+    # covered words of both planes read once, first / n_sites, m and s
+    # written
     f = first[:nwin].astype(np.int64)
     k = n[:nwin].astype(np.int64)
     has = k > 0
@@ -1749,9 +1904,7 @@ def time_k13(pair, transfer, flush, dev, sm_count: int, clk_hz: float):
     covered = int(((f[has] + k[has] - 1) >> 5).max() - (f[has] >> 5).min()
                   + 1) if has.any() else 0
     res["bound"] = bound(2 * 4 * H * covered + 8 * nwin
-                         + 8 * nwin * H * H,
-                         2 * int(words.sum()) * (H * (H + 1) // 2),
-                         POPC_PER_CLK_SM * sm_count * clk_hz)
+                         + 8 * nwin * H * H)
     res["shape"] = (f"{nwin} windows, H={H}, {int(words.sum())} window "
                     "words")
     del c, ca
@@ -2688,15 +2841,26 @@ def time_k18_k20(counts, pair, transfer, inputs, dev,
     tri = pair._fused_flush_pair_counts(dbuf, sp, H, wp, s_max, wp)
     T = H * (H + 1) // 2
     sites = float(np.minimum(fn, s_max).astype(np.int64).sum())
+    # K20's yardstick: K9's, the two bf16 one-hot Grams of the gathered
+    # windows (each cut to s_max sites, as K20 counts them)
+    al, f20, n20 = transfer.unpack_flush_buffer(dbuf, sp, H, wp)
+    offs = torch.arange(s_max, device=dev)
+    idx = f20[:W, None].long() + offs[None, :]
+    valid = offs[None, :] < n20[:W, None]
+    grams = gram_yardstick(
+        al[:, torch.where(valid, idx, torch.zeros_like(idx))]
+        .permute(1, 0, 2), valid)
+    k20 = lambda: pair._fused_flush_pair_counts(  # noqa: E731
+        dbuf, sp, H, wp, s_max, wp)
     res["flush_pair_counts"] = {
         "max_abs_err": check_equal(
             "flush_pair_counts (run A flush) vs plain", tri,
             pair._fused_flush_pair_counts_plain(dbuf, sp, H, wp, s_max, wp)),
-        "ms": cuda_ms(lambda: pair._fused_flush_pair_counts(
-            dbuf, sp, H, wp, s_max, wp), 10),
+        "ms": cuda_ms(k20, 10), "graph_ms": graph_ms(k20, 10),
         "plain_ms": cuda_ms(lambda: pair._fused_flush_pair_counts_plain(
             dbuf, sp, H, wp, s_max, wp), 2, 1),
-        "library_ms": None,
+        "library_ms": cuda_ms(grams, 10),
+        "library_graph_ms": graph_ms(grams, 10),
         "k9_k4_ms": cuda_ms(lambda: pair.flush_tri_4state(
             *transfer.unpack_flush_buffer(dbuf, sp, H, wp), wp, u16, s_max),
             10),
@@ -3724,6 +3888,15 @@ def main() -> int:
         "stride%16 offset 5, odd-stride and aligned rows) == plain; == host "
         f"executor on codes -1..3; K14 on rows {K14_EDGE_BLOCKS} of the "
         "same layouts and windows == plain == K9's rows")
+    t_edge = time.perf_counter()
+    n_k1 = k1_k13_edge_parity(pair, dev)
+    log(f"[parity] K1/K13 tile edges in {time.perf_counter() - t_edge:.1f}s "
+        f"({n_k1} comparisons: messy input at H={K1_EDGE_H} from w0 = 0, "
+        "1, 3, the last four windows and the last alone, with an "
+        "all-monomorphic, a B/D-empty, an empty and a 3-site window; class "
+        "B, C and D ranges starting at every bit offset 0..31 at H = 77 and "
+        "512; one 66,000-site window) == plain, every cell written; K13 + "
+        "K2 == K1 + K2")
     sfs_parity(counts, dev)
     log("[parity] K15 on tie-built counts (8/8, 9/7, monomorphic, 3-allele, "
         "incomplete; uint16 and int32) == plain; K16 sum / min (int64 beyond "
@@ -3870,12 +4043,12 @@ def main() -> int:
             f"bf16 matmul {r['library_ms']:.4f} ms "
             f"({r['library_graph_ms']:.4f} in a CUDA graph), K6 on the same "
             f"block {r['k6_ms']:.4f} ms in a CUDA graph; K12 == K6")
-        res["pair_counts_v2"] = time_k13(
-            pair, transfer, flush, dev, sm_count, clk_mhz * 1e6)
+        res["pair_counts_v2"] = time_k13(pair, transfer, flush, dev)
         r = res["pair_counts_v2"]
         log(f"[kernel] pair_counts_v2 at the popDist chunk: K13 "
-            f"{r['ms']:.4f} ms, K1 on the same chunk {r['k1_ms']:.4f} ms; "
-            "K13 + K2 + K3 == K1 + K2 + K3")
+            f"{r['ms']:.4f} ms ({r['graph_ms']:.4f} ms in a CUDA graph), K1 "
+            f"on the same chunk {r['k1_ms']:.4f} ms ({r['k1_graph_ms']:.4f} "
+            "ms in a CUDA graph); K13 + K2 + K3 == K1 + K2 + K3")
         v2_parity(pair, *runs["run_A"][1]["window_pair_counts_dispatch"],
                   dev, [], 0)
         a_b, f_b, n_b, ind_b, het_b, gate_b = \
@@ -3951,6 +4124,8 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": CSRC + src,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
+                **({"graph_ms": res[k]["graph_ms"]}
+                   if "graph_ms" in res[k] else {}),
                 "plain_ms": res[k]["plain_ms"], "bound_ms": bnd[k][0],
                 "bound_by": bnd[k][1], "library_ms": res[k]["library_ms"]}
                for k, (src, replaces) in KERNELS.items()]

@@ -23,8 +23,7 @@
 
 namespace {
 
-constexpr int kTile = 32;        // K1/K13 pair tile: 32 x 32 pairs
-constexpr int kWords = 32;       // words staged per plane per step
+constexpr int kTile = 32;        // K2 pair tile: 32 x 32 pairs
 constexpr int kThreads = 256;    // 8 warps; warp y owns tile rows y + 8r
 constexpr int kRowsPerThread = kTile / (kThreads / kTile);
 constexpr int kExBatch = 32;     // K2 entries staged per step
@@ -33,105 +32,339 @@ constexpr int kTailThreads = 256;
 constexpr int kTailWarps = kTailThreads / 32;
 constexpr int kWideRows = 8;     // K3 wide: rows of loads in flight a thread
 
-// One class range of a pair tile, shared by K1 and K13: adds to the
-// thread's accumulators, for its rows of the 32 x 32 tile (i0.., j0..), the
-// popcounts over the words of [first, first + n) of the planes p0 (and p1),
-// rows of row_words words:
-//   kind 0: shared   += popc(p0_i & p0_j)
-//   kind 1: mismatch += popc(p0_i ^ p0_j)
-//   kind 2: shared   += popc(p0_i & p0_j),
-//           mismatch += popc((p1_i ^ p1_j) & p0_i & p0_j)
-// A range starts at any bit.  AND, XOR and popcount act per bit, so no
-// alignment is needed: the words that overlap the range are read in place
-// and the bits outside it are masked off in the first and last word
-// (all-ones mask elsewhere).  n <= 0 adds nothing.  Every thread of the
-// block calls it with the same range (it synchronises).  The block stages
-// kWords words of its 32 row and 32 column haplotypes per plane in shared
-// memory (padded rows: conflict-free column reads, broadcast row reads), so
-// each word loaded from device memory feeds 32 pairs.
-__device__ __forceinline__ void tile_range(
-    int kind, const uint32_t* __restrict__ p0,
-    const uint32_t* __restrict__ p1, int row_words, int first, int n, int h,
-    int i0, int j0, uint32_t (&si)[2][kTile][kWords + 1],
-    uint32_t (&sj)[2][kTile][kWords + 1], int (&acc_s)[kRowsPerThread],
-    int (&acc_m)[kRowsPerThread]) {
-  if (n <= 0) return;
-  const int tx = threadIdx.x % kTile;
-  const int ty = threadIdx.x / kTile;
-  const int q_first = first >> 5;
-  const int q_last = (first + n - 1) >> 5;
-  const uint32_t head = ~0u << (first & 31);
-  const int tail_bits = (first + n) & 31;
-  const uint32_t tail = tail_bits ? (1u << tail_bits) - 1u : ~0u;
+// ------------------------------------------------------- K1, K13 tile body
+// One block per (window, 64 x 64 pair tile ti <= tj) of the upper triangle.
+constexpr int kPairTile = 64;
+constexpr int kPairThreads = 256;
+constexpr int kStageWords = 32;     // window words (realigned) a step
+constexpr int kMmaWords = 8;        // m16n8k256: 8 words of depth
+// A staged row holds the step's raw plane words, each segment's run
+// copied from a 16-byte boundary: at most kStageWords + 3 (1 + 3 + 3) words
+// for three segments.  60 words (15 x 16 bytes) keep rows 16-byte aligned
+// and a fragment's 8 rows x 4 words on 32 banks.
+constexpr int kRawRow = 60;
+constexpr int kRawPlane = kPairTile * kRawRow;              // one side
+constexpr int kRawWords = 2 * 2 * kRawPlane + 4;  // 2 planes x 2 sides
+constexpr int kPairSmem = 4 * kRawWords;          // 61,456 bytes, dynamic
+constexpr int kOutRow = kPairTile + 1;            // the epilogue's tile row
+static_assert(kStageWords + 3 * 7 <= kRawRow && kRawRow % 4 == 0,
+              "a step's raw runs fit a staged row");
+static_assert(2 * kPairTile * kOutRow <= kRawWords,
+              "the epilogue tiles reuse the stage");
 
-  for (int qb = q_first; qb <= q_last; qb += kWords) {
-    const int nq = min(kWords, q_last - qb + 1);
-    for (int idx = threadIdx.x; idx < kTile * kWords; idx += kThreads) {
-      const int r = idx / kWords;
-      const int k = idx % kWords;
-      const int q = qb + k;
-      uint32_t mask = 0;
-      if (k < nq) {
-        mask = ~0u;
-        if (q == q_first) mask &= head;
-        if (q == q_last) mask &= tail;
-      }
-      const int gi = i0 + r;
-      const int gj = j0 + r;
-      uint32_t vi0 = 0, vi1 = 0, vj0 = 0, vj1 = 0;
-      if (mask) {
-        if (gi < h) {
-          vi0 = p0[(size_t)gi * row_words + q] & mask;
-          if (p1) vi1 = p1[(size_t)gi * row_words + q] & mask;
-        }
-        if (gj < h) {
-          vj0 = p0[(size_t)gj * row_words + q] & mask;
-          if (p1) vj1 = p1[(size_t)gj * row_words + q] & mask;
-        }
-      }
-      si[0][r][k] = vi0;
-      si[1][r][k] = vi1;
-      sj[0][r][k] = vj0;
-      sj[1][r][k] = vj1;
+// A window as up to three segments of bit planes, laid end to end on one
+// axis of realigned words:
+//   0: cB                  kind 0  shared   += popc(cB_i & cB_j)
+//   1: aC                  kind 1  mismatch += popc(aC_i ^ aC_j)
+//   2: cD (p0), aD (p1)    kind 2  shared   += popc(cD_i & cD_j),
+//                          mismatch += popc((aD_i ^ aD_j) & cD_i & cD_j)
+// Segment s holds bits [first[s], first[s] + n[s]) of its plane rows;
+// its realigned word k is bits first + 32k .. + 31 shifted down to bit 0
+// and zeroed past the end, at [start[s], start[s + 1]) of the axis, padded
+// with zero words to a multiple of kMmaWords so that an m16n8k256 step
+// never straddles two kinds.  K13 has segment 2 only (the called and alt
+// planes).
+struct Segments {
+  const uint32_t* p0[3];
+  const uint32_t* p1;
+  int row_words[3];
+  int first[3];
+  int n[3];
+  int start[4];
+};
+
+__device__ __forceinline__ int padded_words(int n) {
+  const int words = n > 0 ? (n + 31) >> 5 : 0;
+  return (words + kMmaWords - 1) / kMmaWords * kMmaWords;
+}
+
+__device__ __forceinline__ void set_starts(Segments& sg) {
+  sg.start[0] = 0;
+  sg.start[1] = padded_words(sg.n[0]);
+  sg.start[2] = sg.start[1] + padded_words(sg.n[1]);
+  sg.start[3] = sg.start[2] + padded_words(sg.n[2]);
+}
+
+// Tile pair p of the T (T + 1) / 2 pairs ti <= tj, row by row: the closed
+// form of p's row counted from the last, corrected for rounding.
+__device__ __forceinline__ void tile_pair(int p, int T, int& ti, int& tj) {
+  const long long q = (long long)T * (T + 1) / 2 - 1 - p;
+  long long r = (long long)((sqrt(8.0 * (double)q + 1.0) - 1.0) * 0.5);
+  while (r * (r + 1) / 2 > q) --r;
+  while ((r + 1) * (r + 2) / 2 <= q) ++r;
+  ti = T - 1 - (int)r;
+  tj = T - 1 - (int)(q - r * (r + 1) / 2);
+}
+
+// Segment s's part of the staging step at v0: its raw run is n4 16-byte
+// chunks from plane word q4, at word off of each staged row, and its
+// realigned word k reads staged words base + k and base + k + 1.  n4 = 0
+// when the step holds none of its sites.
+struct Run {
+  int q4, n4, off, base;
+};
+
+__device__ __forceinline__ Run step_run(const Segments& sg, int s, int v0,
+                                        int& off) {
+  Run run{0, 0, 0, 0};
+  const int n = sg.n[s];
+  const int ka = max(v0, sg.start[s]) - sg.start[s];
+  const int kr = min(min(v0 + kStageWords, sg.start[s + 1]) - sg.start[s],
+                     n > 0 ? (n + 31) >> 5 : 0);
+  if (kr <= ka) return run;
+  const int qa = (sg.first[s] >> 5) + ka;
+  const int qb = min(qa + kr - ka, (sg.first[s] + n - 1) >> 5);
+  run.q4 = qa & ~3;
+  run.n4 = ((qb - run.q4) >> 2) + 1;
+  run.off = off;
+  run.base = off + qa - run.q4 - ka;
+  off += 4 * run.n4;
+  return run;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst,
+                                           const uint32_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Copies the step's raw runs of the tile's rows (side 0, haplotypes i0..)
+// and columns (side 1, j0..; not on a diagonal tile, which reads side 0
+// for both) into raw[plane][side][row][word] with 16-byte cp.async, every
+// copy of the block in flight at once: consecutive threads copy
+// consecutive chunks of one row.  Rows past h are not copied (their counts
+// are never stored).
+template <bool kV3>
+__device__ __forceinline__ void stage_step(const Segments& sg,
+                                           const Run (&run)[3], int h,
+                                           int i0, int j0, bool diag,
+                                           uint32_t* raw) {
+  const int l0 = kV3 ? run[0].n4 : 0;
+  const int l1 = kV3 ? run[1].n4 : 0;
+  const int len = l0 + l1 + 2 * run[2].n4;
+  const int total = (diag ? 1 : 2) * kPairTile * len;
+  for (int idx = threadIdx.x; idx < total; idx += kPairThreads) {
+    const int side_row = idx / len;
+    int c = idx - side_row * len;
+    const int g = ((side_row >> 6) ? j0 : i0) + (side_row & 63);
+    if (g >= h) continue;
+    int s = 2, plane = 0;
+    if (c < l0) {
+      s = 0;
+    } else if (c < l0 + l1) {
+      s = 1;
+      c -= l0;
+    } else {
+      c -= l0 + l1;
+      plane = c >= run[2].n4;
+      c -= plane * run[2].n4;
     }
-    __syncthreads();
-    for (int k = 0; k < nq; ++k) {
-      const uint32_t b0 = sj[0][tx][k];
-      const uint32_t b1 = sj[1][tx][k];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerThread; ++rr) {
-        const int r = ty + rr * (kThreads / kTile);
-        const uint32_t a0 = si[0][r][k];
-        if (kind == 0) {
-          acc_s[rr] += __popc(a0 & b0);
-        } else if (kind == 1) {
-          acc_m[rr] += __popc(a0 ^ b0);
-        } else {
-          const uint32_t both = a0 & b0;
-          acc_s[rr] += __popc(both);
-          acc_m[rr] += __popc((si[1][r][k] ^ b1) & both);
-        }
-      }
-    }
-    __syncthreads();
+    const int off = s == 0 ? run[0].off : s == 1 ? run[1].off : run[2].off;
+    const int q4 = s == 0 ? run[0].q4 : s == 1 ? run[1].q4 : run[2].q4;
+    const uint32_t* src = plane ? sg.p1 : s == 0 ? sg.p0[0]
+                                         : s == 1 ? sg.p0[1] : sg.p0[2];
+    const int rw = s == 0 ? sg.row_words[0]
+                   : s == 1 ? sg.row_words[1] : sg.row_words[2];
+    cp_async16(raw + plane * 2 * kRawPlane + side_row * kRawRow + off
+                   + 4 * c,
+               src + (size_t)g * rw + q4 + 4 * c);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d += the and-popc product of A (16 x 256 bits, rows) and B (256 x 8 bits,
+// columns): d[r][c] += popc(A_r & B_c) over the 256 bits.
+__device__ __forceinline__ void mma_and_popc(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Realigned word k of one staged row: staged words base + k, base + k + 1
+// shifted down by sh, masked by keep (0 past the segment's end: then
+// nothing is read).
+__device__ __forceinline__ uint32_t realigned(const uint32_t* row, int at,
+                                              int sh, uint32_t keep) {
+  return keep ? __funnelshift_r(row[at], row[at + 1], sh) & keep : 0u;
+}
+
+// The called sites' reference bits R and alternate bits A of realigned
+// word k (at staged word at) of row of a kind's planes:
+//   kind 0: R = cB, A = 0;  kind 1: R = ~aC, A = aC;
+//   kind 2: R = cD & ~aD, A = aD
+template <int kKind>
+__device__ __forceinline__ void ref_alt(const uint32_t* row, int at, int sh,
+                                        uint32_t keep, uint32_t& r,
+                                        uint32_t& a) {
+  const uint32_t w0 = realigned(row, at, sh, keep);
+  if (kKind == 0) {
+    r = w0;
+    a = 0;
+  } else if (kKind == 1) {
+    r = ~w0 & keep;
+    a = w0;
+  } else {
+    a = realigned(row + 2 * kRawPlane, at, sh, keep);
+    r = w0 & ~a;
   }
 }
 
-// Writes the thread's rows of the pair tile into window wl of the
-// [nwin, h, h] counts (shared plus a per-window constant).
-__device__ __forceinline__ void tile_store(
-    int wl, int h, int i0, int j0, int nconst,
-    const int (&acc_s)[kRowsPerThread], const int (&acc_m)[kRowsPerThread],
-    int32_t* __restrict__ m_out, int32_t* __restrict__ s_out) {
-  const int j = j0 + threadIdx.x % kTile;
-  const int ty = threadIdx.x / kTile;
+__device__ __forceinline__ uint32_t keep_bits(int rem) {
+  return rem >= 32 ? ~0u : rem > 0 ? (1u << rem) - 1u : 0u;
+}
+
+// One m16n8k256 step of a warp over 8 realigned words of one kind: rows
+// arow (+8), columns brow + 8 nt (+ g), words at + t and at + 4 + t (keep0,
+// keep1 their bits in the segment).  Kind 0 adds to s only, kind 1 to m
+// only, kind 2 to both.
+template <int kKind>
+__device__ __forceinline__ void mma_step(const uint32_t* arow,
+                                         const uint32_t* brow, int at,
+                                         int sh, uint32_t keep0,
+                                         uint32_t keep1, int (&sacc)[4][4],
+                                         int (&macc)[4][4]) {
+  uint32_t ar[4], aa[4];
+  ref_alt<kKind>(arow, at, sh, keep0, ar[0], aa[0]);
+  ref_alt<kKind>(arow + 8 * kRawRow, at, sh, keep0, ar[1], aa[1]);
+  ref_alt<kKind>(arow, at + 4, sh, keep1, ar[2], aa[2]);
+  ref_alt<kKind>(arow + 8 * kRawRow, at + 4, sh, keep1, ar[3], aa[3]);
+  const uint32_t ac[4] = {ar[0] | aa[0], ar[1] | aa[1], ar[2] | aa[2],
+                          ar[3] | aa[3]};
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerThread; ++rr) {
-    const int i = i0 + ty + rr * (kThreads / kTile);
-    if (i < h && j < h) {
-      const size_t o = ((size_t)wl * h + i) * h + j;
-      m_out[o] = acc_m[rr];
-      s_out[o] = acc_s[rr] + nconst;
+  for (int nt = 0; nt < 4; ++nt) {
+    uint32_t br0, ba0, br1, ba1;
+    ref_alt<kKind>(brow + 8 * nt * kRawRow, at, sh, keep0, br0, ba0);
+    ref_alt<kKind>(brow + 8 * nt * kRawRow, at + 4, sh, keep1, br1, ba1);
+    if (kKind != 1) mma_and_popc(sacc[nt], ac, br0 | ba0, br1 | ba1);
+    if (kKind != 0) {
+      mma_and_popc(macc[nt], aa, br0, br1);
+      mma_and_popc(macc[nt], ar, ba0, ba1);
+    }
+  }
+}
+
+// The m16n8k256 steps of segment kKind's words in the staging step at v0
+// (nk words staged).
+template <int kKind>
+__device__ __forceinline__ void segment_steps(const Segments& sg,
+                                              const Run (&run)[3], int v0,
+                                              int nk, const uint32_t* arow,
+                                              const uint32_t* brow, int t,
+                                              int (&sacc)[4][4],
+                                              int (&macc)[4][4]) {
+  const int sh = sg.first[kKind] & 31;
+  const int end = min(sg.start[kKind + 1], v0 + nk);
+  for (int v = max(sg.start[kKind], v0); v < end; v += kMmaWords) {
+    const int k = v - sg.start[kKind] + t;
+    const int rem = sg.n[kKind] - 32 * k;
+    mma_step<kKind>(arow, brow, run[kKind].base + k, sh, keep_bits(rem),
+                    keep_bits(rem - 128), sacc, macc);
+  }
+}
+
+// The tile body of K1 and K13 for window wl: counts of rows i0.. against
+// columns j0.. over the window's segments, written to m_out and s_out at
+// (i, j) and, off the diagonal, at (j, i).
+//
+// Inner step: Hopper's 1-bit tensor-core product (mma.sync m16n8k256
+// and.popc) offers only AND.  With R and A the called sites' reference
+// and alternate bits and C = R | A, the counts are AND-only products
+// G(x, y) = popc(x_i & y_j) summed over words:
+//   s = nconst + G(C, C)               over kinds 0 and 2
+//   m = G(A, R) + G(R, A)              over kinds 1 and 2
+// exact because a called site is R or A, never both: the XOR of two alt
+// bits where both are called is one alt and one reference bit.  Warp w
+// owns rows 16 (w % 4).. and columns 32 (w / 4).. of the tile: four
+// m16n8 column tiles, 32 int32 sums a thread.  Fragments are realigned
+// from the staged raw words as they load (two shared loads and a funnel
+// shift a word).
+template <bool kV3>
+__device__ __forceinline__ void pair_tile(const Segments& sg, int h, int wl,
+                                          int i0, int j0, int nconst,
+                                          int32_t* __restrict__ m_out,
+                                          int32_t* __restrict__ s_out) {
+  extern __shared__ __align__(16) uint32_t raw[];
+  const bool diag = i0 == j0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const uint32_t* arow = raw + (16 * (warp & 3) + g) * kRawRow;
+  const uint32_t* brow =
+      raw + (diag ? 0 : kRawPlane) + (32 * (warp >> 2) + g) * kRawRow;
+  int sacc[4][4] = {}, macc[4][4] = {};
+  for (int v0 = 0; v0 < sg.start[3]; v0 += kStageWords) {
+    int off = 0;
+    Run run[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+      run[s] = kV3 || s == 2 ? step_run(sg, s, v0, off) : Run{0, 0, 0, 0};
+    stage_step<kV3>(sg, run, h, i0, j0, diag, raw);
+    __syncthreads();
+    const int nk = min(kStageWords, sg.start[3] - v0);
+    if (kV3) {
+      segment_steps<0>(sg, run, v0, nk, arow, brow, t, sacc, macc);
+      segment_steps<1>(sg, run, v0, nk, arow, brow, t, sacc, macc);
+    }
+    segment_steps<2>(sg, run, v0, nk, arow, brow, t, sacc, macc);
+    __syncthreads();
+  }
+
+  // epilogue: the m and s tiles through shared memory (the stage's
+  // space), then 16-byte streaming stores of rows i0.. and, off the
+  // diagonal, of their transpose at rows j0..; a warp writes two 256-byte
+  // runs of one matrix a store
+  int* tm = reinterpret_cast<int*>(raw);
+  int* ts = tm + kPairTile * kOutRow;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = (16 * (warp & 3) + g + 8 * (e >> 1)) * kOutRow
+                     + 32 * (warp >> 2) + 8 * nt + 2 * t + (e & 1);
+      tm[at] = macc[nt][e];
+      ts[at] = nconst + sacc[nt][e];
+    }
+  }
+  __syncthreads();
+  const bool vec = (h & 3) == 0;
+  const size_t base = (size_t)wl * h;
+  for (int q = threadIdx.x; q < kPairTile * kPairTile / 4;
+       q += kPairThreads) {
+    const int r = q >> 4;
+    const int c4 = (q & 15) << 2;
+#pragma unroll
+    for (int mirror = 0; mirror < 2; ++mirror) {
+      if (mirror && diag) break;
+      // out row (i0 + r, cols j0 + c4..) from tile (r, c4..), or the
+      // mirror's out row (j0 + r, cols i0 + c4..) from tile (c4.., r)
+      const int oi = (mirror ? j0 : i0) + r;
+      const int oj = (mirror ? i0 : j0) + c4;
+      if (oi >= h || oj >= h) continue;
+      int vm[4], vs[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int at = mirror ? (c4 + u) * kOutRow + r
+                              : r * kOutRow + c4 + u;
+        vm[u] = tm[at];
+        vs[u] = ts[at];
+      }
+      const size_t o = (base + oi) * h + oj;
+      if (vec) {
+        __stcs(reinterpret_cast<int4*>(m_out + o),
+               make_int4(vm[0], vm[1], vm[2], vm[3]));
+        __stcs(reinterpret_cast<int4*>(s_out + o),
+               make_int4(vs[0], vs[1], vs[2], vs[3]));
+      } else {
+        for (int u = 0; u < 4 && oj + u < h; ++u) {
+          __stcs(m_out + o + u, vm[u]);
+          __stcs(s_out + o + u, vs[u]);
+        }
+      }
     }
   }
 }
@@ -142,82 +375,91 @@ __device__ __forceinline__ void tile_store(
 // unpack_pair_wire_v3.  For window w and haplotypes i, j:
 //   shared   = nconst[w] + popc(cB_i & cB_j) + popc(cD_i & cD_j)
 //   mismatch = popc(aC_i ^ aC_j) + popc((aD_i ^ aD_j) & cD_i & cD_j)
-// summed over the words of the window's class ranges (tile_range kinds 0,
-// 1, 2).  Because aD is a subset of cD these equal the JAX kernel's bf16
-// Gram forms (rC_i + rC_j - 2 aC.aC^T, aD.cD^T + (aD.cD^T)^T - 2 aD.aD^T)
-// exactly, with no 2^24 bound on the window length.  An all-monomorphic
-// window only writes nconst.
+// over the window's class ranges, through pair_tile's AND-only products
+// (equal to the JAX kernel's bf16 Gram forms, in exact integers, with no
+// 2^24 bound on the window length).  An all-monomorphic window only
+// writes nconst.
 //
-// Bound: popcounts.  Each pair reads each word of its window once, so the
-// work is h^2 * (wordsB + wordsC + 2 wordsD) popcounts per window against
-// 8 bytes of output per pair; at the main path's h = 512 that is far above
-// the card's popcount:byte balance.  Design: a block owns one window and a
-// 32 x 32 pair tile (tile_range stages the words).  Simple first version:
-// it computes the full symmetric matrix (twice the needed popcounts) and
-// stages with plain loads.
-__global__ void __launch_bounds__(kThreads)
+// Bound: bytes.  The 1-bit tensor-core product does a pair's 32 sites of
+// a word in a fraction of a __popc (the data sheet gives no 1-bit rate;
+// on the card the __popc step on the same tile took twice as long), and
+// the [nwin, h, h] m and s (8 bytes a pair) dwarf the planes read.
+// Design: a 1-D grid of (window, tile pair ti <= tj) blocks, window-major,
+// so the symmetric matrix costs half the products and each plane word read
+// feeds a 64 x 64 tile.  The three class ranges stage together, their raw
+// plane words in 16-byte cp.async copies all in flight at once (a step's
+// latency is paid once: one pair of barriers a step, and a ~625-site
+// window is one step), realigned as the fragments load; 80 registers and
+// 61 KB of shared memory keep three blocks on an SM, so one block's
+// staging overlaps another's stores.
+__global__ void __launch_bounds__(kPairThreads, 3)
 pair_counts_v3_kernel(const uint32_t* __restrict__ planes,
                       const int32_t* __restrict__ meta,
                       int h, int wb, int wc, int wd, int wp, int w0,
                       int32_t* __restrict__ m_out,
                       int32_t* __restrict__ s_out) {
-  __shared__ uint32_t si[2][kTile][kWords + 1];
-  __shared__ uint32_t sj[2][kTile][kWords + 1];
-  const int wl = blockIdx.z;
+  const int T = (h + kPairTile - 1) / kPairTile;
+  const int pairs = T * (T + 1) / 2;
+  const int wl = blockIdx.x / pairs;
+  int ti, tj;
+  tile_pair(blockIdx.x - wl * pairs, T, ti, tj);
   const int w = w0 + wl;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-
-  const uint32_t* cB = planes;
-  const uint32_t* aC = cB + (size_t)h * wb;
-  const uint32_t* cD = aC + (size_t)h * wc;
-  const uint32_t* aD = cD + (size_t)h * wd;
-
-  int acc_s[kRowsPerThread] = {0};
-  int acc_m[kRowsPerThread] = {0};
-  tile_range(0, cB, nullptr, wb, meta[w], meta[wp + w], h, i0, j0, si, sj,
-             acc_s, acc_m);
-  tile_range(1, aC, nullptr, wc, meta[2 * wp + w], meta[3 * wp + w], h, i0,
-             j0, si, sj, acc_s, acc_m);
-  tile_range(2, cD, aD, wd, meta[4 * wp + w], meta[5 * wp + w], h, i0, j0,
-             si, sj, acc_s, acc_m);
-  tile_store(wl, h, i0, j0, meta[6 * wp + w], acc_s, acc_m, m_out, s_out);
+  Segments sg;
+  sg.p0[0] = planes;
+  sg.p0[1] = sg.p0[0] + (size_t)h * wb;
+  sg.p0[2] = sg.p0[1] + (size_t)h * wc;
+  sg.p1 = sg.p0[2] + (size_t)h * wd;
+  sg.row_words[0] = wb;
+  sg.row_words[1] = wc;
+  sg.row_words[2] = wd;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    sg.first[s] = meta[2 * s * wp + w];
+    sg.n[s] = meta[(2 * s + 1) * wp + w];
+  }
+  set_starts(sg);
+  pair_tile<true>(sg, h, wl, ti * kPairTile, tj * kPairTile,
+                  meta[6 * wp + w], m_out, s_out);
 }
 
 // ---------------------------------------------------------------- K13
 // pair_counts_v2 — replaces genomics_general_tpu/kernels/pairdist.py
 // _fused_flush_pair_v2's count stage (_pair_counts_v2 with
 // gather_window_code2) and kernels/transfer.py unpack_pair_wire.  For
-// window w and haplotypes i, j, over the words of [first[w], first[w] +
+// window w and haplotypes i, j, over the bits [first[w], first[w] +
 // n_sites[w]) of the called (c) and alt (a) planes:
 //   shared   = popc(c_i & c_j)
 //   mismatch = popc((a_i ^ a_j) & c_i & c_j)
-// K1's class-D term over one plane pair (tile_range kind 2).  The alt bits
-// lie inside the called bits, so these equal the JAX bf16 Gram forms
+// K1's class-D term over one plane pair (pair_tile's segment 2).  The alt
+// bits lie inside the called bits, so these equal the JAX bf16 Gram forms
 // (c.c^T, ca.c^T + (ca.c^T)^T - 2 ca.ca^T) exactly.
 //
-// Bound: popcounts, h^2 * 2 * (words of the window) per window.  Design:
-// K1's block per (window, 32 x 32 pair tile).  Unlike wire v3, wire v2
-// ships every site of a window in both planes (v3 skips the constant
-// class), so K13 does more popcounts than K1 on the same flush.
-__global__ void __launch_bounds__(kThreads)
+// Bound and design: K1's.  Unlike wire v3, wire v2 ships every site of a
+// window in both planes (v3 skips the constant class), so K13 does more
+// products than K1 on the same flush.
+__global__ void __launch_bounds__(kPairThreads, 3)
 pair_counts_v2_kernel(const uint32_t* __restrict__ called,
                       const uint32_t* __restrict__ alt,
                       const int32_t* __restrict__ first,
                       const int32_t* __restrict__ n_sites, int h, int words,
                       int w0, int32_t* __restrict__ m_out,
                       int32_t* __restrict__ s_out) {
-  __shared__ uint32_t si[2][kTile][kWords + 1];
-  __shared__ uint32_t sj[2][kTile][kWords + 1];
-  const int wl = blockIdx.z;
-  const int w = w0 + wl;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  int acc_s[kRowsPerThread] = {0};
-  int acc_m[kRowsPerThread] = {0};
-  tile_range(2, called, alt, words, first[w], n_sites[w], h, i0, j0, si, sj,
-             acc_s, acc_m);
-  tile_store(wl, h, i0, j0, 0, acc_s, acc_m, m_out, s_out);
+  const int T = (h + kPairTile - 1) / kPairTile;
+  const int pairs = T * (T + 1) / 2;
+  const int wl = blockIdx.x / pairs;
+  int ti, tj;
+  tile_pair(blockIdx.x - wl * pairs, T, ti, tj);
+  Segments sg;
+  sg.p0[0] = sg.p0[1] = sg.p0[2] = called;
+  sg.p1 = alt;
+  sg.row_words[0] = sg.row_words[1] = sg.row_words[2] = words;
+  sg.first[0] = sg.first[1] = 0;
+  sg.n[0] = sg.n[1] = 0;
+  sg.first[2] = first[w0 + wl];
+  sg.n[2] = n_sites[w0 + wl];
+  set_starts(sg);
+  pair_tile<false>(sg, h, wl, ti * kPairTile, tj * kPairTile, 0, m_out,
+                   s_out);
 }
 
 // ---------------------------------------------------------------- K2
@@ -537,15 +779,26 @@ het_pairs_kernel(const int32_t* __restrict__ m,
 
 }  // namespace
 
+namespace {
+// K1's and K13's 1-D grid: the upper triangle's tile pairs of each window.
+unsigned pair_blocks(int h, int nwin) {
+  const long long T = (h + kPairTile - 1) / kPairTile;
+  return (unsigned)(T * (T + 1) / 2 * nwin);
+}
+}  // namespace
+
 extern "C" {
 
 // m_out, s_out: int32 [nwin, h, h] for windows w0 .. w0 + nwin - 1.
 int ggt_pair_counts_v3(const void* planes, const void* meta, int h, int wb,
                        int wc, int wd, int wp, int w0, int nwin, void* m_out,
                        void* s_out, void* stream) {
-  const int tiles = (h + kTile - 1) / kTile;
-  dim3 grid(tiles, tiles, nwin);
-  pair_counts_v3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pair_counts_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kPairSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  pair_counts_v3_kernel<<<pair_blocks(h, nwin), kPairThreads, kPairSmem,
+                          (cudaStream_t)stream>>>(
       (const uint32_t*)planes, (const int32_t*)meta, h, wb, wc, wd, wp, w0,
       (int32_t*)m_out, (int32_t*)s_out);
   return (int)cudaGetLastError();
@@ -556,9 +809,12 @@ int ggt_pair_counts_v3(const void* planes, const void* meta, int h, int wb,
 int ggt_pair_counts_v2(const void* called, const void* alt, const void* first,
                        const void* n_sites, int h, int words, int w0,
                        int nwin, void* m_out, void* s_out, void* stream) {
-  const int tiles = (h + kTile - 1) / kTile;
-  dim3 grid(tiles, tiles, nwin);
-  pair_counts_v2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pair_counts_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kPairSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  pair_counts_v2_kernel<<<pair_blocks(h, nwin), kPairThreads, kPairSmem,
+                          (cudaStream_t)stream>>>(
       (const uint32_t*)called, (const uint32_t*)alt, (const int32_t*)first,
       (const int32_t*)n_sites, h, words, w0, (int32_t*)m_out,
       (int32_t*)s_out);

@@ -100,6 +100,16 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel inputs must be contiguous CUDA tensors")
 
 
+def _check_planes(*planes: torch.Tensor) -> None:
+    """K1 and K13 copy plane rows in 16-byte runs: each plane must start
+    on a 16-byte boundary with rows of whole 16-byte runs (the packers'
+    site buckets are multiples of 128 sites)."""
+    for p in planes:
+        if p.data_ptr() % 16 or p.shape[1] % 4:
+            raise ValueError("bit planes must start 16-byte aligned with "
+                             "rows of a multiple of 4 words")
+
+
 # ------------------------------------------------------- K1 pair counts
 
 def pair_counts_v3(wire: transfer.PairWireV3, w0: int, nwin: int):
@@ -114,6 +124,7 @@ def pair_counts_v3(wire: transfer.PairWireV3, w0: int, nwin: int):
     if w0 < 0 or w0 + nwin > wp:
         raise ValueError(f"windows {w0}..{w0 + nwin} outside wp={wp}")
     _check_cuda(wire.buf)
+    _check_planes(wire.cB, wire.aC, wire.cD, wire.aD)
     m = torch.empty((nwin, h, h), dtype=torch.int32, device=wire.buf.device)
     s = torch.empty_like(m)
     if nwin == 0:
@@ -183,6 +194,7 @@ def pair_counts_v2(wire: transfer.PairWireV2, w0: int, nwin: int):
     if w0 < 0 or w0 + nwin > wp:
         raise ValueError(f"windows {w0}..{w0 + nwin} outside wp={wp}")
     _check_cuda(wire.buf)
+    _check_planes(wire.called, wire.alt)
     m = torch.empty((nwin, h, h), dtype=torch.int32, device=wire.buf.device)
     s = torch.empty_like(m)
     if nwin == 0:

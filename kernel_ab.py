@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's K2, K3, K6, K9, K12, K14, K17, K18 and K20 kernels of
-two checkouts on one NVIDIA GPU, in one process, on the same inputs:
+"""Time the port's K1, K2, K3, K6, K9, K12, K13, K14, K17, K18 and K20
+kernels of two checkouts on one NVIDIA GPU, in one process, on the same
+inputs:
 
-    python3 kernel_ab.py --base DIR [--only TEXT] [--out FILE]
+    python3 kernel_ab.py --base DIR [--only TEXT ...] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR``).
@@ -13,9 +14,14 @@ kernel is called through that checkout's wrapper (its launch geometry,
 its output allocation), on inputs made here from a seed at the shapes of
 ``chip_smoke.py``'s timings (H = 512):
 
-* K2 ``exception_patch``: the popDist chunk (128 windows of about 625
-  sites, 1 % of sites with a third allele in a few rows) of a wire-v3
-  flush, with the entry index built once where the checkout has one;
+* K1 ``pair_counts_v3``: the popDist chunk (128 windows of 625 sites,
+  1 % of sites with a third allele in a few rows) of a wire-v3 flush,
+  run A's windows (32 of about 625 sites) and 4 windows of 32,000 sites
+  (about a block an SM, each window 63 staging steps), both with the
+  popDist chunk's allele mix;
+* K13 ``pair_counts_v2``: the popDist chunk as wire v2;
+* K2 ``exception_patch``: the popDist chunk's wire-v3 flush, with the
+  entry index built once where the checkout has one;
 * K3 ``blocks_tail``: 128 windows of counts on popDist's mask (4 groups
   of 128 rows) and on run B's individual mask (256 groups of 2), min
   sites 100;
@@ -35,10 +41,10 @@ its output allocation), on inputs made here from a seed at the shapes of
   rows, and on one population of all 512;
 * K20 ``flush_pair_counts``: run A's flush as a one-transfer buffer.
 
-``--only`` times just the cases whose name holds TEXT (for example
-``K12``).  The two outputs of each kernel must be equal (K3's sums, taken
-in another fixed order by another design, within rtol 1e-12, its counts
-exactly).  Times are CUDA events over
+``--only`` times just the cases whose name holds one of the TEXTs (for
+example ``K12``; ``"K1 "`` for K1 alone).  The two outputs of each kernel
+must be equal (K3's sums, taken in another fixed order by another design,
+within rtol 1e-12, its counts exactly).  Times are CUDA events over
 repeated warm calls of each wrapper, taken base, head, head, base: once
 as the calls come (host launch overhead included, which sets the pace of
 a kernel shorter than it) and once with the calls captured in a CUDA
@@ -71,6 +77,7 @@ S_H = 16_176
 S_R = 32_647                      # run A's largest count span (K6, K18)
 S_P = (596, 2048)                 # run P's first window; K17's 2,048 sites
 W_K, N_K = 128, 625               # the popDist chunk (K2, K3)
+W_L, N_L = 4, 32_000              # K1's long windows
 H_POPS = (56,) * 8 + (64,)        # run H: 8 x 28 + 32 individuals, diploid
 
 
@@ -110,11 +117,22 @@ def codes(rng, h: int, s: int) -> np.ndarray:
     return a
 
 
+def biallelic(rng, h: int, s: int) -> np.ndarray:
+    """The popDist chunk's mix: biallelic codes, 5 % missing, a third
+    allele in 4 rows at 1 % of sites (codes() makes nearly every site
+    multi-allelic, which wire v3 ships as exceptions, not planes)."""
+    a = rng.integers(0, 2, size=(h, s)).astype(np.int8)
+    a[rng.random(a.shape) < 0.05] = -1
+    for x in np.flatnonzero(rng.random(s) < 0.01):
+        a[rng.integers(0, h, 4), x] = 2
+    return a
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True, type=Path)
-    ap.add_argument("--only", default="")
+    ap.add_argument("--only", nargs="+", default=[""])
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -168,14 +186,22 @@ def main() -> int:
     m_k = torch.from_numpy((rng.random(s_k.shape) * (s_k + 1)).astype(
         np.int32)).to(dev)
     s_k = torch.from_numpy(s_k).to(dev)
-    a_k = rng.integers(0, 2, size=(H, W_K * N_K)).astype(np.int8)
-    a_k[rng.random(a_k.shape) < 0.05] = -1
-    for x in np.flatnonzero(rng.random(a_k.shape[1]) < 0.01):
-        a_k[rng.integers(0, H, 4), x] = 2
+    a_k = biallelic(rng, H, W_K * N_K)
     f_k = np.arange(0, W_K * N_K, N_K, dtype=np.int32)
     v3_k = ports["head"]["pairdist"]._v3_flush_args(
         a_k, f_k, np.full(W_K, N_K, np.int32))
     wire_k = v3_k.wire(torch.from_numpy(v3_k.buf).to(dev))
+    v2_k = ports["head"]["pairdist"]._v2_flush_args(
+        a_k, f_k, np.full(W_K, N_K, np.int32))
+    wire2_k = v2_k.wire(torch.from_numpy(v2_k.buf).to(dev))
+    v3_a = ports["head"]["pairdist"]._v3_flush_args(
+        biallelic(rng, H, s_a), f_a, n_a)
+    wire_a = v3_a.wire(torch.from_numpy(v3_a.buf).to(dev))
+    v3_l = ports["head"]["pairdist"]._v3_flush_args(
+        biallelic(rng, H, W_L * N_L),
+        np.arange(0, W_L * N_L, N_L, dtype=np.int32),
+        np.full(W_L, N_L, np.int32))
+    wire_l = v3_l.wire(torch.from_numpy(v3_l.buf).to(dev))
     log(f"[inputs] E: [{H}, {S_E}], one window; A: [{H}, {s_a}] (row "
         f"stride {a_a.stride(0)}), {W_A} windows, longest {smax_a}; H: "
         f"[{H}, {S_H}] (row stride {a_h.stride(0)}), {len(H_POPS)} classes; "
@@ -221,6 +247,15 @@ def main() -> int:
         return make
 
     cases = {
+        "K1 popDist chunk": (lambda p: lambda: p["pairdist"].pair_counts_v3(
+            wire_k, 0, W_K), 20),
+        "K1 run A flush": (lambda p: lambda: p["pairdist"].pair_counts_v3(
+            wire_a, 0, W_A), 20),
+        "K1 long windows": (lambda p: lambda: p["pairdist"].pair_counts_v3(
+            wire_l, 0, W_L), 20),
+        "K13 popDist chunk": (
+            lambda p: lambda: p["pairdist"].pair_counts_v2(wire2_k, 0, W_K),
+            20),
         "K2 popDist chunk": (k2, 20),
         "K3 popDist chunk, popDist mask": (
             k3(np.repeat(np.eye(4), H // 4, axis=1)), 20),
@@ -249,7 +284,7 @@ def main() -> int:
     }
     report = {"card": card, "kernels": {}}
     for name, (make, reps) in cases.items():
-        if args.only not in name:
+        if not any(text in name for text in args.only):
             continue
         runs = {tag: make(port) for tag, port in ports.items()}
         got = {}
