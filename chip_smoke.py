@@ -71,7 +71,12 @@ not build, launch or agree, or an output is wrong):
    sample_base_counts
    exactly; K20 flush_pair_counts on flushes with 0- and 1-site, pad and
    s_max-cut windows, unaligned metadata and the int32 branch, equal to
-   its plain version and to K9 + K4 on the unpacked flush;
+   its plain version and to K9 + K4 on the unpacked flush, and at the
+   edges of its 64 x 64 tiles, words and loads (H = 1 to 1,000, windows
+   starting at every site offset 0..31, 16-byte and byte loads, the int32
+   branch) exactly with every output cell written; K10 bit for bit
+   against its plain version on messy, one-population, one-row-a-class
+   and fractional masks, NaN windows and run G's shape;
 3. the runs end to end through the port's CLIs at H = 512 (256 diploid
    individuals in 4 populations of 64), 50 kb windows: popgenWindows
    popDist popPairDist (500,000 sites: K1, K2, K3); run A, popFreq popDist
@@ -995,6 +1000,157 @@ def k1_k13_edge_parity(pair, dev) -> int:
     return done
 
 
+def k20_flush_input(H: int, S: int, seed: int):
+    """Codes -1..3 (15 % missing, an all-missing block of sites) and K20's
+    edge windows over S sites: 32 windows starting at every site offset
+    0..31 of a word (1 to 699 sites, or to the span's end), an empty and a
+    1-site window, and one running to the last site."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 4, size=(H, S)).astype(np.int8)
+    a[rng.random((H, S)) < 0.15] = -1
+    a[:, 3:7] = -1
+    k = np.arange(32)
+    step = max(1, (S - 40) // 32)
+    first = (step - step % 32) * k + k if step >= 32 else k
+    n = np.minimum(1 + 97 * k % 699, S - first)
+    first = np.concatenate([first, [S // 2, 7, S - 5]]).astype(np.int32)
+    n = np.concatenate([n, [0, 1, 5]]).astype(np.int32)
+    return a, first, n
+
+
+def flush_filled(pair, dbuf, sp: int, H: int, wp: int, s_max: int):
+    """K20 launched as its wrapper launches it, into an output filled with
+    a sentinel first (a test-only allocation: the wrapper allocates with
+    torch.empty), so a cell no block writes shows.  Not counted in
+    LAUNCHES."""
+    import torch
+    T = H * (H + 1) // 2
+    u16 = s_max < (1 << 16)
+    out = (torch.full((wp, 2 * T), -1, dtype=torch.int16,
+                      device=dbuf.device).view(torch.uint16) if u16 else
+           torch.full((wp, 2 * T), SENTINEL, dtype=torch.int32,
+                      device=dbuf.device))
+    code = pair._build.lib("pair4").ggt_flush_pair_counts(
+        dbuf.data_ptr(), H, sp, wp, 0, wp, s_max, int(u16), out.data_ptr(),
+        torch.cuda.current_stream(dbuf.device).cuda_stream)
+    pair._build.check(code, "flush_pair_counts (sentinel-filled)")
+    return out
+
+
+def k20_edge_parity(pair, transfer, dev) -> int:
+    """K20 at the edges of its tiles, words and loads, against its plain
+    version exactly, every output cell written (a sentinel-filled launch):
+    at every H of K1_EDGE_H, the windows of k20_flush_input over 2,800
+    sites in the default bucket (sp = 65,536: 16- and 8-byte loads) with
+    s_max 333 (a cut inside a word) and over 100 sites in a bucket of 112
+    (rows of their own alignment: byte loads), each with pad windows past
+    W; and the int32 branch (s_max 2^16) at H = 12 and 40.  Returns the
+    number of comparisons."""
+    import torch
+    done = 0
+    for H in K1_EDGE_H:
+        cases = [("aligned", 2_800, 1 << 16, 333),
+                 ("unaligned rows", 100, 8, 333)]
+        if H in (12, 40):
+            cases.append(("int32 branch", 2_800, 1 << 16, 1 << 16))
+        for what, S, bucket, s_max in cases:
+            a, first, n = k20_flush_input(H, S, H + S)
+            wp = pair._next_pow2(first.shape[0] + 1, 8)
+            buf, sp = transfer.pack_flush_buffer(a, first, n, wp, bucket)
+            if (sp % 64 == 0) != (what != "unaligned rows"):
+                raise AssertionError(f"K20 edge flush ({what}): sp={sp}")
+            dbuf = torch.from_numpy(buf).to(dev)
+            name = f"flush_pair_counts H={H} ({what}, sp={sp}, s_max={s_max})"
+            want = pair._fused_flush_pair_counts_plain(dbuf, sp, H, wp, s_max,
+                                                       wp)
+            got = pair._fused_flush_pair_counts(dbuf, sp, H, wp, s_max, wp)
+            filled = flush_filled(pair, dbuf, sp, H, wp, s_max)
+            torch.cuda.synchronize()
+            sentinel = -1 if got.dtype == torch.uint16 else SENTINEL
+            raw = filled.view(torch.int16) if got.dtype == torch.uint16 \
+                else filled
+            if int((raw == sentinel).sum()):
+                raise AssertionError(f"{name}: cells never written")
+            if (got.dtype == torch.int32) != (s_max >= (1 << 16)):
+                raise AssertionError(f"{name}: {got.dtype}")
+            check_equal(name + " vs plain", got, want)
+            check_equal(name + ", sentinel-filled, vs plain", filled, want)
+            done += 2
+            del want, got, filled, dbuf
+        torch.cuda.empty_cache()
+    return done
+
+
+def k10_edge_input(H: int, seed: int):
+    """Codes 0..3 with 10 % missing and windows of 625 sites, a 0-site
+    window and one of all-missing sites (no valid pair: NaN means)."""
+    rng = np.random.default_rng(seed)
+    S = 5_000
+    a = rng.integers(0, 4, size=(H, S)).astype(np.int8)
+    a[rng.random((H, S)) < 0.1] = -1
+    a[:, 700:760] = -1
+    first = np.array([0, 10, 700, 1200, 2400, 4375], np.int32)
+    n = np.array([625, 0, 60, 625, 625, 625], np.int32)
+    return a, first, n
+
+
+def check_bits(name: str, got, want) -> int:
+    """float32 results bit for bit (NaN positions equal).  Returns the
+    number of cells compared."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w.shape or not np.array_equal(g, w, equal_nan=True):
+        bad = int((~((g == w) | (np.isnan(g) & np.isnan(w)))).sum()) \
+            if g.shape == w.shape else "shape"
+        raise AssertionError(f"{name}: kernel != plain bit for bit ({bad} "
+                             "cells)")
+    return g.size
+
+
+def k10_edge_parity(pair, ws, dev) -> int:
+    """K10 against its plain version bit for bit (NaN positions equal) on
+    K9's counts of k10_edge_input's windows: messy_masks at H = 160 and
+    512 (overlapping populations, rows in none, classes scattered at
+    random) and their one population of all rows; every row its own
+    population at H = 12 (12 classes); fractional weights at H = 77; and
+    run G's shape (128 windows of 625 sites, H = 512, 4 populations of
+    128).  Returns the number of comparisons."""
+    import torch
+    rng = np.random.default_rng(10)
+    frac = rng.choice(np.float32([0, 0.25, 0.5, 1, 0.3]), size=(3, 77))
+    frac[:, :5] = 0.0
+    sets = {160: messy_masks(160), 512: messy_masks(512),
+            12: (np.eye(12, dtype=np.float32),),
+            77: (frac.astype(np.float32),)}
+    inputs = {H: k10_edge_input(H, 100 + H) for H in sets}
+    size = N_SITES_G // WINDOWS_G
+    g_first = np.arange(0, WINDOWS_G * size, size, dtype=np.int32)
+    inputs["run G"] = (np.random.default_rng(11).integers(
+        0, 4, size=(512, N_SITES_G)).astype(np.int8), g_first,
+        np.full(WINDOWS_G, size, np.int32))
+    sets["run G"] = (np.repeat(np.eye(4, dtype=np.float32), 128, axis=1),)
+    done = 0
+    for key, masks in sets.items():
+        a, first, n = inputs[key]
+        m, s = pair.pair_counts_4state(torch.from_numpy(a).to(dev),
+                                       torch.from_numpy(first).to(dev),
+                                       torch.from_numpy(n).to(dev))
+        for mask in masks:
+            pm = torch.from_numpy(mask).to(dev)
+            got = ws.window_stats_tail(m, s, pm)
+            want = ws.window_stats_tail_plain(m, s, pm)
+            C = ws.tail_classes(pm, dev).C
+            for what, g, w in zip(("pi", "dxy", "fst"), got, want):
+                check_bits(f"window_stats_tail {what} ({key}, P="
+                           f"{mask.shape[0]}, C={C})", g, w)
+                done += 1
+            if key != "run G" and not torch.isnan(got[1][1]).all():
+                raise AssertionError("window_stats_tail: the 0-site window "
+                                     "should give NaN means")
+        del m, s
+    torch.cuda.synchronize()
+    return done
+
+
 def abba_input(H: int = 160, S: int = 5003, seed: int = 7):
     """ABBA alleles: beta-distributed allele frequencies, 10 % missing, a
     few multi-allelic sites; the outgroup's rows (the last quarter) all
@@ -1767,7 +1923,9 @@ def time_k9_flush(pair, transfer, flush, dev, name: str) -> dict:
 
 def time_stats(ws, g_inputs, g_out, dev) -> dict:
     """K10 and K11 at run G's shape, against their plain versions; K11
-    beside one torch.einsum of the mask with per-window code counts."""
+    beside the PyTorch calls that compute its function (the windows'
+    gather and per-row code counts, then one torch.einsum with the
+    mask)."""
     import torch
     at, f, k, pm = g_inputs
     m, s = g_out["mismatch"], g_out["shared"]
@@ -1785,25 +1943,32 @@ def time_stats(ws, g_inputs, g_out, dev) -> dict:
     k10 = {"max_abs_err": err, "cells_not_bit_equal": diff,
            "library_ms": None,
            "ms": cuda_ms(lambda: ws.window_stats_tail(m, s, pm), 20),
+           "graph_ms": graph_ms(lambda: ws.window_stats_tail(m, s, pm), 20),
            "plain_ms": cuda_ms(lambda: ws.window_stats_tail_plain(m, s, pm),
                                2, 1),
            # the counts once, the mask, pi / dxy / fst written
            "bound": bound(8 * B * H * H + 4 * P * H + 4 * B * (P + 2 * P * P))}
     sites = int(k.sum())
-    # K11's yardstick: one einsum of the population mask with per-window
-    # code counts [H, B, 4] (counted beforehand, untimed)
+    # K11's yardstick: no one PyTorch call counts codes per window and
+    # population, so the sum of the calls that do: the windows' gather
+    # with each row's code counts [H, B, 4], then one einsum of the
+    # population mask with them
     s_max = int(k.max())
     offs = torch.arange(s_max, device=at.device)
     idx = f.long()[:, None] + offs[None, :]
     valid = offs[None, :] < k.long()[:, None]
-    wa = at[:, torch.where(valid, idx, torch.zeros_like(idx))]
-    per_row = torch.stack([((wa == c) & valid[None]).sum(dim=2)
-                           for c in range(4)], dim=-1).float()
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+
+    def code_counts():
+        wa = at[:, idx]
+        return torch.stack([((wa == c) & valid[None]).sum(dim=2)
+                            for c in range(4)], dim=-1).float()
+    per_row = code_counts()
     member = (pm != 0).float()
-    del wa
     lib11 = lambda: torch.einsum(  # noqa: E731
         "ph,hbc->bpc", member, per_row)
-    k11 = {"max_abs_err": 0.0, "library_ms": cuda_ms(lib11, 20),
+    k11 = {"max_abs_err": 0.0,
+           "library_ms": cuda_ms(code_counts, 20) + cuda_ms(lib11, 20),
            "ms": cuda_ms(lambda: ws.window_pop_counts(at, f, k, pm), 20),
            "plain_ms": cuda_ms(lambda: ws.window_pop_counts_plain(
                at, f, k, pm), 3, 1),
@@ -2839,8 +3004,12 @@ def time_k18_k20(counts, pair, transfer, inputs, dev,
     H, W = fa.shape[0], ff.shape[0]
     u16 = s_max < (1 << 16)
     tri = pair._fused_flush_pair_counts(dbuf, sp, H, wp, s_max, wp)
-    T = H * (H + 1) // 2
-    sites = float(np.minimum(fn, s_max).astype(np.int64).sum())
+    # K20's bound: the windows' sites of the buffer (3 bits a site and
+    # haplotype) and the metadata read once, the tri rows written once
+    need = np.zeros(sp, bool)
+    for f0, k0 in zip(ff, np.minimum(fn, s_max)):
+        need[max(int(f0), 0):max(min(int(f0) + int(k0), sp), 0)] = True
+    in_bytes = H * int(need.sum()) * 3 / 8 + 8 * wp
     # K20's yardstick: K9's, the two bf16 one-hot Grams of the gathered
     # windows (each cut to s_max sites, as K20 counts them)
     al, f20, n20 = transfer.unpack_flush_buffer(dbuf, sp, H, wp)
@@ -2864,8 +3033,7 @@ def time_k18_k20(counts, pair, transfer, inputs, dev,
         "k9_k4_ms": cuda_ms(lambda: pair.flush_tri_4state(
             *transfer.unpack_flush_buffer(dbuf, sp, H, wp), wp, u16, s_max),
             10),
-        "bound": bound(dbuf.numel() + tri.numel() * tri.element_size(),
-                       2 * T * 5 * sites, INT8_OPS_PER_S),
+        "bound": bound(in_bytes + tri.numel() * tri.element_size()),
         "shape": f"{W} windows (wp={wp}, s_max={s_max}), H={H}"}
     for k, r in res.items():
         log(f"[kernel] {k} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -3906,6 +4074,20 @@ def main() -> int:
         f"{STEP_H}): K9 alone refuses them; the step launches {step} and "
         "equals its chunks run one at a time")
     k17_k20_parity(ldk, counts, pair, transfer, dev)
+    t_edge = time.perf_counter()
+    n_k20 = k20_edge_parity(pair, transfer, dev)
+    log(f"[parity] K20 edges in {time.perf_counter() - t_edge:.1f}s ({n_k20} "
+        f"comparisons: H={K1_EDGE_H}, windows starting at every site offset "
+        "0..31, 0- and 1-site, pad and s_max-cut (333) windows, 16-byte "
+        "and byte loads (sp 65,536 and 112), the int32 branch at H = 12 and "
+        "40) == plain, every cell written")
+    t_edge = time.perf_counter()
+    n_k10 = k10_edge_parity(pair, ws, dev)
+    log(f"[parity] K10 edges in {time.perf_counter() - t_edge:.1f}s ({n_k10} "
+        "comparisons: messy masks at H = 160 and 512 and one population of "
+        "all rows, every row its own population at H = 12, fractional "
+        "weights at H = 77, 0-site and all-missing windows, run G's shape) "
+        "== plain bit for bit")
     n_k17 = k17_edge_parity(ldk, dev)
     n_k6 = k6_edge_parity(counts, transfer, pair, dev)
     log(f"[parity] K17 tile edges ({n_k17} comparisons: H={K17_EDGE_H}, "

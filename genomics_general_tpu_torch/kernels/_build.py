@@ -63,7 +63,8 @@ _SIGNATURES = {
         "ggt_pair_allele_tables": [_P, _L, _I, _I, _P, _P, _P],
     },
     "window_stats": {
-        "ggt_window_stats_tail": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "ggt_window_stats_tail": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                  _P, _P, _P, _P],
         "ggt_window_pop_counts": [_P, _L, _L, _P, _P, _P, _I, _I, _I, _P,
                                   _P],
     },

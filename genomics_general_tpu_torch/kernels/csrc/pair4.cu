@@ -5,7 +5,7 @@
 // the mesh's row blocks of the tensor-parallel counts (K14): one kernel on
 // the int8 tensor cores, walking the upper triangle (K9) or a rectangle of
 // rows (K14); and the same counts read in place from a one-transfer flush
-// buffer and tri-packed (K20, on the CUDA cores).
+// buffer and tri-packed (K20, on the 1-bit tensor cores with K1's tile).
 //
 // Plain C launch interface (extern "C", bound with ctypes from
 // kernels/pairdist.py).  The launch goes on the caller's stream, does not
@@ -15,115 +15,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bitmma.cuh"
 #include "wgmma.cuh"
 
 namespace {
-
-constexpr int kTile = 64;                  // pair tile: 64 x 64 haplotypes
-constexpr int kMicro = 4;                  // each thread owns 4 x 4 pairs
-constexpr int kSide = kTile / kMicro;      // 16 x 16 threads
-constexpr int kThreads = kSide * kSide;    // 256
-constexpr int kRows = 2 * kTile;           // staged rows: i tile, j tile
-constexpr int kStage = 128;                // sites staged per step
-constexpr int kGroups = kStage / 32;       // 32-site groups per step
-constexpr int kRawWords = kStage / 4 + 1;  // raw row: 132 bytes (33 words)
-constexpr int kPackWords = 5 * kGroups + 1;  // 4 one-hot + 1 called per group
-
-// K20's staging and count loop (CUDA cores, AND + popcount on repacked
-// bit words; K9 and K14 run on the tensor cores in namespace k9 below, so
-// K20 on that loop would leave this one without a user): one block counts
-// the pair tile of rows i0 .. i0 + 63 and columns j0 .. j0 + 63 over sites
-// lo .. hi - 1 of the window that starts at f, into thread (ty, tx)'s
-// rows i0 + ty + 16 a and columns j0 + tx + 16 b.  Rows at or past h, and
-// columns outside 0 .. S - 1, read as missing.  The codes come from a span
-// wire (kernels/transfer.py pack_span): 2-bit codes in rows of c4 bytes,
-// then the miss bits in rows of m8 bytes (a set bit is missing).
-__device__ __forceinline__ void count_tile(
-    long long S, const uint8_t* __restrict__ codes,
-    const uint8_t* __restrict__ miss, int c4, int m8, long long f, int lo,
-    int hi, int h, int i0, int j0,
-    uint32_t (*raw)[kRawWords], uint32_t (*packed)[kPackWords],
-    int (&acc_s)[kMicro][kMicro], int (&acc_t)[kMicro][kMicro]) {
-  const int tid = threadIdx.x;
-  const int ty = tid / kSide;
-  const int tx = tid % kSide;
-#pragma unroll
-  for (int a = 0; a < kMicro; ++a)
-#pragma unroll
-    for (int b = 0; b < kMicro; ++b) acc_s[a][b] = acc_t[a][b] = 0;
-
-  for (int off = lo; off < hi; off += kStage) {
-    // stage: raw codes of sites off .. off + kStage - 1 of the window
-    int8_t* rawb = reinterpret_cast<int8_t*>(&raw[0][0]);
-    for (int idx = tid; idx < kRows * kStage; idx += kThreads) {
-      const int r = idx / kStage;
-      const int c = idx % kStage;
-      const int row = r < kTile ? i0 + r : j0 + r - kTile;
-      const long long col = f + off + c;
-      int8_t v = -1;
-      if (row < h && off + c < hi && col >= 0 && col < S &&
-          !((miss[(long long)row * m8 + (col >> 3)] >> (col & 7)) & 1))
-        v = (int8_t)((codes[(long long)row * c4 + (col >> 2)] >>
-                      (2 * (col & 3))) & 3);
-      rawb[r * kRawWords * 4 + c] = v;
-    }
-    __syncthreads();
-    // repack: task (row r, group g), g fastest, so a warp's reads of
-    // raw[r][8 g + q] fall in 32 distinct banks (row pitch 33 words)
-    for (int task = tid; task < kRows * kGroups; task += kThreads) {
-      const int r = task / kGroups;
-      const int g = task % kGroups;
-      uint32_t oh[4] = {0u, 0u, 0u, 0u};
-      uint32_t called = 0u;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const uint32_t x = raw[r][8 * g + q];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int code = (int8_t)(x >> (8 * k));
-          const int site = 4 * q + k;
-          if (code >= 0) {
-            called |= 1u << site;
-            if (code <= 3) oh[q >> 1] |= 1u << (4 * (site & 7) + code);
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) packed[r][5 * g + k] = oh[k];
-      packed[r][5 * g + 4] = called;
-    }
-    __syncthreads();
-    // count: thread (ty, tx) owns rows i0 + ty + 16 a, columns
-    // j0 + tx + 16 b; the j reads hit 16 distinct banks (pitch 21 words)
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      uint32_t ci[kMicro], cj[kMicro], oi[kMicro][4], oj[kMicro][4];
-#pragma unroll
-      for (int a = 0; a < kMicro; ++a) {
-        const uint32_t* pi = packed[ty + kSide * a] + 5 * g;
-        const uint32_t* pj = packed[kTile + tx + kSide * a] + 5 * g;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          oi[a][k] = pi[k];
-          oj[a][k] = pj[k];
-        }
-        ci[a] = pi[4];
-        cj[a] = pj[4];
-      }
-#pragma unroll
-      for (int a = 0; a < kMicro; ++a)
-#pragma unroll
-        for (int b = 0; b < kMicro; ++b) {
-          acc_s[a][b] += __popc(ci[a] & cj[b]);
-          acc_t[a][b] += __popc(oi[a][0] & oj[b][0]) +
-                         __popc(oi[a][1] & oj[b][1]) +
-                         __popc(oi[a][2] & oj[b][2]) +
-                         __popc(oi[a][3] & oj[b][3]);
-        }
-    }
-    __syncthreads();
-  }
-}
 
 // Store one count into a cell: plainly, or with an int32 atomic add when
 // the window's sites are split over blocks (the output is then zeroed).
@@ -506,72 +401,307 @@ pair_counts_4state_kernel(const int8_t* __restrict__ alleles, long long ld,
 //   [2-bit codes h x sp/4 | miss bits h x sp/8 | first i32[wp] | n i32[wp]]
 // is read in place (no unpacked [h, sp] matrix), each window w counts its
 // sites first[w] .. first[w] + min(n[w], s_max) - 1 (the JAX gather keeps
-// s_max slots) as K9 does, and the upper triangles (i <= j,
-// np.triu_indices order) of mismatch and shared go straight into row w of
-// out [wp, 2T], T = h (h + 1) / 2, m half then s half, as uint16 (s_max <
-// 2^16) or int32: one kernel, one output, no [W, h, h] intermediate.
+// s_max slots; sites outside 0 .. sp - 1 read as missing) as K9 does, and
+// the upper triangles (i <= j, np.triu_indices order) of mismatch and
+// shared go straight into row w of out [wp, 2T], T = h (h + 1) / 2, m half
+// then s half, as uint16 (s_max < 2^16) or int32: one kernel, one output,
+// no [W, h, h] intermediate.
 //
-// Bound: operations, as K9's.  Design: 64 x 64 upper-triangle tiles and
-// the CUDA-core count loop (count_tile), with the span wire's codes
-// decoded in the staging step; the window metadata is read as bytes,
-// since it starts unaligned when sp is not a multiple of 32.  Each
-// upper-triangle tile writes its cells with i <= j (a diagonal tile's
-// lower half is its mirror); windows with no sites (pad windows past W,
-// empty windows) write zero rows.  No site split: each cell has one
-// writer.
+// Bound: bytes — the windows' words of the buffer read once and the tri
+// rows written once (the 1-bit tensor-core product has no data-sheet
+// rate; on K1's tiles it kept pace with the stores).  Design: K1's tile
+// (bitmma.cuh), a 1-D grid of (window, 64 x 64 tile pair ti <= tj) blocks.
+// - Staging decodes words, not sites.  A step covers kStepWords 32-site
+//   words of the window from a 64-site boundary (a ~625-site window is one
+//   step); each thread loads 64 sites of a row at once, 16 code bytes and
+//   8 miss bytes (one 16-byte and one 8-byte load when sp is a multiple of
+//   64, else bytes), kBatch of them in flight, and decodes them in
+//   registers with word operations into five bit planes a word in shared
+//   memory: the called bits c = ~miss & in-window, and the one-hot bits
+//   oh_k = c & [code == k].  The planes keep a site order of their own
+//   (bit 2t is site t, bit 2t + 1 site 16 + t): the code words' low and
+//   high bits interleave with two masks and a shift, and the miss word is
+//   shuffled to match; the counts do not depend on the order, and sites
+//   outside the window are masked in place, so nothing is realigned.
+// - AND-only products on the 1-bit tensor cores (mma.sync m16n8k256
+//   and.popc), G(x, y) = popc(x_i & y_j) summed over words:
+//     shared = G(c, c),  mismatch = shared - sum_k G(oh_k, oh_k)
+//   exact because a called site has exactly one code.
+// - The epilogue routes the tile through shared memory: each row i of the
+//   tile leaves as one contiguous run of its j >= i (a diagonal tile skips
+//   its lower half), in 16-byte streaming stores where the run covers a
+//   whole aligned chunk, every thread on its own chunks (a warp a row ran
+//   1.2x slower).  Windows with no sites (pad windows past W, empty
+//   windows) write zero rows.
+namespace k20 {
+
+constexpr int kStepWords = 24;                   // 768 sites a step
+constexpr int kRowPitch = 5 * kStepWords + 4;    // 124: fragments on 32 banks
+constexpr int kUnits = kStepWords / 2;           // 64-site loads a row a step
+constexpr int kBatch = 3;                        // loads in flight a thread
+constexpr int kSmem = 2 * kPairTile * kRowPitch * 4;   // 63,488 bytes
+static_assert(2 * kPairTile * kOutRow * 4 <= kSmem, "epilogue tiles fit");
+
 __device__ __forceinline__ int load_i32(const uint8_t* p) {
   return (int)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
                ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
 }
 
+// Bit t (t < 16) to bit 2t, bit 16 + t to bit 2t + 1: the planes' order.
+__device__ __forceinline__ uint32_t interleave_halves(uint32_t x) {
+  uint32_t t = (x ^ (x >> 8)) & 0x0000FF00u;
+  x ^= t ^ (t << 8);
+  t = (x ^ (x >> 4)) & 0x00F000F0u;
+  x ^= t ^ (t << 4);
+  t = (x ^ (x >> 2)) & 0x0C0C0C0Cu;
+  x ^= t ^ (t << 2);
+  t = (x ^ (x >> 1)) & 0x22222222u;
+  x ^= t ^ (t << 1);
+  return x;
+}
+
+// The bits of word q (sites 32 q ..) inside sites [lo, hi).
+__device__ __forceinline__ uint32_t window_bits(int q, int lo, int hi) {
+  const int a = lo - 32 * q;
+  const int b = hi - 32 * q;
+  const uint32_t from = a <= 0 ? ~0u : a >= 32 ? 0u : ~0u << a;
+  const uint32_t to = b >= 32 ? ~0u : b <= 0 ? 0u : (1u << b) - 1u;
+  return from & to;
+}
+
+// The five planes of one word: x0, x1 its 2-bit codes (sites 0..15 and
+// 16..31, site s at bits 2 (s % 16)), miss its miss bits (site s at bit
+// s) with the sites outside the window set.
+__device__ __forceinline__ void decode_word(uint32_t x0, uint32_t x1,
+                                            uint32_t miss,
+                                            uint32_t (&p)[5]) {
+  const uint32_t c = ~interleave_halves(miss);
+  const uint32_t lo = (x0 & 0x55555555u) | ((x1 & 0x55555555u) << 1);
+  const uint32_t hi = ((x0 >> 1) & 0x55555555u) | (x1 & 0xAAAAAAAAu);
+  p[0] = c & ~hi & ~lo;
+  p[1] = c & ~hi & lo;
+  p[2] = c & hi & ~lo;
+  p[3] = c & hi & lo;
+  p[4] = c;
+}
+
+// Stage the step of words q .. q + kStepWords - 1 (q even) of the tile's
+// rows (0 .. 63: haplotypes i0..; 64 .. 127: j0..) as planes[row][plane]
+// [word], rows at or past h and words outside [lo, hi) zero.
+template <bool kAligned>
+__device__ __forceinline__ void stage_step(
+    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ miss,
+    int c4, int m8, int h, int i0, int j0, int rows, int q, int lo, int hi,
+    uint32_t* planes) {
+  const int total = rows * kUnits;
+  for (int base = threadIdx.x; base < total;
+       base += kBatch * kPairThreads) {
+    uint32_t cw[kBatch][4], mw[kBatch][2];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int u = base + b * kPairThreads;
+      const int r = u / kUnits;
+      const int qu = q + 2 * (u - r * kUnits);
+      const int g = (r < kPairTile ? i0 : j0 - kPairTile) + r;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cw[b][k] = 0u;
+      mw[b][0] = mw[b][1] = ~0u;
+      if (u >= total || g >= h || 32 * qu >= hi || 32 * qu + 64 <= lo)
+        continue;
+      const uint8_t* crow = codes + (size_t)g * c4;
+      const uint8_t* mrow = miss + (size_t)g * m8;
+      if (kAligned) {
+        const uint4 c = *reinterpret_cast<const uint4*>(crow + 8 * qu);
+        const uint2 m = *reinterpret_cast<const uint2*>(mrow + 4 * qu);
+        cw[b][0] = c.x;
+        cw[b][1] = c.y;
+        cw[b][2] = c.z;
+        cw[b][3] = c.w;
+        mw[b][0] = m.x;
+        mw[b][1] = m.y;
+      } else {
+        // a row of its own alignment (sp not a multiple of 64): bytes,
+        // those past the row's end missing
+        mw[b][0] = mw[b][1] = 0u;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const int at = 8 * qu + k;
+          if (at < c4) cw[b][k >> 2] |= (uint32_t)crow[at] << (8 * (k & 3));
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int at = 4 * qu + k;
+          mw[b][k >> 2] |= (at < m8 ? (uint32_t)mrow[at] : 0xFFu)
+                           << (8 * (k & 3));
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int u = base + b * kPairThreads;
+      if (u >= total) break;
+      const int r = u / kUnits;
+      const int k = 2 * (u - r * kUnits);
+      uint32_t p0[5], p1[5];
+      decode_word(cw[b][0], cw[b][1], mw[b][0] | ~window_bits(q + k, lo, hi),
+                  p0);
+      decode_word(cw[b][2], cw[b][3],
+                  mw[b][1] | ~window_bits(q + k + 1, lo, hi), p1);
+      uint32_t* dst = planes + r * kRowPitch + k;
+#pragma unroll
+      for (int p = 0; p < 5; ++p)
+        *reinterpret_cast<uint2*>(dst + p * kStepWords) =
+            make_uint2(p0[p], p1[p]);
+    }
+  }
+}
+
+// The tile's rows to out: row r (i = i0 + r) holds its run of j >= i
+// (c0 .. cols - 1 of the tile) at t0(i) + j0 + c0 of each half, m then
+// s.  Every thread takes (half, row, 16-byte chunk) tasks: a chunk inside
+// the run leaves as one 16-byte streaming store, the partial chunks at the
+// run's two ends element by element, so all the block's stores are in
+// flight at once.
 template <typename Out>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_tile(Out* row, long long tri, int h,
+                                           int i0, int j0, bool diag,
+                                           const int* tm, const int* ts) {
+  constexpr int kVec = 16 / (int)sizeof(Out);
+  constexpr int kChunks = kPairTile / kVec + 1;   // a run spans at most
+  const int cols = min(kPairTile, h - j0);
+  for (int task = threadIdx.x; task < 2 * kPairTile * kChunks;
+       task += kPairThreads) {
+    const int half = task / (kPairTile * kChunks);
+    const int rem = task - half * kPairTile * kChunks;
+    const int r = rem / kChunks;
+    const int q = rem - r * kChunks;
+    const int i = i0 + r;
+    const int c0 = diag ? r : 0;
+    const int len = cols - c0;
+    if (i >= h || len <= 0) continue;
+    const long long t0 = (long long)i * h - (long long)i * (i - 1) / 2 - i;
+    Out* dst = row + (half ? tri : 0) + t0 + j0 + c0;
+    const int* src = (half ? ts : tm) + r * kOutRow + c0;
+    // chunk q of the 16-byte chunks the run touches, from element e0
+    const int e0 = q * kVec - (int)(((uintptr_t)dst & 15) / sizeof(Out));
+    if (e0 >= len) continue;
+    if (e0 >= 0 && e0 + kVec <= len) {
+      const int* v = src + e0;
+      uint4 x;
+      if constexpr (sizeof(Out) == 2) {
+        x = make_uint4((v[0] & 0xFFFFu) | ((uint32_t)v[1] << 16),
+                       (v[2] & 0xFFFFu) | ((uint32_t)v[3] << 16),
+                       (v[4] & 0xFFFFu) | ((uint32_t)v[5] << 16),
+                       (v[6] & 0xFFFFu) | ((uint32_t)v[7] << 16));
+      } else {
+        x = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+      __stcs(reinterpret_cast<uint4*>(dst + e0), x);
+    } else {
+      for (int u = max(0, -e0); u < kVec && e0 + u < len; ++u)
+        dst[e0 + u] = (Out)src[e0 + u];
+    }
+  }
+}
+
+template <typename Out, bool kAligned>
+__global__ void __launch_bounds__(kPairThreads, 3)
 flush_pair_counts_kernel(const uint8_t* __restrict__ buf, int h, int sp,
-                         int wp, int w0, int s_max, int tiles,
-                         Out* __restrict__ out) {
-  __shared__ uint32_t raw[kRows][kRawWords];
-  __shared__ uint32_t packed[kRows][kPackWords];
-  const int wl = w0 + blockIdx.z;
+                         int wp, int w0, int s_max, Out* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t planes[];
+  const int T = (h + kPairTile - 1) / kPairTile;
+  const int pairs = T * (T + 1) / 2;
+  const int wl = w0 + blockIdx.x / pairs;
+  int ti, tj;
+  tile_pair(blockIdx.x % pairs, T, ti, tj);
+  const int i0 = ti * kPairTile;
+  const int j0 = tj * kPairTile;
+  const bool diag = ti == tj;
   const int c4 = sp / 4;
   const int m8 = sp / 8;
   const uint8_t* miss = buf + (size_t)h * c4;
   const uint8_t* meta = miss + (size_t)h * m8;
+  // the window's sites [lo, hi) of 0 .. sp - 1, its words from q0 (even)
   const int f = load_i32(meta + 4 * (size_t)wl);
   const int n = min(load_i32(meta + 4 * ((size_t)wp + wl)), s_max);
+  const int lo = max(f, 0);
+  const int hi = (int)min((long long)f + max(n, 0), (long long)sp);
+  const int q0 = (lo >> 6) << 1;
+  const int words = hi > lo ? ((hi + 31) >> 5) - q0 : 0;
 
-  int ti = 0;
-  int rem = blockIdx.x;
-  while (rem >= tiles - ti) {
-    rem -= tiles - ti;
-    ++ti;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const uint32_t* arow = planes + (16 * (warp & 3) + g) * kRowPitch + t;
+  const uint32_t* brow = planes + ((diag ? 0 : kPairTile) +
+                                   32 * (warp >> 2) + g) * kRowPitch + t;
+  int sacc[4][4] = {}, macc[4][4] = {};
+  for (int v0 = 0; v0 < words; v0 += kStepWords) {
+    stage_step<kAligned>(buf, miss, c4, m8, h, i0, j0,
+                         diag ? kPairTile : 2 * kPairTile, q0 + v0, lo, hi,
+                         planes);
+    __syncthreads();
+    const int nk = min(kStepWords, words - v0);
+    for (int kk = 0; kk < nk; kk += kMmaWords) {
+#pragma unroll
+      for (int p = 0; p < 5; ++p) {
+        const uint32_t* a = arow + p * kStepWords + kk;
+        const uint32_t af[4] = {a[0], a[8 * kRowPitch], a[4],
+                                a[8 * kRowPitch + 4]};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint32_t* b = brow + 8 * nt * kRowPitch + p * kStepWords + kk;
+          mma_and_popc(p == 4 ? sacc[nt] : macc[nt], af, b[0], b[4]);
+        }
+      }
+    }
+    __syncthreads();
   }
-  const int tj = ti + rem;
-  const int i0 = ti * kTile;
-  const int j0 = tj * kTile;
 
-  int acc_s[kMicro][kMicro];
-  int acc_t[kMicro][kMicro];
-  count_tile(sp, buf, miss, c4, m8, f, 0, max(n, 0), h, i0, j0, raw, packed,
-             acc_s, acc_t);
-
-  const int ty = threadIdx.x / kSide;
-  const int tx = threadIdx.x % kSide;
-  const long long T = (long long)h * (h + 1) / 2;
-  Out* row = out + (size_t)wl * 2 * T;
+  // epilogue: shared and mismatch through two tiles in shared memory
+  int* ts = reinterpret_cast<int*>(planes);
+  int* tm = ts + kPairTile * kOutRow;
 #pragma unroll
-  for (int a = 0; a < kMicro; ++a) {
-    const int i = i0 + ty + kSide * a;
-    const long long t0 = (long long)i * h - (long long)i * (i - 1) / 2 - i;
+  for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
-    for (int b = 0; b < kMicro; ++b) {
-      const int j = j0 + tx + kSide * b;
-      if (i >= h || j >= h || j < i) continue;
-      const int sv = acc_s[a][b];
-      row[t0 + j] = (Out)(sv - acc_t[a][b]);
-      row[T + t0 + j] = (Out)sv;
+    for (int e = 0; e < 4; ++e) {
+      const int at = tile_at(warp, lane, nt, e);
+      ts[at] = sacc[nt][e];
+      tm[at] = sacc[nt][e] - macc[nt][e];
     }
   }
+  __syncthreads();
+  const long long tri = (long long)h * (h + 1) / 2;
+  store_tile(out + (size_t)wl * 2 * tri, tri, h, i0, j0, diag, tm, ts);
 }
+
+// The variant of the output type and the buffer's alignment, its shared
+// memory limit raised once per device and variant (not at every launch,
+// so launches can be captured in a CUDA graph).
+template <typename Out, bool kAligned>
+int launch_flush(const void* buf, int h, int sp, int wp, int w0, int nwin,
+                 int s_max, void* out, void* stream) {
+  auto kernel = flush_pair_counts_kernel<Out, kAligned>;
+  static bool raised[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !raised[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) raised[dev] = true;
+  }
+  const int T = (h + kPairTile - 1) / kPairTile;
+  kernel<<<T * (T + 1) / 2 * nwin, kPairThreads, kSmem,
+           (cudaStream_t)stream>>>((const uint8_t*)buf, h, sp, wp, w0, s_max,
+                                   (Out*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k20
 
 // K9 or K14 (kRect) on grid (tiles, splits, nwin): the kernel variant of
 // the row stride, its shared-memory limit raised once per device and
@@ -643,18 +773,17 @@ int ggt_pair_counts_4state_rows(const void* alleles, long long ld,
 int ggt_flush_pair_counts(const void* buf, int h, int sp, int wp, int w0,
                           int nwin, int s_max, int u16, void* out,
                           void* stream) {
-  const int tiles = (h + kTile - 1) / kTile;
-  dim3 grid(tiles * (tiles + 1) / 2, 1, nwin);
-  if (u16) {
-    flush_pair_counts_kernel<uint16_t><<<grid, kThreads, 0,
-                                         (cudaStream_t)stream>>>(
-        (const uint8_t*)buf, h, sp, wp, w0, s_max, tiles, (uint16_t*)out);
-  } else {
-    flush_pair_counts_kernel<int32_t><<<grid, kThreads, 0,
-                                        (cudaStream_t)stream>>>(
-        (const uint8_t*)buf, h, sp, wp, w0, s_max, tiles, (int32_t*)out);
-  }
-  return (int)cudaGetLastError();
+  // 16- and 8-byte loads of every row when each row starts 16-byte aligned
+  const bool aligned = sp % 64 == 0 && ((uintptr_t)buf & 15) == 0;
+  if (u16)
+    return aligned ? k20::launch_flush<uint16_t, true>(
+                         buf, h, sp, wp, w0, nwin, s_max, out, stream)
+                   : k20::launch_flush<uint16_t, false>(
+                         buf, h, sp, wp, w0, nwin, s_max, out, stream);
+  return aligned ? k20::launch_flush<int32_t, true>(
+                       buf, h, sp, wp, w0, nwin, s_max, out, stream)
+                 : k20::launch_flush<int32_t, false>(
+                       buf, h, sp, wp, w0, nwin, s_max, out, stream);
 }
 
 }  // extern "C"

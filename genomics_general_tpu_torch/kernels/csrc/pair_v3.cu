@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bitmma.cuh"
+
 namespace {
 
 constexpr int kTile = 32;        // K2 pair tile: 32 x 32 pairs
@@ -33,11 +35,9 @@ constexpr int kTailWarps = kTailThreads / 32;
 constexpr int kWideRows = 8;     // K3 wide: rows of loads in flight a thread
 
 // ------------------------------------------------------- K1, K13 tile body
-// One block per (window, 64 x 64 pair tile ti <= tj) of the upper triangle.
-constexpr int kPairTile = 64;
-constexpr int kPairThreads = 256;
+// One block per (window, 64 x 64 pair tile ti <= tj) of the upper triangle
+// (the tile's schedule, product and epilogue cells in bitmma.cuh).
 constexpr int kStageWords = 32;     // window words (realigned) a step
-constexpr int kMmaWords = 8;        // m16n8k256: 8 words of depth
 // A staged row holds the step's raw plane words, each segment's run
 // copied from a 16-byte boundary: at most kStageWords + 3 (1 + 3 + 3) words
 // for three segments.  60 words (15 x 16 bytes) keep rows 16-byte aligned
@@ -46,7 +46,6 @@ constexpr int kRawRow = 60;
 constexpr int kRawPlane = kPairTile * kRawRow;              // one side
 constexpr int kRawWords = 2 * 2 * kRawPlane + 4;  // 2 planes x 2 sides
 constexpr int kPairSmem = 4 * kRawWords;          // 61,456 bytes, dynamic
-constexpr int kOutRow = kPairTile + 1;            // the epilogue's tile row
 static_assert(kStageWords + 3 * 7 <= kRawRow && kRawRow % 4 == 0,
               "a step's raw runs fit a staged row");
 static_assert(2 * kPairTile * kOutRow <= kRawWords,
@@ -83,17 +82,6 @@ __device__ __forceinline__ void set_starts(Segments& sg) {
   sg.start[1] = padded_words(sg.n[0]);
   sg.start[2] = sg.start[1] + padded_words(sg.n[1]);
   sg.start[3] = sg.start[2] + padded_words(sg.n[2]);
-}
-
-// Tile pair p of the T (T + 1) / 2 pairs ti <= tj, row by row: the closed
-// form of p's row counted from the last, corrected for rounding.
-__device__ __forceinline__ void tile_pair(int p, int T, int& ti, int& tj) {
-  const long long q = (long long)T * (T + 1) / 2 - 1 - p;
-  long long r = (long long)((sqrt(8.0 * (double)q + 1.0) - 1.0) * 0.5);
-  while (r * (r + 1) / 2 > q) --r;
-  while ((r + 1) * (r + 2) / 2 <= q) ++r;
-  ti = T - 1 - (int)r;
-  tj = T - 1 - (int)(q - r * (r + 1) / 2);
 }
 
 // Segment s's part of the staging step at v0: its raw run is n4 16-byte
@@ -171,17 +159,6 @@ __device__ __forceinline__ void stage_step(const Segments& sg,
                src + (size_t)g * rw + q4 + 4 * c);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// d += the and-popc product of A (16 x 256 bits, rows) and B (256 x 8 bits,
-// columns): d[r][c] += popc(A_r & B_c) over the 256 bits.
-__device__ __forceinline__ void mma_and_popc(int (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Realigned word k of one staged row: staged words base + k, base + k + 1
@@ -324,8 +301,7 @@ __device__ __forceinline__ void pair_tile(const Segments& sg, int h, int wl,
   for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int at = (16 * (warp & 3) + g + 8 * (e >> 1)) * kOutRow
-                     + 32 * (warp >> 2) + 8 * nt + 2 * t + (e & 1);
+      const int at = tile_at(warp, lane, nt, e);
       tm[at] = macc[nt][e];
       ts[at] = nconst + sacc[nt][e];
     }

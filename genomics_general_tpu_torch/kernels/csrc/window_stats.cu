@@ -13,47 +13,21 @@
 
 namespace {
 
-constexpr int kThreads = 1024;   // K10 threads per block (one window)
 constexpr int kPopThreads = 256;  // K11: 8 warps, one haplotype row each
+constexpr int kRowWarps = 8;      // K10 rows pass: warps a block at most
+constexpr int kRowsPerWarp = 2;   // K10 rows pass: rows a warp
+constexpr int kMeanThreads = 256;  // K10 means pass: 8 warps a window
+constexpr unsigned kFull = 0xffffffffu;
 
-// Fixed-order block sum: thread t adds its own terms in order, then a
-// binary tree over the kThreads partials (partial t += partial t + stride,
-// stride halving from kThreads / 2).  The plain version
-// (window_stats._fixed_sum) repeats exactly this order.
-__device__ float block_sum(float v, float* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
-}
-
-// The rows with weight > 0, in increasing order, with their weights:
-// one warp, a ballot per 32 rows.
-__device__ int compact(const float* __restrict__ pm, int h, int a, int b,
-                       bool pooled, int* list, float* val) {
-  const int lane = threadIdx.x % 32;
-  int count = 0;
-  for (int base = 0; base < h; base += 32) {
-    const int i = base + lane;
-    float u = 0.0f;
-    if (i < h) {
-      u = pm[(size_t)a * h + i];
-      if (pooled) u = fminf(fmaxf(u + pm[(size_t)b * h + i], 0.0f), 1.0f);
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, u > 0.0f);
-    if (u > 0.0f) {
-      const int pos = count + __popc(bal & ((1u << lane) - 1u));
-      list[pos] = i;
-      val[pos] = u;
-    }
-    count += __popc(bal);
-  }
-  return count;
+// The fixed-order warp sum: lane l has added its terms p = l, l + 32, ..
+// in order; the lanes then add as a binary tree (lane l + stride into
+// lane l, stride 16 .. 1; a butterfly leaves the same sum in every lane,
+// as float addition is commutative).  window_stats._fixed_sum(x, 32)
+// repeats this order.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
 }
 
 // ---------------------------------------------------------------- K10
@@ -68,93 +42,195 @@ __device__ int compact(const float* __restrict__ pm, int h, int a, int b,
 //   Fst[a][b] = 1 - (w pi_a + (1 - w) pi_b) / pooled[a][b],
 //   w = n_a / (n_a + n_b), n_a = sum of pm[a].
 //
-// Bound: bytes — each window's [h, h] counts read once.  Design: one block
-// per window walks the 2 P^2 blocks in turn.  For each, one warp compacts
-// the rows of u > 0 and another those of v > 0 (ballots), so a block of
-// disjoint populations visits only its own pairs (about 5 h^2 pair reads
-// per window over all blocks); the sums are float32 in the fixed order of
-// block_sum, so a run repeats bit for bit, and Fst is formed by thread
-// (a, b) once every mean of the window is in shared memory.
-__global__ void __launch_bounds__(kThreads)
-window_stats_tail_kernel(const int32_t* __restrict__ m,
-                         const int32_t* __restrict__ s,
-                         const float* __restrict__ pm, int h, int P,
-                         float* __restrict__ pi, float* __restrict__ dxy,
-                         float* __restrict__ fst) {
-  extern __shared__ unsigned char smem[];
-  int* lu = reinterpret_cast<int*>(smem);
-  int* lv = lu + h;
-  float* uval = reinterpret_cast<float*>(lv + h);
-  float* vval = uval + h;
-  float* dmean = vval + h;             // [P, P] block means
-  float* pmean = dmean + P * P;        // [P, P] pooled means
-  float* npop = pmean + P * P;         // [P] population sizes
-  __shared__ float red[kThreads];
-  __shared__ int counts[2];
-  const int wl = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const size_t base = (size_t)wl * h * h;
+// Bound: bytes — each window's [h, h] counts read once.  Design: the mask's
+// rows fall into membership classes (one per distinct column pm[:, i],
+// rows in no population dropped; window_stats.TailClasses, built once per
+// mask on the host), and every block mean is a fixed combination of
+// class-pair sums: num(a, b) adds num(ci, cj) over the class pairs with
+// u_a(ci) v_b(cj) > 0, den(a, b) adds u_a(ci) v_b(cj) cnt(ci, cj), cnt the
+// valid pairs' count.  So each cell of m and s is read once, in two
+// launches:
+// - rows (tail_rows_kernel): a block per (window, band of 2 x warps rows
+//   in class order), a warp a row: 16-byte loads of the row's m and s, the
+//   row's dist written into a shared row at each column's place in class
+//   order (NaN where the pair is not valid), then per column class a
+//   fixed-order warp sum and count -> part[w][row][cj];
+// - means (tail_means_kernel): a block per window sums part over each
+//   class's rows into S[w][ci][cj] (a warp a class pair, fixed order),
+//   then a warp per block mean adds its class pairs (fixed order over
+//   ci C + cj), and Fst is formed per (a, b) once the means are written.
+// Every float sum is a warp_sum over a fixed list, so a run repeats bit
+// for bit and window_stats_tail_plain repeats it exactly.
 
-  for (int a = 0; a < P; ++a) {
-    float acc = 0.0f;
-    for (int i = tid; i < h; i += kThreads) acc += pm[(size_t)a * h + i];
-    const float n_a = block_sum(acc, red);
-    if (tid == 0) npop[a] = n_a;
+// Row k of the class order (haplotype members[k]) of window w against
+// every column: part_num / part_cnt [w][k][c] for each class c.
+template <bool kVec>
+__global__ void __launch_bounds__(kRowWarps * 32)
+tail_rows_kernel(const int32_t* __restrict__ m, const int32_t* __restrict__ s,
+                 const int32_t* __restrict__ cls_i, int h, int C, int n_rows,
+                 int bands, float* __restrict__ part_num,
+                 int32_t* __restrict__ part_cnt) {
+  extern __shared__ __align__(16) int32_t sm[];
+  const int warps = blockDim.x / 32;
+  const int32_t* members = cls_i;
+  const int32_t* starts = members + n_rows;
+  int* pos = sm;                                   // [h], 16-byte aligned
+  int* start = pos + ((h + 3) & ~3);               // [C + 1]
+  float* rowbuf = reinterpret_cast<float*>(start + C + 1) +
+                  (threadIdx.x / 32) * n_rows;     // this warp's row
+  const int wl = blockIdx.x / bands;
+  const int band = blockIdx.x - wl * bands;
+  for (int j = threadIdx.x; j < h; j += blockDim.x)
+    pos[j] = cls_i[n_rows + C + 1 + j];
+  for (int c = threadIdx.x; c <= C; c += blockDim.x) start[c] = starts[c];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int z = 0; z < kRowsPerWarp; ++z) {
+    const int k = (band * kRowsPerWarp + z) * warps + warp;
+    if (k >= n_rows) break;
+    const int i = members[k];
+    const int32_t* mrow = m + ((size_t)wl * h + i) * h;
+    const int32_t* srow = s + ((size_t)wl * h + i) * h;
+    if (kVec) {
+      // 4 columns a lane a load, 4 loads of m and s in flight
+      for (int j0 = 4 * lane; j0 < h; j0 += 4 * 128) {
+        int4 mv[4], sv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = j0 + 128 * c;
+          if (j < h) {
+            mv[c] = *reinterpret_cast<const int4*>(mrow + j);
+            sv[c] = *reinterpret_cast<const int4*>(srow + j);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = j0 + 128 * c;
+          if (j >= h) break;
+          const int4 p4 = *reinterpret_cast<const int4*>(pos + j);
+          const int pj[4] = {p4.x, p4.y, p4.z, p4.w};
+          const int mj[4] = {mv[c].x, mv[c].y, mv[c].z, mv[c].w};
+          const int sj[4] = {sv[c].x, sv[c].y, sv[c].z, sv[c].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (pj[e] >= 0)
+              rowbuf[pj[e]] = (j + e != i && sj[e] > 0)
+                  ? (float)mj[e] / (float)sj[e] : nan;
+        }
+      }
+    } else {
+      for (int j = lane; j < h; j += 32) {
+        const int p = pos[j];
+        if (p < 0) continue;
+        const int sv = srow[j];
+        rowbuf[p] = (j != i && sv > 0) ? (float)mrow[j] / (float)sv : nan;
+      }
+    }
+    __syncwarp();
+    const size_t out = ((size_t)wl * n_rows + k) * C;
+    for (int c = 0; c < C; ++c) {
+      float acc = 0.0f;
+      int cnt = 0;
+      for (int q = start[c] + lane; q < start[c + 1]; q += 32) {
+        const float v = rowbuf[q];
+        if (v == v) {
+          acc += v;
+          ++cnt;
+        }
+      }
+      acc = warp_sum(acc);
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) {
+        part_num[out + c] = acc;
+        part_cnt[out + c] = cnt;
+      }
+    }
+    __syncwarp();
   }
+}
 
+// Window w's class-pair sums, block means, pi and Fst.
+__global__ void __launch_bounds__(kMeanThreads)
+tail_means_kernel(const int32_t* __restrict__ cls_i,
+                  const float* __restrict__ cls_f, int P, int C, int n_rows,
+                  const float* __restrict__ part_num,
+                  const int32_t* __restrict__ part_cnt,
+                  float* __restrict__ s_num, int32_t* __restrict__ s_cnt,
+                  float* __restrict__ pi, float* __restrict__ dxy,
+                  float* __restrict__ fst) {
+  const int wl = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarps = kMeanThreads / 32;
+  const int32_t* starts = cls_i + n_rows;
+  const float* wgt = cls_f;                        // [C, P]
+  const float* npop = cls_f + (size_t)C * P;       // [P]
+  const int CC = C * C;
+  float* sn = s_num + (size_t)wl * CC;
+  int32_t* sc = s_cnt + (size_t)wl * CC;
+  // S[ci][cj]: part over the rows of class ci, in class order
+  for (int task = warp; task < CC; task += kWarps) {
+    const int ci = task / C;
+    const int cj = task - ci * C;
+    float acc = 0.0f;
+    int cnt = 0;
+    for (int k = starts[ci] + lane; k < starts[ci + 1]; k += 32) {
+      const size_t at = ((size_t)wl * n_rows + k) * C + cj;
+      acc += part_num[at];
+      cnt += part_cnt[at];
+    }
+    acc = warp_sum(acc);
+    cnt = __reduce_add_sync(kFull, cnt);
+    if (lane == 0) {
+      sn[task] = acc;
+      sc[task] = cnt;
+    }
+  }
+  __syncthreads();
+  // the block means: dxy (kind 0) into dxy, pooled (kind 1) into fst
   const int PP = P * P;
-  for (int task = 0; task < 2 * PP; ++task) {
+  for (int task = warp; task < 2 * PP; task += kWarps) {
     const bool pooled = task >= PP;
     const int a = (task % PP) / P;
     const int b = task % P;
-    if (warp == 0) {
-      const int c = compact(pm, h, a, b, pooled, lu, uval);
-      if (tid == 0) counts[0] = c;
-    } else if (warp == 1) {
-      const int c = pooled ? compact(pm, h, a, b, true, lv, vval)
-                           : compact(pm, h, b, a, false, lv, vval);
-      if (tid == 32) counts[1] = c;
-    }
-    __syncthreads();
-    const long long nu = counts[0];
-    const long long nv = counts[1];
     float num = 0.0f;
     float den = 0.0f;
-    for (long long p = tid; p < nu * nv; p += kThreads) {
-      const int iu = (int)(p / nv);
-      const int jv = (int)(p % nv);
-      const int i = lu[iu];
-      const int j = lv[jv];
-      float wgt = 0.0f;
-      float d = 0.0f;
-      if (i != j) {
-        const int sv = s[base + (size_t)i * h + j];
-        if (sv > 0) {
-          wgt = uval[iu] * vval[jv];
-          if (wgt > 0.0f)
-            d = (float)m[base + (size_t)i * h + j] / (float)max(sv, 1);
-        }
+    for (int k = lane; k < CC; k += 32) {
+      const int ci = k / C;
+      const int cj = k - ci * C;
+      float u, v;
+      if (pooled) {
+        u = fminf(fmaxf(wgt[ci * P + a] + wgt[ci * P + b], 0.0f), 1.0f);
+        v = fminf(fmaxf(wgt[cj * P + a] + wgt[cj * P + b], 0.0f), 1.0f);
+      } else {
+        u = wgt[ci * P + a];
+        v = wgt[cj * P + b];
       }
-      num += d;
-      den += wgt;
+      const float uv = u * v;
+      if (uv > 0.0f) {
+        num += sn[k];
+        den += uv * (float)sc[k];
+      }
     }
-    const float tn = block_sum(num, red);
-    const float td = block_sum(den, red);
-    if (tid == 0) (pooled ? pmean : dmean)[a * P + b] = tn / td;
-    __syncthreads();
+    num = warp_sum(num);
+    den = warp_sum(den);
+    if (lane == 0)
+      (pooled ? fst : dxy)[(size_t)wl * PP + a * P + b] = num / den;
   }
-
-  for (int t = tid; t < PP; t += kThreads) {
+  __syncthreads();
+  for (int t = threadIdx.x; t < PP; t += kMeanThreads) {
     const int a = t / P;
     const int b = t % P;
+    const float* d = dxy + (size_t)wl * PP;
     const float w = npop[a] / (npop[a] + npop[b]);
-    const float t1 = w * dmean[a * P + a];
-    const float t2 = (1.0f - w) * dmean[b * P + b];
+    const float t1 = w * d[a * P + a];
+    const float t2 = (1.0f - w) * d[b * P + b];
     const float ps = t1 + t2;
-    dxy[(size_t)wl * PP + t] = dmean[t];
-    fst[(size_t)wl * PP + t] = 1.0f - ps / pmean[t];
-    if (a == b) pi[(size_t)wl * P + a] = dmean[t];
+    float* f = fst + (size_t)wl * PP + t;
+    *f = 1.0f - ps / *f;
+    if (a == b) pi[(size_t)wl * P + a] = d[t];
   }
 }
 
@@ -205,21 +281,61 @@ window_pop_counts_kernel(const int8_t* __restrict__ alleles, long long ld,
 
 extern "C" {
 
-// m, s: int32 [nwin, h, h]; pm: float32 [P, h]; pi: float32 [nwin, P];
-// dxy, fst: float32 [nwin, P, P].
-int ggt_window_stats_tail(const void* m, const void* s, const void* pm,
-                          int h, int P, int nwin, void* pi, void* dxy,
-                          void* fst, void* stream) {
-  const size_t smem = (size_t)h * 16 + (size_t)(2 * P * P + P) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        window_stats_tail_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// m, s: int32 [nwin, h, h]; the mask's classes (window_stats.TailClasses):
+// cls_i int32 [members n_rows | starts C + 1 | pos h], cls_f float32
+// [weights C x P | n_pop P]; scratch int32 [2 nwin C (n_rows + C)];
+// pi: float32 [nwin, P]; dxy, fst: float32 [nwin, P, P].
+int ggt_window_stats_tail(const void* m, const void* s, const void* cls_i,
+                          const void* cls_f, int h, int P, int C,
+                          int n_rows, int nwin, void* scratch, void* pi,
+                          void* dxy, void* fst, void* stream) {
+  float* part_num = (float*)scratch;
+  int32_t* part_cnt = (int32_t*)scratch + (size_t)nwin * n_rows * C;
+  float* s_num = (float*)(part_cnt + (size_t)nwin * n_rows * C);
+  int32_t* s_cnt = (int32_t*)(s_num + (size_t)nwin * C * C);
+  if (n_rows > 0) {
+    // as many warps a block (8 at most) as the shared rows fit; the
+    // shared-memory limit raised to the device's once
+    static bool raised[64];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    int limit = 0;
+    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+    const bool vec = h % 4 == 0 && ((uintptr_t)m & 15) == 0 &&
+                     ((uintptr_t)s & 15) == 0;
+    auto kernel = vec ? tail_rows_kernel<true> : tail_rows_kernel<false>;
+    if (dev >= 64 || !raised[dev]) {
+      e = cudaFuncSetAttribute(tail_rows_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(tail_rows_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 limit);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < 64) raised[dev] = true;
+    }
+    const size_t fixed = 4 * ((size_t)((h + 3) & ~3) + C + 1);
+    int warps = kRowWarps;
+    while (warps > 1 && fixed + 4 * (size_t)warps * n_rows > (size_t)limit)
+      --warps;
+    const size_t smem = fixed + 4 * (size_t)warps * n_rows;
+    if (smem > (size_t)limit) return (int)cudaErrorInvalidConfiguration;
+    const int per = warps * kRowsPerWarp;
+    const int bands = (n_rows + per - 1) / per;
+    kernel<<<(unsigned)bands * nwin, warps * 32, smem,
+             (cudaStream_t)stream>>>(
+        (const int32_t*)m, (const int32_t*)s, (const int32_t*)cls_i, h, C,
+        n_rows, bands, part_num, part_cnt);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  window_stats_tail_kernel<<<nwin, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)m, (const int32_t*)s, (const float*)pm, h, P,
-      (float*)pi, (float*)dxy, (float*)fst);
+  tail_means_kernel<<<nwin, kMeanThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cls_i, (const float*)cls_f, P, C, n_rows, part_num,
+      part_cnt, s_num, s_cnt, (float*)pi, (float*)dxy, (float*)fst);
   return (int)cudaGetLastError();
 }
 

@@ -10,10 +10,12 @@ CSV-exact production path instead finalizes integer counts in float64 on
 the host (stats/popgen.py).
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
-``LAUNCHES``) and runs its plain PyTorch version only for CPU tensors.
-The plain K10 sums in the kernel's own fixed order (:func:`_fixed_sum`),
-so on the same inputs the two agree bit for bit; against the JAX function,
-whose XLA sums run in another order, they agree to float32 rounding.
+``LAUNCHES``; K10's two launches count once) and runs its plain PyTorch
+version only for CPU tensors.  K10 works on the mask's membership classes
+(:class:`TailClasses`); its plain version sums in the kernel's own fixed
+order (:func:`_fixed_sum`), so on the same inputs the two agree bit for
+bit; against the JAX function, whose XLA sums run in another order, they
+agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from . import _build
 from . import pairdist
 
 LAUNCHES = {"window_stats_tail": 0, "window_pop_counts": 0}
-_NT = 1024                       # window_stats.cu: K10 threads per block
+_NT = 1024                       # lanes of a population size's sum
 # windows per launch of the step's kernels: K9 and K11 put the window on a
 # grid axis of at most 65,535 blocks
 STEP_CHUNK = 65535
@@ -45,13 +47,99 @@ def _as_tensor(x, dtype, dev) -> torch.Tensor:
 
 # --------------------------------------------------------- K10 the tail
 
+class TailClasses:
+    """A float32 mask [P, H] (entries >= 0; rows may overlap, lie in no
+    population or carry fractional weights) as the membership classes K10
+    takes: the haplotype rows grouped by their column ``mask[:, i]``, one
+    class per distinct column in order of its first row, the all-zero
+    column (rows in no population) dropped.
+
+    ``members`` (host int64 [n_rows]) lists the classes' rows class by
+    class, each class's rows ascending, ``starts`` (host int64 [C + 1])
+    bounds each class's run; ``weights`` float32 [C, P] is each class's
+    column and ``n_pop`` float32 [P] each population's size
+    (:func:`_fixed_sum` of its mask row).  ``ints`` and ``floats`` hold
+    them on ``device`` as window_stats.cu reads them: int32 [members |
+    starts | pos] (pos [H]: a row's place in ``members``, -1 for none) and
+    float32 [weights | n_pop]."""
+
+    def __init__(self, pop_mask: np.ndarray, device):
+        pm = np.ascontiguousarray(pop_mask, dtype=np.float32)
+        if pm.ndim != 2:
+            raise ValueError("pop_mask must be [P, H]")
+        P, h = pm.shape
+        cols = pm.T + np.float32(0)             # -0.0 reads as 0.0
+        cls = np.full(h, -1, np.int64)
+        if h and P:
+            uniq, first, inv = np.unique(cols, axis=0, return_index=True,
+                                         return_inverse=True)
+            order = [u for u in np.argsort(first, kind="stable")
+                     if (uniq[u] != 0).any()]
+            rank = np.full(uniq.shape[0], -1, np.int64)
+            rank[order] = np.arange(len(order))
+            cls = rank[inv.reshape(-1)]
+        self.C = int(cls.max(initial=-1)) + 1
+        rows = np.flatnonzero(cls >= 0)
+        self.members = rows[np.argsort(cls[rows], kind="stable")]
+        self.n_rows = int(self.members.shape[0])
+        self.starts = np.zeros(self.C + 1, np.int64)
+        np.cumsum(np.bincount(cls[rows], minlength=self.C),
+                  out=self.starts[1:])
+        self.weights = np.ascontiguousarray(
+            cols[self.members[self.starts[:-1]]], dtype=np.float32)
+        self.n_pop = _fixed_sum(torch.from_numpy(pm)).numpy()
+        pos = np.full(h, -1, np.int64)
+        pos[self.members] = np.arange(self.n_rows)
+        self.device = device
+        self.ints = torch.from_numpy(np.concatenate(
+            [self.members, self.starts, pos]).astype(np.int32)).to(device)
+        self.floats = torch.from_numpy(np.concatenate(
+            [self.weights.reshape(-1), self.n_pop]).astype(
+                np.float32)).to(device)
+
+
+# the classes of the masks last seen as tensors: (tensor, its version,
+# TailClasses), so a mask on the card is read back once, not every call
+# (nor inside a CUDA graph's capture)
+_MASKS: list = []
+_MAX_MASKS = 8
+
+
+def tail_classes(pop_mask, device) -> TailClasses:
+    """The :class:`TailClasses` of a mask (numpy array or tensor) on
+    ``device``: built once per distinct mask (``pairdist._run_const``), and
+    a tensor mask is read to the host once while it is unchanged."""
+    if isinstance(pop_mask, torch.Tensor):
+        for t, version, classes in _MASKS:
+            if t is pop_mask and version == t._version and \
+                    classes.device == device:
+                return classes
+        arr = pop_mask.detach().to("cpu", torch.float32).numpy()
+    else:
+        arr = np.asarray(pop_mask, dtype=np.float32)
+    arr = np.ascontiguousarray(arr, dtype=np.float32)
+    classes = pairdist._run_const("tail_classes", arr, device,
+                                  lambda x: TailClasses(x, device))
+    if isinstance(pop_mask, torch.Tensor):
+        if len(_MASKS) >= _MAX_MASKS:
+            _MASKS.pop(0)
+        _MASKS.append((pop_mask, pop_mask._version, classes))
+    return classes
+
+
 def window_stats_tail(m: torch.Tensor, s: torch.Tensor,
                       pop_mask: torch.Tensor):
     """float32 (pi [B, P], dxy [B, P, P], fst [B, P, P]) from the pair
     counts int32 [B, H, H] and the float32 [P, H] mask (entries >= 0).
     Replaces the epilogue of the JAX ``window_stats_step``."""
+    return _tail(m, s, pop_mask, tail_classes(pop_mask, m.device))
+
+
+def _tail(m: torch.Tensor, s: torch.Tensor, pop_mask: torch.Tensor,
+          classes: TailClasses):
+    """:func:`window_stats_tail` on the mask's classes, built beforehand."""
     if not m.is_cuda:
-        return window_stats_tail_plain(m, s, pop_mask)
+        return window_stats_tail_plain(m, s, pop_mask, classes)
     for t in (m, s, pop_mask):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous CUDA tensors")
@@ -60,13 +148,20 @@ def window_stats_tail(m: torch.Tensor, s: torch.Tensor,
         raise ValueError("counts must be int32 and the mask float32")
     B, h, _ = m.shape
     P = pop_mask.shape[0]
+    if pop_mask.shape[1] != h or s.shape != m.shape:
+        raise ValueError(f"mask {tuple(pop_mask.shape)} or counts "
+                         f"{tuple(s.shape)} do not fit [B, {h}, {h}]")
     pi = torch.empty((B, P), dtype=torch.float32, device=m.device)
     dxy = torch.empty((B, P, P), dtype=torch.float32, device=m.device)
     fst = torch.empty_like(dxy)
     if B == 0 or P == 0:
         return pi, dxy, fst
+    C, n = classes.C, classes.n_rows
+    scratch = torch.empty(2 * B * C * (n + C), dtype=torch.int32,
+                          device=m.device)
     code = _build.lib("window_stats").ggt_window_stats_tail(
-        m.data_ptr(), s.data_ptr(), pop_mask.data_ptr(), h, P, B,
+        m.data_ptr(), s.data_ptr(), classes.ints.data_ptr(),
+        classes.floats.data_ptr(), h, P, C, n, B, scratch.data_ptr(),
         pi.data_ptr(), dxy.data_ptr(), fst.data_ptr(),
         pairdist._stream_ptr(m))
     _build.check(code, "window_stats_tail")
@@ -74,20 +169,22 @@ def window_stats_tail(m: torch.Tensor, s: torch.Tensor,
     return pi, dxy, fst
 
 
-def _fixed_sum(terms: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in K10's order: term p goes to lane
-    p % 1024, each lane adds its terms in order, then a binary tree adds
-    lane t + stride into lane t.  Float32 in, float32 out."""
+def _fixed_sum(terms: torch.Tensor, lanes: int = _NT) -> torch.Tensor:
+    """Sum over the last axis in a fixed order: term p goes to lane
+    p % ``lanes``, each lane adds its terms in order, then a binary tree
+    adds lane t + stride into lane t.  Float32 in, float32 out.  With 32
+    lanes it is window_stats.cu's warp_sum; with 1024, the order of each
+    population's size."""
     n = terms.shape[-1]
-    k = max(1, -(-n // _NT))
-    pad = torch.zeros((*terms.shape[:-1], k * _NT - n), dtype=terms.dtype,
+    k = max(1, -(-n // lanes))
+    pad = torch.zeros((*terms.shape[:-1], k * lanes - n), dtype=terms.dtype,
                       device=terms.device)
-    x = torch.cat([terms, pad], dim=-1).reshape(*terms.shape[:-1], k, _NT)
-    acc = torch.zeros((*terms.shape[:-1], _NT), dtype=terms.dtype,
+    x = torch.cat([terms, pad], dim=-1).reshape(*terms.shape[:-1], k, lanes)
+    acc = torch.zeros((*terms.shape[:-1], lanes), dtype=terms.dtype,
                       device=terms.device)
     for r in range(k):
         acc = acc + x[..., r, :]
-    stride = _NT // 2
+    stride = lanes // 2
     while stride:
         acc = acc[..., :stride] + acc[..., stride:2 * stride]
         stride //= 2
@@ -95,39 +192,54 @@ def _fixed_sum(terms: torch.Tensor) -> torch.Tensor:
 
 
 def window_stats_tail_plain(m: torch.Tensor, s: torch.Tensor,
-                            pop_mask: torch.Tensor):
-    """Plain PyTorch K10: the JAX ``_block_nanmean`` means and Fst, each
-    block's pairs listed (rows of weight > 0 in order, row-major) and
-    summed with :func:`_fixed_sum`."""
+                            pop_mask: torch.Tensor,
+                            classes: TailClasses | None = None):
+    """Plain PyTorch K10: the JAX ``_block_nanmean`` means and Fst from
+    the mask's class-pair sums, in the kernel's order: each row's valid
+    dists summed over each column class (:func:`_fixed_sum`, 32 lanes, the
+    class's columns ascending), those over each class's rows (rows
+    ascending), then each block mean over its class pairs (ci C + cj)."""
     B, h, _ = m.shape
-    pm = pop_mask.to(m.device, torch.float32)
-    P = pm.shape[0]
-    n_pop = _fixed_sum(pm)                                        # [P]
-
-    def block_mean(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        iu = torch.nonzero(u > 0).flatten()
-        jv = torch.nonzero(v > 0).flatten()
-        ii, jj = iu[:, None], jv[None, :]
-        sv = s[:, ii, jj]                                     # [B, nu, nv]
-        ok = (ii != jj)[None] & (sv > 0)
-        wgt = torch.where(ok, (u[iu][:, None] * v[jv][None, :])[None],
-                          torch.zeros((), device=m.device))
-        dist = m[:, ii, jj].to(torch.float32) / \
-            sv.clamp(min=1).to(torch.float32)
-        d = torch.where(wgt > 0, dist, torch.zeros((), device=m.device))
-        return _fixed_sum(d.reshape(B, -1)) / _fixed_sum(wgt.reshape(B, -1))
-
-    dmean = torch.stack([torch.stack([block_mean(pm[a], pm[b])
-                                      for b in range(P)], dim=1)
-                         for a in range(P)], dim=1)           # [B, P, P]
-    pooled = torch.empty_like(dmean)
-    for a in range(P):
-        for b in range(P):
-            u = torch.clamp(pm[a] + pm[b], 0, 1)
-            pooled[:, a, b] = block_mean(u, u)
+    dev = m.device
+    cls = classes or tail_classes(pop_mask, dev)
+    C, P = cls.weights.shape
+    members = torch.from_numpy(cls.members).to(dev)
+    runs = [(int(cls.starts[c]), int(cls.starts[c + 1])) for c in range(C)]
+    eye = torch.eye(h, dtype=torch.bool, device=dev)
+    valid = ((s > 0) & ~eye[None])[:, members][:, :, members]
+    dist = (m.to(torch.float32) / s.clamp(min=1).to(torch.float32))[
+        :, members][:, :, members]                         # class order
+    dist = torch.where(valid, dist, torch.zeros((), device=dev))
+    s_num = torch.zeros((B, C, C), dtype=torch.float32, device=dev)
+    s_cnt = torch.zeros((B, C, C), dtype=torch.float32, device=dev)
+    if C:
+        # each row over each column class, then each class's rows
+        part = torch.stack([_fixed_sum(dist[:, :, a:b], 32)
+                            for a, b in runs], dim=-1)     # [B, n, C]
+        cnt = torch.stack([valid[:, :, a:b].sum(dim=-1)
+                           for a, b in runs], dim=-1)
+        s_num = torch.stack([_fixed_sum(part[:, a:b].transpose(1, 2), 32)
+                             for a, b in runs], dim=1)     # [B, ci, cj]
+        s_cnt = torch.stack([cnt[:, a:b].sum(dim=1) for a, b in runs],
+                            dim=1).to(torch.float32)
+    w = torch.from_numpy(cls.weights).to(dev)             # [C, P]
+    pooled_w = torch.clamp(w[:, :, None] + w[:, None, :], 0, 1)  # [C, a, b]
+    # u_a(ci) v_b(cj) of every (a, b) and class pair (ci C + cj): [2, P,
+    # P, C C], the block means first, the pooled ones second
+    uv = torch.stack([
+        w.T[:, None, :, None] * w.T[None, :, None, :],
+        pooled_w.permute(1, 2, 0)[..., :, None] *
+        pooled_w.permute(1, 2, 0)[..., None, :]]).reshape(2, P, P, C * C)
+    keep = uv > 0
+    zero = torch.zeros((), device=dev)
+    num = torch.where(keep, s_num.reshape(B, 1, 1, 1, C * C), zero)
+    den = torch.where(keep, uv * s_cnt.reshape(B, 1, 1, 1, C * C), zero)
+    mean = _fixed_sum(num, 32) / _fixed_sum(den, 32)      # [B, 2, P, P]
+    dmean, pooled = mean[:, 0].contiguous(), mean[:, 1]
+    n_pop = torch.from_numpy(cls.n_pop).to(dev)
     pi = torch.diagonal(dmean, dim1=1, dim2=2).contiguous()     # [B, P]
-    w = n_pop[:, None] / (n_pop[:, None] + n_pop[None, :])
-    pi_s = w[None] * pi[:, :, None] + (1 - w[None]) * pi[:, None, :]
+    wt = n_pop[:, None] / (n_pop[:, None] + n_pop[None, :])
+    pi_s = wt[None] * pi[:, :, None] + (1 - wt[None]) * pi[:, None, :]
     return pi, dmean, 1 - pi_s / pooled
 
 
@@ -212,13 +324,15 @@ def window_stats_step(alleles, first, n_sites, pop_mask):
     f = _as_tensor(first, torch.int32, dev)
     n = _as_tensor(n_sites, torch.int32, dev)
     pm = _as_tensor(pop_mask, torch.float32, dev)
+    classes = tail_classes(pop_mask if isinstance(pop_mask, np.ndarray)
+                           else pm, dev)
     s_max = int(np.max(n_sites)) if isinstance(n_sites, np.ndarray) \
         and n_sites.size else None
     parts = []
     for w0 in range(0, max(f.shape[0], 1), STEP_CHUNK):
         fc, nc = f[w0:w0 + STEP_CHUNK], n[w0:w0 + STEP_CHUNK]
         mismatch, shared = pairdist.pair_counts_4state(a, fc, nc, s_max)
-        pi, dxy, fst = window_stats_tail(mismatch, shared, pm)
+        pi, dxy, fst = _tail(mismatch, shared, pm, classes)
         parts.append({"pi": pi, "dxy": dxy, "fst": fst,
                       "mismatch": mismatch, "shared": shared,
                       "pop_counts": window_pop_counts(a, fc, nc, pm)})

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2, K3, K6, K9, K12, K13, K14, K17, K18 and K20
-kernels of two checkouts on one NVIDIA GPU, in one process, on the same
-inputs:
+"""Time the port's K1, K2, K3, K6, K9, K10, K12, K13, K14, K17, K18 and
+K20 kernels of two checkouts on one NVIDIA GPU, in one process, on the
+same inputs:
 
     python3 kernel_ab.py --base DIR [--only TEXT ...] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR``).
 Each checkout's port is imported under a package name of its own and
-builds its ``pair_v3.cu``, ``pair4.cu``, ``counts.cu`` and ``ld.cu``
-into its own ``build/``; each
+builds its ``pair_v3.cu``, ``pair4.cu``, ``counts.cu``, ``ld.cu`` and
+``window_stats.cu`` into its own ``build/``; each
 kernel is called through that checkout's wrapper (its launch geometry,
 its output allocation), on inputs made here from a seed at the shapes of
 ``chip_smoke.py``'s timings (H = 512):
@@ -30,6 +30,8 @@ its output allocation), on inputs made here from a seed at the shapes of
 * K9 ``pair_counts_4state``: run E's block (one window of 262,144 sites,
   a contiguous matrix) and run A's largest flush (32 windows of about 625
   sites, in the raw upload's layout);
+* K10 ``window_stats_tail``: run G's shape, K3's 128 windows of counts on
+  popDist's mask (4 populations of 128 rows);
 * K12 ``site_pop_counts_raw``: run H's span (16,176 sites, rows read
   through the bucket-padded upload's stride), with the 256 individuals in
   9 populations as 9 classes and with all 512 rows as one class;
@@ -43,8 +45,11 @@ its output allocation), on inputs made here from a seed at the shapes of
 
 ``--only`` times just the cases whose name holds one of the TEXTs (for
 example ``K12``; ``"K1 "`` for K1 alone).  The two outputs of each kernel
-must be equal (K3's sums, taken in another fixed order by another design,
-within rtol 1e-12, its counts exactly).  Times are CUDA events over
+must be equal (K3's float64 sums, taken in another fixed order by another
+design, within rtol 1e-12, its counts exactly; K10's float32 means, summed
+by class pairs where earlier checkouts summed pair lists, within rtol
+1e-5 / atol 1e-6 with NaN positions equal, the cells not bit-equal
+counted).  Times are CUDA events over
 repeated warm calls of each wrapper, taken base, head, head, base: once
 as the calls come (host launch overhead included, which sets the pace of
 a kernel shorter than it) and once with the calls captured in a CUDA
@@ -92,19 +97,28 @@ def load_port(root: Path, alias: str) -> dict:
     sys.modules[alias] = mod
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"{alias}.kernels.{name}")
-            for name in ("_build", "pairdist", "counts", "transfer", "ld")}
+            for name in ("_build", "pairdist", "counts", "transfer", "ld",
+                         "window_stats")}
 
 
-def same(name: str, x, y) -> None:
+def same(name: str, x, y) -> int:
     """Integers and K3's counts exactly; K3's float64 sums within rtol
-    1e-12 (the two checkouts may add them in other orders)."""
+    1e-12 and K10's float32 results within rtol 1e-5 / atol 1e-6 (Fst is
+    a difference near 0), NaN positions equal
+    (the two checkouts may add them in other orders).  Returns the number
+    of cells not bit-equal."""
     import torch
-    if x.dtype == torch.float64 and name.startswith("K3"):
+    if x.dtype == torch.float32 and name.startswith("K10"):
+        nan = torch.isnan(x)
+        if torch.equal(nan, torch.isnan(y)) and torch.allclose(
+                x[~nan], y[~nan], rtol=1e-5, atol=1e-6):
+            return int((x[~nan] != y[~nan]).sum())
+    elif x.dtype == torch.float64 and name.startswith("K3"):
         if torch.equal(x[:, 1], y[:, 1]) and torch.allclose(
                 x[:, 0], y[:, 0], rtol=1e-12, atol=1e-15):
-            return
+            return int((x != y).sum())
     elif torch.equal(x, y):
-        return
+        return 0
     raise AssertionError(f"{name}: base and head differ")
 
 
@@ -149,7 +163,8 @@ def main() -> int:
     with ThreadPoolExecutor(4) as ex:
         futs = {(tag, name): ex.submit(port["_build"].build, name)
                 for tag, port in ports.items()
-                for name in ("pair_v3", "pair4", "counts", "ld")}
+                for name in ("pair_v3", "pair4", "counts", "ld",
+                             "window_stats")}
         for (tag, name), fut in futs.items():
             so = fut.result()
             log(f"[build] {tag} {name}.cu: " + so.with_suffix(".log")
@@ -186,6 +201,8 @@ def main() -> int:
     m_k = torch.from_numpy((rng.random(s_k.shape) * (s_k + 1)).astype(
         np.int32)).to(dev)
     s_k = torch.from_numpy(s_k).to(dev)
+    pm_k = torch.from_numpy(np.repeat(np.eye(4, dtype=np.float32), H // 4,
+                                      axis=1)).to(dev)
     a_k = biallelic(rng, H, W_K * N_K)
     f_k = np.arange(0, W_K * N_K, N_K, dtype=np.int32)
     v3_k = ports["head"]["pairdist"]._v3_flush_args(
@@ -266,6 +283,8 @@ def main() -> int:
             a_e, f_e, n_e, S_E), 5),
         "K9 run A flush": (lambda p: lambda: p["pairdist"].pair_counts_4state(
             a_a, f_a_t, n_a_t, smax_a), 20),
+        "K10 run G": (lambda p: lambda: p["window_stats"].window_stats_tail(
+            m_k, s_k, pm_k), 20),
         "K12 run H span": (k12(pop_mask), 50),
         "K12 run H span, one class": (k12(one_class), 50),
         "K14 run A flush rows 0..255": (
@@ -292,21 +311,23 @@ def main() -> int:
             out = run()
             got[tag] = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
-        for x, y in zip(got["base"], got["head"]):
-            same(name, x, y)
+        unequal = sum(same(name, x, y)
+                      for x, y in zip(got["base"], got["head"]))
         del got
         times = {"base": [], "head": [], "base_graph": [], "head_graph": []}
         for tag in ("base", "head", "head", "base"):
             times[tag].append(cuda_ms(runs[tag], reps))
         for tag in ("base", "head", "head", "base"):
             times[tag + "_graph"].append(graph_ms(runs[tag], reps))
+        times["cells_not_bit_equal"] = unequal
         report["kernels"][name] = times
         log(f"[ab] {name}: base {times['base'][0]:.4f} / "
             f"{times['base'][1]:.4f} ms, head {times['head'][0]:.4f} / "
             f"{times['head'][1]:.4f} ms; in a CUDA graph base "
             f"{times['base_graph'][0]:.4f} / {times['base_graph'][1]:.4f}, "
             f"head {times['head_graph'][0]:.4f} / "
-            f"{times['head_graph'][1]:.4f} ms; outputs equal")
+            f"{times['head_graph'][1]:.4f} ms; outputs equal"
+            + (f" ({unequal} cells not bit-equal)" if unequal else ""))
         del runs
         torch.cuda.empty_cache()
     if args.out:
