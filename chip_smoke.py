@@ -60,10 +60,17 @@ not build, launch or agree, or an output is wrong):
    against K9 (two-window shards on K9's split path);
    K15 global_sfs_hist on counts built to tie against its plain version
    (uint16 and int32); K16 stacked_reduce (sum, min; int64 beyond 2^31,
-   int32) against torch.sum / torch.amin; window_stats_step over 66,000
-   windows (past the 65,535 a K9 or K11 launch takes) equal to its chunks
-   run one at a time; K17 pair_allele_tables (H = 160 and 77, S = 0, 1,
-   33, 517, codes -7..5, strided rows; at its tile edges, H = 1, 77, 160,
+   int32) against torch.sum / torch.amin, also at the edges of its 16-byte
+   vectors (k = 1..4, n = 1 to 4,099 and not a multiple of the vector,
+   stacks starting one element past a 16-byte boundary, sums wrapping);
+   K7 at the edges of its tile and selection (S = 1, 129, 5,003; outgroup
+   classes outside the union, so sites select 0, 1 or 2 alleles; NaN
+   outgroups; counts staged, read in place and staged off a 16-byte
+   boundary) against its plain version bit for bit; window_stats_step
+   over 66,000 windows (past the 65,535 a K9 or K11 launch takes) equal
+   to its chunks run one at a time; K17 pair_allele_tables (H = 160 and
+   77, S = 0, 1, 33, 517, codes -7..5, strided rows; at its tile edges,
+   H = 1, 77, 160,
    512 with S = 1, 31, 33, 597, 2,048, and S = 597 on strided rows), K18 site_nonmissing (1 and 5
    populations, a 10-row overlapping mask; at an odd row stride, spans
    ending inside a block at 16 and 8 lanes, one population of 600 rows,
@@ -126,10 +133,12 @@ not build, launch or agree, or an output is wrong):
    run F's cohort, one tree ending in ';' a window;
 2b. parity and times at the runs' largest flushes: each kernel's, its
    plain version's and its library yardstick's time from CUDA events over
-   calls as they come (K1's, K6's, K9's, K12's, K13's, K14's, K17's,
-   K18's and K20's, and their yardsticks', also over
-   calls replayed from a CUDA graph, logged beside: the device's time
-   without the wrappers' host overhead),
+   calls as they come (every kernel's, K7's and K8's also at run D's
+   flush, and the yardsticks of K6, K9, K12, K14, K16, K17, K18 and K20, also
+   over calls replayed from a CUDA graph, logged beside: the device's time
+   without the wrappers' host overhead; K16 also in a graph with a 64 MB
+   write before each call, the L2 cold, and its wrapper's host time step
+   by step),
    beside the bound computed from these inputs (K9 at run E's block and
    at run F's and run A's largest flushes, where the K9 + K4 and K1 + K2 +
    K4 routes are timed side by side; K10 and K11 at run G's shape; K12 at
@@ -273,6 +282,9 @@ K14_EDGE_BLOCKS = {512: [(100, 300), (127, 129), (0, 256), (256, 512)],
 # haplotypes; K6's: site blocks from s0 (a multiple of 8) ending mid-word,
 # a group past 255 rows a slot, a mask's classes, 16 lanes a row
 K17_EDGE_H, K17_EDGE_S = (1, 77, 160, 512), (1, 31, 33, 597, 2048)
+# K16's edges: stacks of 1..4 rows, n below, at and past its 16-byte
+# vectors, and n not a multiple of them
+K16_EDGE_K, K16_EDGE_N = (1, 2, 3, 4), (1, 3, 4, 5, 1001, 4099)
 K6_EDGE = ((77, 1003, 0, 1003), (77, 1003, 8, 1003), (33, 517, 24, 517),
            (129, 131, 0, 129), (5, 9, 8, 9), (600, 37, 16, 35),
            (8300, 13, 8, 13), (77, 70003, 8, 70001))
@@ -387,6 +399,16 @@ def graph_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return t0.elapsed_time(t1) / (3 * reps)
+
+
+def cold_graph_ms(fn, reps: int, scratch) -> float:
+    """Device time per call with the 50 MB L2 cache cold: each captured
+    call follows a write of ``scratch`` (64 MB), and the time of a graph of
+    those writes alone is taken off."""
+    def after_write():
+        scratch.zero_()
+        fn()
+    return graph_ms(after_write, reps) - graph_ms(scratch.zero_, reps)
 
 
 def bound(nbytes: float, ops: float = 0.0, rate: float = 1.0):
@@ -1273,6 +1295,92 @@ def abba_parity(abba, counts, transfer, native, dev) -> dict:
     return err
 
 
+def k7_edge_input(S: int, codes, seed: int) -> np.ndarray:
+    """int64 [S, C, 4] class counts for K7's edges, where ``codes`` may
+    leave classes of the outgroup outside the union: a site's union
+    classes count two alleles x < y (or only one, or none), the other
+    classes any allele; 40 % of counts zero, the rest 1..9; every 7th site
+    has no outgroup call (NaN frequencies); every 11th site has fixed
+    populations.  So polarize and fixed select 0, 1 or 2 alleles a site."""
+    rng = np.random.default_rng(seed)
+    C = len(codes)
+    union = (np.asarray(codes) >> 4) & 1
+    xy = np.sort(np.argsort(rng.random((S, 4)), axis=1)[:, :2], axis=1)
+    allowed = np.zeros((S, C, 4), bool)
+    allowed[:, union == 0, :] = True
+    pick = rng.random((S, 2)) < 0.9
+    for j in range(2):
+        allowed[np.arange(S)[pick[:, j]], :, xy[pick[:, j], j]] |= \
+            union[None, :] == 1
+    c = rng.integers(1, 10, size=(S, C, 4)) * (rng.random((S, C, 4)) > 0.4)
+    c = np.where(allowed, c, 0)
+    outgroup = ((np.asarray(codes) >> 3) & 1) == 1
+    c[::7, outgroup, :] = 0
+    # every 11th site from the 3rd: P1's and P3's own classes fixed for x,
+    # P2's for y, the outgroup outside the union for a third allele, every
+    # other class empty (polarize and fixed select x and y)
+    sites = np.arange(3, S, 11)
+    z = np.array([min(set(range(4)) - set(p)) for p in xy[sites]],
+                 np.int64)
+    c[sites] = 0
+    for k, code in enumerate(codes):
+        allele = {1 | 16: xy[sites, 0], 2 | 16: xy[sites, 1],
+                  4 | 16: xy[sites, 0], 8: z}.get(int(code))
+        if allele is not None:
+            c[sites, k, allele] = rng.integers(1, 10, size=sites.size)
+    return c
+
+
+def k7_edge_parity(abba, dev) -> dict:
+    """K7 at the edges of its tile and selection: tiles cut short (S = 1,
+    129, 5,003), codes that let polarize and fixed select two alleles a
+    site (outgroup classes outside the union), outgroups with no call
+    (NaN), uint16 and int32 counts, counts staged through shared memory,
+    read in place (40 classes of int32, past the staging's 48 KB) and
+    staged from a start off a 16-byte boundary; every mode, panel and
+    minData 0.3 / 0, against the plain version bit for bit, NaN positions
+    equal.  Returns the sites found with 0, 1 and 2 selected alleles."""
+    import torch
+    codes6 = np.array([1 | 16, 2 | 16, 4 | 16, 8, 8 | 16, 3 | 16], np.int32)
+    codes40 = np.resize(codes6, 40).astype(np.int32)
+    cases = []
+    for S in (1, 129, 5003):
+        for dt in (torch.uint16, torch.int32):
+            cases.append((f"S={S} {dt}", torch.from_numpy(
+                k7_edge_input(S, codes6, S)).to(dev, dt), codes6))
+    flat = torch.from_numpy(k7_edge_input(5003, codes6, 1).reshape(-1)).to(
+        dev, torch.uint16)
+    cases.append(("S=5002 uint16 off a 16-byte boundary",
+                  flat[1:1 + 5002 * 24].view(5002, 6, 4), codes6))
+    cases.append(("S=5003 int32, 40 classes in place", torch.from_numpy(
+        k7_edge_input(5003, codes40, 2)).to(dev, torch.int32), codes40))
+    used = np.zeros(3, np.int64)
+    for what, cc, codes in cases:
+        cd = torch.from_numpy(codes).to(dev)
+        for mode in abba.MODES:
+            for full in (False, True):
+                for md in (0.3, 0.0):
+                    t = abba.abba_site_terms(cc, cd, (20, 20, 20, 20), md,
+                                             mode, full)
+                    want = abba.abba_site_terms_plain(cc, cd, (20,) * 4, md,
+                                                      mode, full)
+                    name = f"abba_site_terms {what} {mode} full={full} " \
+                           f"minData={md}"
+                    check_same(name, t, want)
+                    nan = torch.isnan(t)
+                    if not torch.equal(t.view(torch.int64)[~nan],
+                                       want.view(torch.int64)[~nan]):
+                        raise AssertionError(f"{name}: not bit-equal")
+                    if mode != "minor":
+                        u = t[:, 1].long().cpu().numpy()
+                        used += np.bincount(u, minlength=3)[:3]
+    if (used == 0).any():
+        raise AssertionError(f"K7 edges: sites with 0, 1, 2 selected "
+                             f"alleles {used.tolist()}")
+    torch.cuda.synchronize()
+    return {"used": used.tolist(), "cases": len(cases)}
+
+
 # ------------------------------------------- times at the runs' flushes
 
 def time_tri(pair, transfer, flush, dev):
@@ -1290,6 +1398,7 @@ def time_tri(pair, transfer, flush, dev):
     iu, ju = (torch.from_numpy(x).to(dev) for x in np.triu_indices(H))
     res = {"max_abs_err": err,
            "ms": cuda_ms(lambda: pair.tri_pack(m, s, out), 20),
+           "graph_ms": graph_ms(lambda: pair.tri_pack(m, s, out), 20),
            "plain_ms": cuda_ms(lambda: pair.tri_pack_plain(m, s, u16), 5),
            "library_ms": cuda_ms(lambda: (m[:, iu, ju], s[:, iu, ju]), 20)}
     # the function reads the upper triangles of m and s (the lower halves
@@ -1315,6 +1424,8 @@ def time_het(pair, transfer, flush, dev):
     r1l, r2l = r1.long(), r2.long()
     res = {"max_abs_err": err,
            "ms": cuda_ms(lambda: pair.het_pairs(m, s, r1, r2, out), 20),
+           "graph_ms": graph_ms(lambda: pair.het_pairs(m, s, r1, r2, out),
+                                20),
            "plain_ms": cuda_ms(lambda: pair.het_pairs_plain(m, s, r1, r2),
                                20),
            "library_ms": cuda_ms(lambda: (m[:, r1l, r2l], s[:, r1l, r2l]),
@@ -1552,13 +1663,15 @@ def time_abba(abba, counts, transfer, flush, dev) -> dict:
     k8_err = check_sums(abba, "abba_window_sums (run flush)", sums, t, f_d,
                         n_d)
     K = t.shape[1]
+    k7_call = lambda: abba.abba_site_terms(  # noqa: E731
+        cc, codes, n_pops, md, mode, full)
+    k8_call = lambda: abba.abba_window_sums(t, f_d, n_d)  # noqa: E731
     k7 = {"max_abs_err": k7_err, "library_ms": None,
-          "ms": cuda_ms(lambda: abba.abba_site_terms(
-              cc, codes, n_pops, md, mode, full), 20),
+          "ms": cuda_ms(k7_call, 20), "graph_ms": graph_ms(k7_call, 20),
           "plain_ms": cuda_ms(lambda: abba.abba_site_terms_plain(
               cc, codes, n_pops, md, mode, full), 3, 1)}
     k8 = {"max_abs_err": k8_err,
-          "ms": cuda_ms(lambda: abba.abba_window_sums(t, f_d, n_d), 20),
+          "ms": cuda_ms(k8_call, 20), "graph_ms": graph_ms(k8_call, 20),
           "plain_ms": cuda_ms(lambda: abba.abba_window_sums_plain(
               t, f_d, n_d), 3, 1), "library_ms": None}
     tiles = bool((first[1:] == first[:-1] + n[:-1]).all())
@@ -1970,6 +2083,8 @@ def time_stats(ws, g_inputs, g_out, dev) -> dict:
     k11 = {"max_abs_err": 0.0,
            "library_ms": cuda_ms(code_counts, 20) + cuda_ms(lib11, 20),
            "ms": cuda_ms(lambda: ws.window_pop_counts(at, f, k, pm), 20),
+           "graph_ms": graph_ms(lambda: ws.window_pop_counts(at, f, k, pm),
+                                20),
            "plain_ms": cuda_ms(lambda: ws.window_pop_counts_plain(
                at, f, k, pm), 3, 1),
            # every row's window sites read once, the mask, [B, P, 4] written
@@ -2177,7 +2292,36 @@ def sfs_parity(counts, dev) -> None:
                             ("min", lambda t: t.amin(dim=0))):
                 check_equal(f"stacked_reduce {op} {dt} k={kk}",
                             counts.stacked_reduce(x, op), ref(x))
+    n_k16 = k16_edge_parity(counts, rng, dev)
+    log(f"[parity] K16 vector edges ({n_k16} comparisons: k = "
+        f"{K16_EDGE_K}, n = {K16_EDGE_N}, stacks starting 0 and 1 element "
+        "past a 16-byte boundary, int32 and int64 sums wrapping past "
+        "2^31 and 2^63, sum and min) == torch.sum / torch.amin")
     torch.cuda.synchronize()
+
+
+def k16_edge_parity(counts, rng, dev) -> int:
+    """K16 at the edges of its 16-byte vectors: k = 1..4 rows, n not a
+    multiple of the vector (the scalar tail) and n below one vector, and
+    each stack also a view starting one element past a 16-byte boundary
+    (every row read through the shifted path); int32 and int64 values whose
+    sums wrap, sum and min, against torch.sum / torch.amin exactly."""
+    import torch
+    n_checks = 0
+    for dt, lim in ((torch.int32, 1 << 30), (torch.int64, 1 << 62)):
+        for kk in K16_EDGE_K:
+            for nn in K16_EDGE_N:
+                for off in (0, 1):
+                    flat = torch.from_numpy(rng.integers(
+                        -lim, lim, size=kk * nn + off)).to(dev, dt)
+                    x = flat[off:].view(kk, nn)
+                    for op, ref in (("sum", x.sum(dim=0, dtype=dt)),
+                                    ("min", x.amin(dim=0))):
+                        check_equal(f"stacked_reduce {op} {dt} k={kk} "
+                                    f"n={nn} offset {off}",
+                                    counts.stacked_reduce(x, op), ref)
+                        n_checks += 1
+    return n_checks
 
 
 def step_past_grid(pair, ws, dev) -> dict:
@@ -2346,6 +2490,8 @@ def sfs_full_width(counts, pmesh, mesh, geno, pops, dev) -> dict:
     del cl, total, tgt
     k15 = {"max_abs_err": err,
            "ms": cuda_ms(lambda: counts.global_sfs_hist(c, n_hap), 20),
+           "graph_ms": graph_ms(lambda: counts.global_sfs_hist(c, n_hap),
+                                20),
            "plain_ms": cuda_ms(lambda: counts.global_sfs_hist_plain(
                c, n_hap), 3, 1),
            "library_ms": cuda_ms(lambda: torch.bincount(
@@ -2355,30 +2501,87 @@ def sfs_full_width(counts, pmesh, mesh, geno, pops, dev) -> dict:
                           + 4 * nbins),
            "shape": (f"{S} sites, P={len(n_hap)}, {nbins} bins, {binned} "
                      "sites binned")}
+    k16_call = lambda: counts.stacked_reduce(stack, "sum")  # noqa: E731
+    lib16 = lambda: torch.sum(stack, dim=0, dtype=stack.dtype)  # noqa: E731
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # a K16 call and a torch.sum call are both tens of µs, where the host's
+    # noise is as large as their difference: 200 calls each, in turns
+    # (K16, sum, sum, K16), the lesser reading of each
+    calls = {k16_call: [], lib16: []}
+    for fn in (k16_call, lib16, lib16, k16_call):
+        calls[fn].append(cuda_ms(fn, 200))
     k16 = {"max_abs_err": k16_err,
-           "ms": cuda_ms(lambda: counts.stacked_reduce(stack, "sum"), 20),
+           "ms": min(calls[k16_call]),
            "plain_ms": cuda_ms(lambda: counts.stacked_reduce_plain(
                stack, "sum"), 20),
-           "library_ms": cuda_ms(lambda: torch.sum(stack, dim=0,
-                                                   dtype=stack.dtype), 20),
-           "graph_ms": graph_ms(lambda: counts.stacked_reduce(stack, "sum"),
-                                20),
-           "library_graph_ms": graph_ms(lambda: torch.sum(
-               stack, dim=0, dtype=stack.dtype), 20),
+           "library_ms": min(calls[lib16]),
+           "graph_ms": graph_ms(k16_call, 20),
+           "library_graph_ms": graph_ms(lib16, 20),
+           "cold_graph_ms": cold_graph_ms(k16_call, 20, scratch),
+           "library_cold_graph_ms": cold_graph_ms(lib16, 20, scratch),
            # the stack read once, one row written
            "bound": bound(stack.numel() * stack.element_size()
                           + nbins * stack.element_size()),
            "shape": f"[{stack.shape[0]}, {nbins}] int32, sum"}
+    del scratch
     log(f"[kernel] global_sfs_hist at full width ({k15['shape']}): K15 == "
         f"plain == {MESH_SHARDS} shards + K16 (== plain) == "
         f"sharded_global_sfs on {mesh} == torch.bincount")
     log(f"[kernel] stacked_reduce at {k16['shape']}: K16 {k16['ms']:.4f} ms "
-        f"({k16['graph_ms']:.4f} ms in a CUDA graph), torch.sum "
-        f"{k16['library_ms']:.4f} ms ({k16['library_graph_ms']:.4f} in a "
-        "CUDA graph)")
+        f"(readings {calls[k16_call]}; "
+        f"{k16['graph_ms']:.4f} ms in a CUDA graph, "
+        f"{k16['cold_graph_ms']:.4f} with the L2 cold), torch.sum "
+        f"{k16['library_ms']:.4f} ms (readings {calls[lib16]}; "
+        f"{k16['library_graph_ms']:.4f} in a "
+        f"CUDA graph, {k16['library_cold_graph_ms']:.4f} with the L2 cold); "
+        f"bound {k16['bound'][0]:.4f} ms ({k16['bound'][1]})")
+    k16["call_us"] = k16_call_breakdown(counts, stack)
+    log("[kernel] stacked_reduce, host µs a call (time.perf_counter_ns, "
+        "each step alone): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in k16["call_us"].items()))
     del at, c, flat, stack, parts
     torch.cuda.empty_cache()
     return {"global_sfs_hist": k15, "stacked_reduce": k16}
+
+
+def k16_call_breakdown(counts, stack, reps: int = 500) -> dict:
+    """Where a K16 call's host time goes: the wrapper's steps, each alone
+    in a loop of ``reps`` calls timed with time.perf_counter_ns (µs a
+    call), beside the whole wrapper, the public stream handle it no longer
+    reads, and one torch.sum."""
+    import torch
+    from genomics_general_tpu_torch.kernels import pairdist
+    out = counts.stacked_reduce(stack, "sum")
+    dev = stack.device
+    entry = counts._ggt_stacked_reduce
+    steps = {
+        "checks": lambda: (stack.shape, stack.is_cuda,
+                           stack.dtype is torch.int32,
+                           stack.is_contiguous()),
+        "torch.empty": lambda: torch.empty(stack.shape[1:],
+                                           dtype=stack.dtype, device=dev),
+        "data_ptr and numel": lambda: (stack.data_ptr(), out.data_ptr(),
+                                       out.numel()),
+        "stream handle": lambda: pairdist._stream_ptr(out),
+        "public stream handle": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "entry call (ctypes, launch)": lambda: entry(
+            stack.data_ptr(), False, stack.shape[0], out.numel(), False,
+            out.data_ptr(), pairdist._stream_ptr(out)),
+        "whole wrapper": lambda: counts.stacked_reduce(stack, "sum"),
+        "torch.sum": lambda: torch.sum(stack, dim=0, dtype=stack.dtype),
+    }
+    got = {}
+    for name, fn in steps.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        got[name] = (time.perf_counter_ns() - t0) / reps / 1e3
+        torch.cuda.synchronize()
+    return got
 
 
 @contextlib.contextmanager
@@ -2994,6 +3197,7 @@ def time_k18_k20(counts, pair, transfer, inputs, dev,
             counts.sample_base_counts(e_block),
             counts.sample_base_counts_plain(e_block)),
         "ms": cuda_ms(lambda: counts.sample_base_counts(e_block), 10),
+        "graph_ms": graph_ms(lambda: counts.sample_base_counts(e_block), 10),
         "plain_ms": cuda_ms(lambda: counts.sample_base_counts_plain(
             e_block), 3, 1),
         "library_ms": cuda_ms(lambda: torch.eq(
@@ -4029,6 +4233,13 @@ def main() -> int:
         "disjoint/overlapping pops): K6 class counts == C counter; K7 == "
         "plain == host executor (NaN positions equal); K8 within rtol "
         f"{RTOL} of plain; max abs err K8 {errs['abba_window_sums']}")
+    k7e = k7_edge_parity(abba, dev)
+    log(f"[parity] K7 edges ({k7e['cases']} inputs x 3 modes x 2 panels x "
+        "minData 0.3/0: S = 1, 129, 5,003; uint16 and int32; outgroup "
+        "classes outside the union; staged, in place (40 classes) and off a "
+        "16-byte boundary) == plain bit for bit, NaN positions equal; "
+        "polarize and fixed sites with 0 / 1 / 2 selected alleles "
+        f"{k7e['used']}")
     not_bit_equal = 0
     for H in (160, 77):
         a, first, n = k9_input(H)
@@ -4201,7 +4412,8 @@ def main() -> int:
                 abba, counts, transfer,
                 runs["run_D"][1]["window_abba_sums_dispatch"], dev).items():
             log(f"[kernel] {k} at run D's flush ({r['shape']}): kernel "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"{r['ms']:.4f} ms ({r['graph_ms']:.4f} ms in a CUDA graph), "
+                f"plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms "
                 f"({r['bound'][1]}), max abs err {r['max_abs_err']}")
         res["pair_counts_4state"] = time_k9_block(pair, runs["run_E"][1],
@@ -4288,7 +4500,10 @@ def main() -> int:
             r = res[k]
             r["max_abs_err"] = max(r["max_abs_err"], errs[k])
             log(f"[kernel] {k}: launches {launches[k]} ({owner[k]}), kernel "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"{r['ms']:.4f} ms"
+                + (f" ({r['graph_ms']:.4f} ms in a CUDA graph)"
+                   if "graph_ms" in r else "")
+                + f", plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']}, bound {bnd[k][0]:.4f} ms "
                 f"({bnd[k][1]}), max abs err {r['max_abs_err']}")
         log(f"[time] phase 2b done at {time.perf_counter() - t_start:.1f}s")

@@ -5,7 +5,8 @@ interface, for ``sm_90a`` only, into the gitignored ``build/`` directory
 (content-keyed, _buildcache); ``ctypes`` binds it.  Nothing builds at
 import: the first CUDA launch builds, so CPU-only machines never need
 ``nvcc``.  Each C entry point returns ``cudaGetLastError()`` after its
-launch; :func:`check` turns a non-zero code into an exception.
+launch; :func:`check` turns a non-zero code into an exception.  A wrapper
+keeps each entry point as an :class:`Entry`, resolved on its first call.
 """
 
 from __future__ import annotations
@@ -108,7 +109,11 @@ def build(name: str) -> Path:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The bound library of ``csrc/{name}.cu``, built on first use."""
+    """The bound library of ``csrc/{name}.cu``, built on first use (the
+    lock is taken only then)."""
+    cdll = _libs.get(name)
+    if cdll is not None:
+        return cdll
     with _lock:
         if name not in _libs:
             cdll = ctypes.CDLL(str(build(name)))
@@ -124,3 +129,28 @@ def check(code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+class Entry:
+    """The C entry point ``fn`` of ``csrc/{lib_name}.cu`` as a callable
+    that launches and raises (:func:`check`) on a CUDA error code.  The
+    library is built, loaded and typed on the first call, never at import
+    or on a CPU tensor's path; later calls read the kept ctypes function
+    and call it."""
+
+    __slots__ = ("lib_name", "fn_name", "what", "fn")
+
+    def __init__(self, lib_name: str, fn_name: str):
+        if fn_name not in _SIGNATURES[lib_name]:
+            raise KeyError(f"{lib_name}.cu has no entry point {fn_name}")
+        self.lib_name, self.fn_name = lib_name, fn_name
+        self.what = fn_name.removeprefix("ggt_")
+        self.fn = None
+
+    def __call__(self, *args) -> None:
+        fn = self.fn
+        if fn is None:
+            fn = self.fn = getattr(lib(self.lib_name), self.fn_name)
+        code = fn(*args)
+        if code:
+            check(code, self.what)

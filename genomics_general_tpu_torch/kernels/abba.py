@@ -37,8 +37,7 @@ from ..device import get_device
 from . import _build
 from . import counts as counts_k
 from . import transfer
-from .pairdist import _ReadyHandle, _check_cuda, _exec_choice, _run_const, \
-    _stream_ptr
+from .pairdist import _ReadyHandle, _check_cuda, _exec_choice, _stream_ptr
 
 # fetched channels, classic panel (ABBABABAwindows) and full panel (fourPop)
 CLASSIC_CHANNELS = ("good", "used", "num_f4", "den_D", "den_fd", "den_fdm",
@@ -51,6 +50,9 @@ MODES = ("polarize", "fixed", "minor")
 # launches of each CUDA kernel since the last reset (the plain versions
 # and the host executor never count)
 LAUNCHES = {"abba_site_terms": 0, "abba_window_sums": 0}
+# the C entry points, each resolved on its first launch (_build.Entry)
+_ggt_abba_site_terms = _build.Entry("abba", "ggt_abba_site_terms")
+_ggt_abba_window_sums = _build.Entry("abba", "ggt_abba_window_sums")
 # flushes run by the host executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 
@@ -93,10 +95,16 @@ def channels_of(full: bool) -> tuple:
     return FULL_CHANNELS if full else CLASSIC_CHANNELS
 
 
+_LUTS: dict = {}
+
+
 def _lut(device: torch.device) -> torch.Tensor:
-    """The tie LUT as int8 [729] on ``device``, uploaded once."""
-    return _run_const("abba_lut", _ARGSORT2_LUT, device,
-                      lambda a: torch.from_numpy(a.copy()).to(device))
+    """The tie LUT as int8 [729] on ``device``, uploaded once a device."""
+    lut = _LUTS.get(device)
+    if lut is None:
+        lut = _LUTS[device] = torch.from_numpy(_ARGSORT2_LUT.copy()).to(
+            device)
+    return lut
 
 
 # -------------------------------------------------------- K7 site terms
@@ -128,12 +136,11 @@ def abba_site_terms(counts: torch.Tensor, codes: torch.Tensor, n_pops,
                       device=counts.device)
     if S == 0:
         return out
-    code = _build.lib("abba").ggt_abba_site_terms(
+    _ggt_abba_site_terms(
         counts.data_ptr(), int(counts.dtype == torch.uint16), S, C,
         codes.data_ptr(), _lut(counts.device).data_ptr(),
         *(float(n) for n in n_pops), float(min_data), MODES.index(mode),
         int(full), out.data_ptr(), _stream_ptr(out))
-    _build.check(code, "abba_site_terms")
     LAUNCHES["abba_site_terms"] += 1
     return out
 
@@ -266,10 +273,9 @@ def abba_window_sums(terms: torch.Tensor, first: torch.Tensor,
     out = torch.empty((W, K), dtype=torch.float64, device=terms.device)
     if W == 0:
         return out
-    code = _build.lib("abba").ggt_abba_window_sums(
+    _ggt_abba_window_sums(
         terms.data_ptr(), S, K, first.data_ptr(), n_sites.data_ptr(), W,
         out.data_ptr(), _stream_ptr(out))
-    _build.check(code, "abba_window_sums")
     LAUNCHES["abba_window_sums"] += 1
     return out
 

@@ -53,6 +53,13 @@ DEFAULT_SITE_BLOCK = 1 << 18
 LAUNCHES = {"site_pop_counts": 0, "site_pop_counts_raw": 0,
             "global_sfs_hist": 0, "stacked_reduce": 0, "site_nonmissing": 0,
             "sample_base_counts": 0}
+# the C entry points, each resolved on its first launch (_build.Entry)
+_ggt_site_pop_counts = _build.Entry("counts", "ggt_site_pop_counts")
+_ggt_site_pop_counts_raw = _build.Entry("counts", "ggt_site_pop_counts_raw")
+_ggt_global_sfs_hist = _build.Entry("counts", "ggt_global_sfs_hist")
+_ggt_stacked_reduce = _build.Entry("counts", "ggt_stacked_reduce")
+_ggt_site_nonmissing = _build.Entry("counts", "ggt_site_nonmissing")
+_ggt_sample_base_counts = _build.Entry("counts", "ggt_sample_base_counts")
 # flushes counted on the host (GGT_EXEC=host)
 HOST_FLUSHES = 0
 
@@ -94,11 +101,10 @@ def site_pop_counts(buf: torch.Tensor, sp: int, h: int, s0: int, s1: int,
     _check_cuda(buf, groups.perm, groups.offs, out)
     if s1 == s0:
         return
-    code = _build.lib("counts").ggt_site_pop_counts(
+    _ggt_site_pop_counts(
         buf.data_ptr(), h, sp, s0, s1, groups.perm.data_ptr(),
         groups.offs.data_ptr(), P, _k12_lanes(s1 - s0, P, buf.device),
         int(out.dtype == torch.uint16), out.data_ptr(), _stream_ptr(buf))
-    _build.check(code, "site_pop_counts")
     LAUNCHES["site_pop_counts"] += 1
 
 
@@ -167,13 +173,12 @@ def site_pop_counts_raw(alleles: torch.Tensor, s0: int, s1: int,
     _check_cuda(groups.perm, groups.offs, out)
     if s1 == s0:
         return
-    code = _build.lib("counts").ggt_site_pop_counts_raw(
+    _ggt_site_pop_counts_raw(
         alleles.data_ptr(), alleles.stride(0), s0, s1,
         groups.perm.data_ptr(), groups.offs.data_ptr(), P,
         _k12_lanes(s1 - s0, P, alleles.device),
         int(out.dtype == torch.uint16),
         out.data_ptr(), _stream_ptr(alleles))
-    _build.check(code, "site_pop_counts_raw")
     LAUNCHES["site_pop_counts_raw"] += 1
 
 
@@ -227,10 +232,9 @@ def global_sfs_hist(counts: torch.Tensor, n_hap) -> torch.Tensor:
         return hist
     nh = _run_const("n_hap", n_hap, counts.device,
                     lambda a: torch.from_numpy(a.copy()).to(counts.device))
-    code = _build.lib("counts").ggt_global_sfs_hist(
+    _ggt_global_sfs_hist(
         counts.data_ptr(), int(counts.dtype == torch.uint16), S, P,
         nh.data_ptr(), nbins, hist.data_ptr(), _stream_ptr(hist))
-    _build.check(code, "global_sfs_hist")
     LAUNCHES["global_sfs_hist"] += 1
     return hist
 
@@ -266,23 +270,24 @@ def stacked_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     stack (k >= 1) on one device: [...] of the same type.  Replaces the
     reduce of the JAX ``multihost.mesh_reduce_stacked`` and the psum of
     ``mesh.sharded_global_sfs``."""
-    if op not in ("sum", "min"):
+    if op != "sum" and op != "min":
         raise ValueError(f"op must be 'sum' or 'min', not {op!r}")
-    if x.dim() < 1 or x.shape[0] < 1:
+    shape = x.shape
+    if not shape or shape[0] < 1:
         raise ValueError("stacked_reduce needs a [k, ...] stack, k >= 1")
     if not x.is_cuda:
         return stacked_reduce_plain(x, op)
-    if x.dtype not in (torch.int64, torch.int32):
+    dt = x.dtype
+    if dt is not torch.int32 and dt is not torch.int64:
         raise ValueError("stacked_reduce takes int64 or int32")
-    _check_cuda(x)
-    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    if not x.is_contiguous():
+        raise ValueError("kernel inputs must be contiguous CUDA tensors")
+    out = torch.empty(shape[1:], dtype=dt, device=x.device)
     n = out.numel()
     if n == 0:
         return out
-    code = _build.lib("counts").ggt_stacked_reduce(
-        x.data_ptr(), int(x.dtype == torch.int64), x.shape[0], n,
-        int(op == "min"), out.data_ptr(), _stream_ptr(out))
-    _build.check(code, "stacked_reduce")
+    _ggt_stacked_reduce(x.data_ptr(), dt is torch.int64, shape[0], n,
+                        op == "min", out.data_ptr(), _stream_ptr(out))
     LAUNCHES["stacked_reduce"] += 1
     return out
 
@@ -351,12 +356,11 @@ def site_nonmissing(alleles: torch.Tensor, pop_mask) -> torch.Tensor:
         return torch.zeros((S, P), dtype=torch.int32, device=alleles.device)
     perm, offs, C, bits = _nonmissing_classes(mask, alleles.device)
     out = torch.empty((S, P), dtype=torch.int32, device=alleles.device)
-    code = _build.lib("counts").ggt_site_nonmissing(
+    _ggt_site_nonmissing(
         alleles.data_ptr(), alleles.stride(0), S, perm.data_ptr(),
         offs.data_ptr(), C, bits.data_ptr(), P,
         _k12_lanes(S, -(-P // _K18_FOLD_ROWS), alleles.device),
         out.data_ptr(), _stream_ptr(out))
-    _build.check(code, "site_nonmissing")
     LAUNCHES["site_nonmissing"] += 1
     return out
 
@@ -382,10 +386,9 @@ def sample_base_counts(alleles: torch.Tensor) -> torch.Tensor:
     out = torch.empty((H, S, 4), dtype=torch.int32, device=alleles.device)
     if H * S == 0:
         return out
-    code = _build.lib("counts").ggt_sample_base_counts(
+    _ggt_sample_base_counts(
         alleles.data_ptr(), alleles.stride(0), H, S, out.data_ptr(),
         _stream_ptr(out))
-    _build.check(code, "sample_base_counts")
     LAUNCHES["sample_base_counts"] += 1
     return out
 

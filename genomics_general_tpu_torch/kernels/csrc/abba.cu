@@ -46,49 +46,52 @@ __device__ __forceinline__ double f4c(double p1, double p2, double p3,
 }
 
 // The K - 2 term channels of one (site, allele) pair, in the order of
-// CLASSIC_CHANNELS / FULL_CHANNELS after "good" and "used".
+// CLASSIC_CHANNELS / FULL_CHANNELS after "good" and "used": written to
+// t[0 .. K - 3] (add == 0) or added to what is there (add != 0), each as
+// soon as it is computed.
 template <int K>
 __device__ __forceinline__ void allele_terms(double p1, double p2, double p3,
-                                             double p4, double* t) {
+                                             double p4, double* t, int add) {
+  auto put = [&](int k, double v) { t[k] = add ? t[k] + v : v; };
   const double q1 = 1 - p1, q2 = 1 - p2, q3 = 1 - p3, q4 = 1 - p4;
   const double abba = q1 * p2 * p3 * q4;
   const double baba = p1 * q2 * p3 * q4;
-  t[0] = abba - baba;                                       // num_f4
-  t[1] = abba + baba;                                       // den_D
+  put(0, abba - baba);                                       // num_f4
+  put(1, abba + baba);                                       // den_D
   const double pd = p2 * b2d(p2 > p3) + p3 * b2d(p3 >= p2);
-  t[2] = f4(p1, pd, pd, p4);                                // den_fd
+  put(2, f4(p1, pd, pd, p4));                                // den_fd
   const bool a = p3 > p1, b = p3 > p2, x = p1 > p2, y = !x;
   const double pdm1 = p3 * b2d(x && a) + p1 * b2d(!(x && a));
   const double pdm2 = p3 * b2d(y && b) + p2 * b2d(!(y && b));
   const double pdm3 = -p3 * b2d(x && a) + p3 * b2d(y && b) -
                       p1 * b2d(x && !a) + p2 * b2d(y && !b);
-  t[3] = f4(pdm1, pdm2, pdm3, p4);                          // den_fdm
-  t[4] = abba;                                              // ABBA
-  t[5] = baba;                                              // BABA
+  put(3, f4(pdm1, pdm2, pdm3, p4));                          // den_fdm
+  put(4, abba);                                              // ABBA
+  put(5, baba);                                              // BABA
   if constexpr (K == kFull) {
-    t[6] = f4c(p1, p2, p3, p4);                             // num_f4c
-    t[7] = f4(p1, p3, p3, p4);                              // den_fhom_old
-    t[8] = f4c(p1, p3, p3, p4);                             // den_fhom_new
-    t[9] = f4c(p1, pd, pd, p4);                             // den_fd_new
-    t[10] = f4c(pdm1, pdm2, pdm3, p4);                      // den_fdm_new
+    put(6, f4c(p1, p2, p3, p4));                             // num_f4c
+    put(7, f4(p1, p3, p3, p4));                              // den_fhom_old
+    put(8, f4c(p1, p3, p3, p4));                             // den_fhom_new
+    put(9, f4c(p1, pd, pd, p4));                             // den_fd_new
+    put(10, f4c(pdm1, pdm2, pdm3, p4));                      // den_fdm_new
     const double t11 = f4c(p1, p3, p3, p4);
     const double t12 = f4c(p4, p2, p3, p4);
     const double t21 = f4c(p3, p2, p3, p4);
     const double t22 = f4c(p1, p4, p3, p4);
     const double fdh = max_np(max_np(t11, t12), max_np(t21, t22));
-    t[11] = fdh;                                            // den_fdh
+    put(11, fdh);                                            // den_fdh
     const double t31 = f4c(p1, p2, p2, p4);
     const double t32 = f4c(p1, p2, p3, p1);
     const double t41 = f4c(p1, p2, p1, p4);
     const double t42 = f4c(p1, p2, p3, p2);
-    t[12] = max_np(fdh, max_np(max_np(t31, t32),
-                               max_np(t41, t42)));          // den_fdh2
+    put(12, max_np(fdh, max_np(max_np(t31, t32),
+                               max_np(t41, t42))));          // den_fdh2
     const double d1 = fabs(p1 - p2);
     const double d2 = fabs(p3 - p4);
     const double dh = d1 * b2d(d1 > d2) + d2 * b2d(d2 >= d1);
-    t[13] = dh * dh;                                        // den_fh
-    t[14] = q1 * p2 * q3 * q4;                              // ABAA
-    t[15] = p1 * q2 * q3 * q4;                              // BAAA
+    put(13, dh * dh);                                        // den_fh
+    put(14, q1 * p2 * q3 * q4);                              // ABAA
+    put(15, p1 * q2 * q3 * q4);                              // BAAA
   }
 }
 
@@ -101,104 +104,158 @@ __device__ __forceinline__ void allele_terms(double p1, double p2, double p3,
 // codes[k] has bit p set when class k lies in population p (p = 4: union).
 //
 // Bound: bytes — C*4 counts read and K doubles written per site against a
-// few dozen f64 operations on the gated sites.  Design: one thread per
-// site; the 5 x 4 population counts are exact integer sums of the classes
-// in registers; the gate (biallelic across the union, nonmissing / n_pop
-// >= min_data for P1..O) runs on integers and one division each; the terms
-// of the selected alleles (at most 2 after the gate) are added in allele
-// order, which is numpy's order of the (site, allele) pairs.  A site that
-// fails the gate writes zeros.
+// few dozen f64 operations on the gated sites.  Design: a block per tile
+// of kTile consecutive sites, a thread a site.
+//   * The tile's counts are one contiguous run: staged in shared memory
+//     with 16-byte loads, then each thread sums its site's 5 x 4
+//     population counts from there, in integers.
+//   * The gate (biallelic across the union, nonmissing / n_pop >= min_data
+//     for P1..O) takes one f64 division a population; the selection runs
+//     on the integer counts (f == 0 is c == 0 with n > 0, f == 1 is c == n,
+//     and union frequencies share their denominator, so they order as
+//     their counts), which leaves at most two selected alleles a site:
+//     slot 0 and slot 1, in ascending allele order.
+//   * The f64 terms run in at most two passes a warp, each uniform: slot 0
+//     on every lane with an allele, slot 1 where a site has two.  A pass
+//     divides its four frequencies and adds each term to the site's row in
+//     shared memory (slot 0's terms, plus slot 1's: numpy's order of the
+//     (site, allele) pairs).  Lanes that fail the gate do no f64 work.
+//   * Every row of the tile (zeros for a failed site) is written to shared
+//     memory at a stride of K + 1 doubles (no bank conflicts), then the
+//     block stores the tile's contiguous kTile * K doubles with 16-byte
+//     streaming stores (each row is written once; K8's read of them right
+//     after is no slower for it).
+// A site that fails the gate writes zeros.
+constexpr int kTile = 128;
+// the largest staged counts tile; more classes are read from device memory
+constexpr int kStageBytes = 48 * 1024;
+
+// count c of allele a (0..3) of a population, picked without an indexed
+// array (which would sit in local memory)
+__device__ __forceinline__ int pick(const int (&c)[4], int a) {
+  return a == 0 ? c[0] : a == 1 ? c[1] : a == 2 ? c[2] : c[3];
+}
+
+// blocks an SM: 8 (64 registers) for the classic panel, 5 (96) for the
+// full one, neither spilling
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTile, K == kClassic ? 8 : 5)
 abba_site_terms_kernel(const T* __restrict__ counts, int S, int C,
-                       const int32_t* __restrict__ codes,
+                       int staged, const int32_t* __restrict__ codes,
                        const int8_t* __restrict__ lut, double n0, double n1,
                        double n2, double n3, double min_data, int mode,
                        double* __restrict__ out) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * kTile;
+  const int ns = min(kTile, S - s0);
+  const int row_elems = 4 * C;
+  const T* src = counts + (size_t)s0 * row_elems;
+  const T* row = src + (size_t)tid * row_elems;
+  if (staged) {
+    T* sc = reinterpret_cast<T*>(smem);
+    const int n_elems = ns * row_elems;
+    int done = 0;
+    if (((uintptr_t)src & 15) == 0) {
+      const int nvec = (int)((size_t)n_elems * sizeof(T) / 16);
+      const uint4* s4 = reinterpret_cast<const uint4*>(src);
+      uint4* d4 = reinterpret_cast<uint4*>(sc);
+      for (int i = tid; i < nvec; i += kTile) d4[i] = __ldg(s4 + i);
+      done = nvec * (int)(16 / sizeof(T));
+    }
+    for (int i = done + tid; i < n_elems; i += kTile) sc[i] = src[i];
+    __syncthreads();
+    row = sc + tid * row_elems;
+  }
   int c[5][4];
 #pragma unroll
   for (int p = 0; p < 5; ++p)
 #pragma unroll
     for (int a = 0; a < 4; ++a) c[p][a] = 0;
-  const T* row = counts + (size_t)s * C * 4;
-  for (int k = 0; k < C; ++k) {
-    const int code = __ldg(codes + k);
+  if (tid < ns) {
+    for (int k = 0; k < C; ++k) {
+      const int code = __ldg(codes + k);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int v = (int)row[4 * k + a];
+      for (int a = 0; a < 4; ++a) {
+        const int v = (int)row[4 * k + a];
 #pragma unroll
-      for (int p = 0; p < 5; ++p) c[p][a] += ((code >> p) & 1) * v;
+        for (int p = 0; p < 5; ++p) c[p][a] += ((code >> p) & 1) * v;
+      }
     }
   }
+  if (staged) __syncthreads();     // the counts are read: rows take the bytes
   int nm[5];
 #pragma unroll
   for (int p = 0; p < 5; ++p) nm[p] = c[p][0] + c[p][1] + c[p][2] + c[p][3];
   const int present =
       (c[4][0] > 0) + (c[4][1] > 0) + (c[4][2] > 0) + (c[4][3] > 0);
   const double npop[4] = {n0, n1, n2, n3};
-  bool good = present == 2;
+  bool good = tid < ns && present == 2;
 #pragma unroll
   for (int p = 0; p < 4; ++p)
     good = good && ((double)nm[p] / npop[p] >= min_data);
 
-  double* o = out + (size_t)s * K;
-  if (!good) {
+  int sel = 0;                     // bit a: allele a selected
+  if (good) {
+    if (mode == kMinor) {
+      // np.argsort(union_freqs)[2] with numpy's tie order: the base-3 code
+      // of the 6 pairwise comparisons (<, ==, >) indexes the LUT
+      const int pi[6] = {0, 0, 0, 1, 1, 2};
+      const int pj[6] = {1, 2, 3, 2, 3, 3};
+      int key = 0, p3k = 1;
 #pragma unroll
-    for (int k = 0; k < K; ++k) o[k] = 0.0;
-    return;
-  }
-  double f[5][4];
+      for (int k = 0; k < 6; ++k) {
+        const int u = c[4][pi[k]], v = c[4][pj[k]];
+        key += (u < v ? 0 : (u == v ? 1 : 2)) * p3k;
+        p3k *= 3;
+      }
+      sel = 1 << __ldg(lut + key);
+    } else {
 #pragma unroll
-  for (int p = 0; p < 5; ++p)
+      for (int a = 0; a < 4; ++a) {
+        bool on = c[4][a] > 0 && c[3][a] == 0 && nm[3] > 0;
+        if (mode == kFixed) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) f[p][a] = (double)c[p][a] / (double)nm[p];
-
-  bool sel[4];
-  if (mode == kMinor) {
-    // np.argsort(union_freqs)[2] with numpy's tie order: the base-3 code of
-    // the 6 pairwise comparisons (<, ==, >) indexes the LUT
-    const int pi[6] = {0, 0, 0, 1, 1, 2};
-    const int pj[6] = {1, 2, 3, 2, 3, 3};
-    int key = 0, p3k = 1;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const double u = f[4][pi[k]], v = f[4][pj[k]];
-      key += (u < v ? 0 : (u == v ? 1 : 2)) * p3k;
-      p3k *= 3;
-    }
-    const int mi = __ldg(lut + key);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) sel[a] = a == mi;
-  } else {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      sel[a] = c[4][a] > 0 && f[3][a] == 0.0;
-      if (mode == kFixed)
-        sel[a] = sel[a] && (f[0][a] == 0.0 || f[0][a] == 1.0) &&
-                 (f[1][a] == 0.0 || f[1][a] == 1.0) &&
-                 (f[2][a] == 0.0 || f[2][a] == 1.0);
+          for (int p = 0; p < 3; ++p)
+            on = on && nm[p] > 0 && (c[p][a] == 0 || c[p][a] == nm[p]);
+        }
+        sel |= (int)on << a;
+      }
     }
   }
+  const int used = __popc(sel);
+  const int a0 = __ffs(sel) - 1;
+  const int a1 = __ffs(sel & (sel - 1)) - 1;
 
-  double acc[K - 2];
+  double* o = reinterpret_cast<double*>(smem) + tid * (K + 1);
+  if (tid < ns) {
+    o[0] = b2d(good);              // good: 0.25 x 4 in the JAX form
+    o[1] = (double)used;           // used: (site, allele) pairs
+    if (used == 0) {
 #pragma unroll
-  for (int k = 0; k < K - 2; ++k) acc[k] = 0.0;
-  int used = 0;
+      for (int k = 2; k < K; ++k) o[k] = 0.0;
+    }
+  }
 #pragma unroll 1
-  for (int a = 0; a < 4; ++a) {
-    if (!sel[a]) continue;
-    double t[K - 2];
-    allele_terms<K>(f[0][a], f[1][a], f[2][a], f[3][a], t);
-#pragma unroll
-    for (int k = 0; k < K - 2; ++k) acc[k] = used ? acc[k] + t[k] : t[k];
-    ++used;
+  for (int j = 0; j < 2; ++j) {
+    if (j < used) {
+      const int a = j ? a1 : a0;
+      allele_terms<K>((double)pick(c[0], a) / (double)nm[0],
+                      (double)pick(c[1], a) / (double)nm[1],
+                      (double)pick(c[2], a) / (double)nm[2],
+                      (double)pick(c[3], a) / (double)nm[3], o + 2, j);
+    }
   }
-  o[0] = 1.0;                         // good: 0.25 x 4 in the JAX form
-  o[1] = (double)used;                // used: (site, allele) pairs
-#pragma unroll
-  for (int k = 0; k < K - 2; ++k) o[2 + k] = acc[k];
+  __syncthreads();
+  // the tile's ns rows are out[s0 .. s0 + ns): K (even) doubles a row, so a
+  // 16-byte unit never straddles two rows
+  const double* rows = reinterpret_cast<const double*>(smem);
+  double2* dst = reinterpret_cast<double2*>(out + (size_t)s0 * K);
+  for (int u = tid; u < ns * K / 2; u += kTile) {
+    const int r = 2 * u / K, k = 2 * u - r * K;
+    const double* from = rows + r * (K + 1) + k;
+    __stcs(dst + u, make_double2(from[0], from[1]));
+  }
 }
 
 // ---------------------------------------------------------------- K8
@@ -249,15 +306,21 @@ template <typename T>
 void launch_site_terms(const void* counts, int S, int C, const void* codes,
                        const void* lut, const double* npop, double min_data,
                        int mode, int full, void* out, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((S + kThreads - 1) / kThreads);
+  const unsigned blocks = (unsigned)((S + kTile - 1) / kTile);
+  const size_t stage = (size_t)kTile * 4 * C * sizeof(T);
+  const int staged = stage <= (size_t)kStageBytes;
+  const size_t rows = (size_t)kTile * ((full ? kFull : kClassic) + 1) * 8;
+  const size_t smem = staged && stage > rows ? stage : rows;
   if (full) {
-    abba_site_terms_kernel<T, kFull><<<blocks, kThreads, 0, stream>>>(
-        (const T*)counts, S, C, (const int32_t*)codes, (const int8_t*)lut,
-        npop[0], npop[1], npop[2], npop[3], min_data, mode, (double*)out);
+    abba_site_terms_kernel<T, kFull><<<blocks, kTile, smem, stream>>>(
+        (const T*)counts, S, C, staged, (const int32_t*)codes,
+        (const int8_t*)lut, npop[0], npop[1], npop[2], npop[3], min_data,
+        mode, (double*)out);
   } else {
-    abba_site_terms_kernel<T, kClassic><<<blocks, kThreads, 0, stream>>>(
-        (const T*)counts, S, C, (const int32_t*)codes, (const int8_t*)lut,
-        npop[0], npop[1], npop[2], npop[3], min_data, mode, (double*)out);
+    abba_site_terms_kernel<T, kClassic><<<blocks, kTile, smem, stream>>>(
+        (const T*)counts, S, C, staged, (const int32_t*)codes,
+        (const int8_t*)lut, npop[0], npop[1], npop[2], npop[3], min_data,
+        mode, (double*)out);
   }
 }
 
@@ -267,11 +330,12 @@ extern "C" {
 
 // counts: [S, C, 4], uint16 when u16 != 0, else int32; codes: int32 [C];
 // lut: int8 [729]; mode: 0 polarize, 1 fixed, 2 minor; out: float64 [S, K]
-// with K = 18 when full != 0, else 8.
+// with K = 18 when full != 0, else 8, 16-byte aligned.
 int ggt_abba_site_terms(const void* counts, int u16, int S, int C,
                         const void* codes, const void* lut, double n0,
                         double n1, double n2, double n3, double min_data,
                         int mode, int full, void* out, void* stream) {
+  if ((uintptr_t)out & 15) return (int)cudaErrorInvalidValue;
   const double npop[4] = {n0, n1, n2, n3};
   if (u16)
     launch_site_terms<uint16_t>(counts, S, C, codes, lut, npop, min_data,

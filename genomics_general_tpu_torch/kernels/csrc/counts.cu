@@ -352,23 +352,98 @@ global_sfs_hist_kernel(const T* __restrict__ counts, int S, int P,
 // x[r, i] for a [k, n] stack of integer accumulators.
 //
 // Bound: bytes — k n elements read once, n written, one operation each.
-// Design: one thread per column, grid-stride, reading row r of a warp's 32
-// columns as one coalesced segment; the sum wraps modulo 2^bits (added as
-// unsigned), as torch.sum in that type does.
+// Design: 16-byte vectors of columns (four int32 or two int64 a thread),
+// a grid of a few blocks an SM striding over them.  The output starts on
+// a 16-byte boundary (the wrapper allocates it), but row r of the stack
+// starts sh_r 4-byte words into its 16-byte word (n need not be a
+// multiple of the vector, nor the stack's start aligned): such a row reads
+// the two aligned words a vector straddles and shifts them together; each
+// of the two holds bytes of the vector, so no load leaves the granules the
+// row lies in.  Columns past the last whole vector take a scalar tail.
+// The sum wraps modulo 2^bits (added as unsigned), as torch.sum in that
+// type does.
+__device__ __forceinline__ uint4 shift_words(uint4 a, uint4 b, int sh) {
+  switch (sh) {
+    case 0: return a;
+    case 1: return make_uint4(a.y, a.z, a.w, b.x);
+    case 2: return make_uint4(a.z, a.w, b.x, b.y);
+    default: return make_uint4(a.w, b.x, b.y, b.z);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T reduce_op(T acc, T v, int op_min) {
+  using U = typename std::make_unsigned<T>::type;
+  return op_min ? (v < acc ? v : acc) : (T)((U)acc + (U)v);
+}
+
+__device__ __forceinline__ long long word_pair(uint32_t lo, uint32_t hi) {
+  return (long long)(((unsigned long long)hi << 32) | lo);
+}
+
+// a vector of four int32 or two int64 columns, as 32-bit words
+template <typename T>
+__device__ __forceinline__ uint4 reduce_vec(uint4 acc, uint4 v, int op_min) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(
+        (uint32_t)reduce_op<int>((int)acc.x, (int)v.x, op_min),
+        (uint32_t)reduce_op<int>((int)acc.y, (int)v.y, op_min),
+        (uint32_t)reduce_op<int>((int)acc.z, (int)v.z, op_min),
+        (uint32_t)reduce_op<int>((int)acc.w, (int)v.w, op_min));
+  } else {
+    const unsigned long long lo = (unsigned long long)reduce_op<long long>(
+        word_pair(acc.x, acc.y), word_pair(v.x, v.y), op_min);
+    const unsigned long long hi = (unsigned long long)reduce_op<long long>(
+        word_pair(acc.z, acc.w), word_pair(v.z, v.w), op_min);
+    return make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi,
+                      (uint32_t)(hi >> 32));
+  }
+}
+
+// nv whole vectors, columns 0 .. nv * V - 1 (nv = 0 when out is not
+// 16-byte aligned); the tail nv * V .. n - 1 is scalar
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 stacked_reduce_kernel(const T* __restrict__ x, int k, long long n,
-                      int op_min, T* __restrict__ out) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    using U = typename std::make_unsigned<T>::type;
-    T acc = x[i];
-    for (int r = 1; r < k; ++r) {
-      const T v = x[(long long)r * n + i];
-      acc = op_min ? (v < acc ? v : acc) : (T)((U)acc + (U)v);
+                      long long nv, int op_min, T* __restrict__ out) {
+  constexpr int V = 16 / sizeof(T);
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (long long j = first; j < nv; j += stride) {
+    uint4 acc = make_uint4(0, 0, 0, 0);
+#pragma unroll 4
+    for (int r = 0; r < k; ++r) {
+      const uintptr_t a = (uintptr_t)(x + (long long)r * n);
+      const uint4* w = (const uint4*)(a & ~(uintptr_t)15) + j;
+      const int sh = (int)(a & 15) >> 2;
+      uint4 v = __ldg(w);
+      if (sh) v = shift_words(v, __ldg(w + 1), sh);
+      acc = r ? reduce_vec<T>(acc, v, op_min) : v;
     }
+    reinterpret_cast<uint4*>(out)[j] = acc;
+  }
+  for (long long i = nv * V + first; i < n; i += stride) {
+    T acc = x[i];
+    for (int r = 1; r < k; ++r)
+      acc = reduce_op<T>(acc, x[(long long)r * n + i], op_min);
     out[i] = acc;
   }
+}
+
+template <typename T>
+void launch_stacked_reduce(const void* x, int k, long long n, int op_min,
+                           void* out, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const long long nv = ((uintptr_t)out & 15) ? 0 : n / V;
+  const long long items = nv > n - nv * V ? nv : n - nv * V;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (items + kThreads - 1) / kThreads;
+  const long long cap = 8LL * sms;
+  const unsigned blocks = (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
+  stacked_reduce_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      (const T*)x, k, n, nv, op_min, (T*)out);
 }
 
 // ---------------------------------------------------------------- K18
@@ -552,17 +627,12 @@ int ggt_global_sfs_hist(const void* counts, int u16, int S, int P,
 // same type: the sum over k, or the minimum when op_min != 0.
 int ggt_stacked_reduce(const void* x, int is64, int k, long long n,
                        int op_min, void* out, void* stream) {
-  long long want = (n + kThreads - 1) / kThreads;
-  const unsigned blocks = (unsigned)(want < (1 << 20) ? want : (1 << 20));
-  if (is64) {
-    stacked_reduce_kernel<long long><<<blocks, kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-        (const long long*)x, k, n, op_min, (long long*)out);
-  } else {
-    stacked_reduce_kernel<int32_t><<<blocks, kThreads, 0,
-                                     (cudaStream_t)stream>>>(
-        (const int32_t*)x, k, n, op_min, (int32_t*)out);
-  }
+  if (is64)
+    launch_stacked_reduce<long long>(x, k, n, op_min, out,
+                                     (cudaStream_t)stream);
+  else
+    launch_stacked_reduce<int32_t>(x, k, n, op_min, out,
+                                   (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

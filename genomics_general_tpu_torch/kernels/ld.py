@@ -32,6 +32,8 @@ from .pairdist import _check_cuda, _stream_ptr
 # launches of the CUDA kernel since the last reset (the plain version never
 # counts)
 LAUNCHES = {"pair_allele_tables": 0}
+# the C entry points, each resolved on its first launch (_build.Entry)
+_ggt_pair_allele_tables = _build.Entry("ld", "ggt_pair_allele_tables")
 
 
 def reset_launches() -> None:
@@ -56,10 +58,9 @@ def pair_allele_tables(alleles: torch.Tensor) -> torch.Tensor:
     onehot = torch.empty(onehot_bytes(h, S), dtype=torch.uint8,
                          device=alleles.device)
     _check_cuda(onehot, out)
-    code = _build.lib("ld").ggt_pair_allele_tables(
+    _ggt_pair_allele_tables(
         alleles.data_ptr(), alleles.stride(0), h, S, onehot.data_ptr(),
         out.data_ptr(), _stream_ptr(out))
-    _build.check(code, "pair_allele_tables")
     LAUNCHES["pair_allele_tables"] += 1
     return out
 

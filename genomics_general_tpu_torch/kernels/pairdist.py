@@ -71,6 +71,17 @@ LAUNCHES = {"pair_counts_v3": 0, "exception_patch": 0, "blocks_tail": 0,
             "tri_pack": 0, "het_pairs": 0, "pair_counts_4state": 0,
             "pair_counts_v2": 0, "pair_counts_4state_rows": 0,
             "flush_pair_counts": 0}
+# the C entry points, each resolved on its first launch (_build.Entry)
+_ggt_pair_counts_v3 = _build.Entry("pair_v3", "ggt_pair_counts_v3")
+_ggt_pair_counts_v2 = _build.Entry("pair_v3", "ggt_pair_counts_v2")
+_ggt_exception_patch = _build.Entry("pair_v3", "ggt_exception_patch")
+_ggt_blocks_tail = _build.Entry("pair_v3", "ggt_blocks_tail")
+_ggt_tri_pack = _build.Entry("pair_v3", "ggt_tri_pack")
+_ggt_het_pairs = _build.Entry("pair_v3", "ggt_het_pairs")
+_ggt_pair_counts_4state = _build.Entry("pair4", "ggt_pair_counts_4state")
+_ggt_pair_counts_4state_rows = _build.Entry("pair4",
+                                            "ggt_pair_counts_4state_rows")
+_ggt_flush_pair_counts = _build.Entry("pair4", "ggt_flush_pair_counts")
 # flushes run by the host C executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 # pair cells the plain K2 materializes per slab of exception entries
@@ -90,8 +101,22 @@ def reset_launches() -> None:
     HOST_FLUSHES = 0
 
 
+def _public_raw_stream(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# The current CUDA stream's raw handle on a device index, as PyTorch's own
+# generated kernel launchers read it: a private binding of torch._C that
+# builds no torch.cuda.Stream object (the public path when a build lacks
+# it).  Read on every launch, never cached: a launch inside CUDA graph
+# capture must go on the capturing stream.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+    or _public_raw_stream
+
+
 def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream of ``t``'s device."""
+    return _raw_stream(t.get_device())
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
@@ -129,11 +154,10 @@ def pair_counts_v3(wire: transfer.PairWireV3, w0: int, nwin: int):
     s = torch.empty_like(m)
     if nwin == 0:
         return m, s
-    code = _build.lib("pair_v3").ggt_pair_counts_v3(
+    _ggt_pair_counts_v3(
         wire.cB.data_ptr(), wire.meta.data_ptr(), h, wire.cB.shape[1],
         wire.aC.shape[1], wire.cD.shape[1], wp, w0, nwin, m.data_ptr(),
         s.data_ptr(), _stream_ptr(m))
-    _build.check(code, "pair_counts_v3")
     LAUNCHES["pair_counts_v3"] += 1
     return m, s
 
@@ -199,11 +223,10 @@ def pair_counts_v2(wire: transfer.PairWireV2, w0: int, nwin: int):
     s = torch.empty_like(m)
     if nwin == 0:
         return m, s
-    code = _build.lib("pair_v3").ggt_pair_counts_v2(
+    _ggt_pair_counts_v2(
         wire.called.data_ptr(), wire.alt.data_ptr(), wire.first.data_ptr(),
         wire.n_sites.data_ptr(), h, wire.called.shape[1], w0, nwin,
         m.data_ptr(), s.data_ptr(), _stream_ptr(m))
-    _build.check(code, "pair_counts_v2")
     LAUNCHES["pair_counts_v2"] += 1
     return m, s
 
@@ -270,11 +293,10 @@ def exception_patch(m: torch.Tensor, s: torch.Tensor, wire, w0: int,
     if index is None:
         index = exception_index(wire)
     _check_cuda(m, s, wire.ex_codes, *index)
-    code = _build.lib("pair_v3").ggt_exception_patch(
+    _ggt_exception_patch(
         index.order.data_ptr(), index.starts.data_ptr(),
         wire.ex_codes.data_ptr(), h, w0, nwin, m.data_ptr(), s.data_ptr(),
         _stream_ptr(m))
-    _build.check(code, "exception_patch")
     LAUNCHES["exception_patch"] += 1
 
 
@@ -402,11 +424,10 @@ def _blocks_tail_launch(m, s, groups: PopGroups, min_sites: int, out,
     nwin, h, _ = m.shape
     if nwin == 0:
         return
-    code = _build.lib("pair_v3").ggt_blocks_tail(
+    _ggt_blocks_tail(
         m.data_ptr(), s.data_ptr(), groups.perm.data_ptr(),
         groups.offs.data_ptr(), groups.P, h, nwin, int(min_sites or 0),
         groups.max_rows, int(wide), out.data_ptr(), _stream_ptr(m))
-    _build.check(code, "blocks_tail")
     LAUNCHES["blocks_tail"] += 1
 
 
@@ -444,10 +465,9 @@ def tri_pack(m: torch.Tensor, s: torch.Tensor, out: torch.Tensor) -> None:
     _check_cuda(m, s, out)
     if nwin == 0:
         return
-    code = _build.lib("pair_v3").ggt_tri_pack(
+    _ggt_tri_pack(
         m.data_ptr(), s.data_ptr(), h, nwin, int(out.dtype == torch.uint16),
         out.data_ptr(), _stream_ptr(m))
-    _build.check(code, "tri_pack")
     LAUNCHES["tri_pack"] += 1
 
 
@@ -497,10 +517,9 @@ def het_pairs(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
         raise ValueError("het rows must be int32")
     if nwin == 0 or n_ind == 0:
         return
-    code = _build.lib("pair_v3").ggt_het_pairs(
+    _ggt_het_pairs(
         m.data_ptr(), s.data_ptr(), r1.data_ptr(), r2.data_ptr(), h, n_ind,
         nwin, out.data_ptr(), _stream_ptr(m))
-    _build.check(code, "het_pairs")
     LAUNCHES["het_pairs"] += 1
 
 
@@ -587,11 +606,10 @@ def pair_counts_4state(alleles: torch.Tensor, first: torch.Tensor,
     s = alloc((nwin, h, h), dtype=torch.int32, device=alleles.device)
     if nwin == 0 or h == 0:
         return m, s
-    code = _build.lib("pair4").ggt_pair_counts_4state(
+    _ggt_pair_counts_4state(
         alleles.data_ptr(), alleles.stride(0), S, first.data_ptr(),
         n_sites.data_ptr(), h, nwin, splits, split_len, m.data_ptr(),
         s.data_ptr(), _stream_ptr(m))
-    _build.check(code, "pair_counts_4state")
     LAUNCHES["pair_counts_4state"] += 1
     return m, s
 
@@ -666,11 +684,10 @@ def pair_counts_4state_rows(alleles: torch.Tensor, first: torch.Tensor,
     s = alloc((nwin, r1 - r0, h), dtype=torch.int32, device=alleles.device)
     if nwin == 0:
         return m, s
-    code = _build.lib("pair4").ggt_pair_counts_4state_rows(
+    _ggt_pair_counts_4state_rows(
         alleles.data_ptr(), alleles.stride(0), S, first.data_ptr(),
         n_sites.data_ptr(), h, r0, r1, nwin, splits, split_len,
         m.data_ptr(), s.data_ptr(), _stream_ptr(m))
-    _build.check(code, "pair_counts_4state_rows")
     LAUNCHES["pair_counts_4state_rows"] += 1
     return m, s
 
@@ -884,10 +901,9 @@ def _fused_flush_pair_counts(buf: torch.Tensor, sp: int, h: int, wp: int,
     if h == 0:
         return out
     for w0 in range(0, wp, 65535):
-        code = _build.lib("pair4").ggt_flush_pair_counts(
+        _ggt_flush_pair_counts(
             buf.data_ptr(), h, sp, wp, w0, min(65535, wp - w0), s_max,
             int(u16), out.data_ptr(), _stream_ptr(out))
-        _build.check(code, "flush_pair_counts")
         LAUNCHES["flush_pair_counts"] += 1
     return out
 

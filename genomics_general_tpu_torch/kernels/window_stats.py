@@ -28,6 +28,9 @@ from . import _build
 from . import pairdist
 
 LAUNCHES = {"window_stats_tail": 0, "window_pop_counts": 0}
+# the C entry points, each resolved on its first launch (_build.Entry)
+_ggt_window_stats_tail = _build.Entry("window_stats", "ggt_window_stats_tail")
+_ggt_window_pop_counts = _build.Entry("window_stats", "ggt_window_pop_counts")
 _NT = 1024                       # lanes of a population size's sum
 # windows per launch of the step's kernels: K9 and K11 put the window on a
 # grid axis of at most 65,535 blocks
@@ -159,12 +162,11 @@ def _tail(m: torch.Tensor, s: torch.Tensor, pop_mask: torch.Tensor,
     C, n = classes.C, classes.n_rows
     scratch = torch.empty(2 * B * C * (n + C), dtype=torch.int32,
                           device=m.device)
-    code = _build.lib("window_stats").ggt_window_stats_tail(
+    _ggt_window_stats_tail(
         m.data_ptr(), s.data_ptr(), classes.ints.data_ptr(),
         classes.floats.data_ptr(), h, P, C, n, B, scratch.data_ptr(),
         pi.data_ptr(), dxy.data_ptr(), fst.data_ptr(),
         pairdist._stream_ptr(m))
-    _build.check(code, "window_stats_tail")
     LAUNCHES["window_stats_tail"] += 1
     return pi, dxy, fst
 
@@ -268,11 +270,10 @@ def window_pop_counts(alleles: torch.Tensor, first: torch.Tensor,
         return out
     if B > 65535:
         raise ValueError(f"{B} windows in one launch (at most 65535)")
-    code = _build.lib("window_stats").ggt_window_pop_counts(
+    _ggt_window_pop_counts(
         alleles.data_ptr(), alleles.stride(0), S, first.data_ptr(),
         n_sites.data_ptr(), pop_mask.data_ptr(), h, P, B, out.data_ptr(),
         pairdist._stream_ptr(out))
-    _build.check(code, "window_pop_counts")
     LAUNCHES["window_pop_counts"] += 1
     return out
 

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2, K3, K6, K9, K10, K12, K13, K14, K17, K18 and
-K20 kernels of two checkouts on one NVIDIA GPU, in one process, on the
-same inputs:
+"""Time the port's K1, K2, K3, K6, K7, K9, K10, K12, K13, K14, K16, K17,
+K18 and K20 kernels of two checkouts on one NVIDIA GPU, in one process, on
+the same inputs:
 
     python3 kernel_ab.py --base DIR [--only TEXT ...] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR``).
 Each checkout's port is imported under a package name of its own and
-builds its ``pair_v3.cu``, ``pair4.cu``, ``counts.cu``, ``ld.cu`` and
-``window_stats.cu`` into its own ``build/``; each
+builds its ``pair_v3.cu``, ``pair4.cu``, ``counts.cu``, ``abba.cu``,
+``ld.cu`` and ``window_stats.cu`` into its own ``build/``; each
 kernel is called through that checkout's wrapper (its launch geometry,
 its output allocation), on inputs made here from a seed at the shapes of
 ``chip_smoke.py``'s timings (H = 512):
@@ -27,6 +27,11 @@ its output allocation), on inputs made here from a seed at the shapes of
   sites 100;
 * K6 ``site_pop_counts``: the span wire of run A's largest span (32,647
   sites) on its 4 populations of 128 rows;
+* K7 ``abba_site_terms``: run C's largest flush (274,671 sites, the
+  classic panel, polarize) and run D's (257,986 sites, the full panel,
+  minor), uint16 counts of 4 classes of 128 haplotypes (the populations
+  P1, P2, P3, O) made from a seed: 5 % missing, per-site frequencies from
+  a U-shaped beta, 1 % of sites with a third allele, minData 0.3;
 * K9 ``pair_counts_4state``: run E's block (one window of 262,144 sites,
   a contiguous matrix) and run A's largest flush (32 windows of about 625
   sites, in the raw upload's layout);
@@ -36,6 +41,8 @@ its output allocation), on inputs made here from a seed at the shapes of
   through the bucket-padded upload's stride), with the 256 individuals in
   9 populations as 9 classes and with all 512 rows as one class;
 * K14 ``pair_counts_4state_rows``: rows 0..255 of run A's flush;
+* K16 ``stacked_reduce``: the sum of a [2, 2,146,689] int32 stack (the dry
+  run's SFS merge of two shards' 129^3 bins);
 * K17 ``pair_allele_tables``: run P's first window (596 sites) and 2,048
   sites;
 * K18 ``site_nonmissing``: run A's largest span (32,647 sites, a
@@ -45,17 +52,17 @@ its output allocation), on inputs made here from a seed at the shapes of
 
 ``--only`` times just the cases whose name holds one of the TEXTs (for
 example ``K12``; ``"K1 "`` for K1 alone).  The two outputs of each kernel
-must be equal (K3's float64 sums, taken in another fixed order by another
-design, within rtol 1e-12, its counts exactly; K10's float32 means, summed
-by class pairs where earlier checkouts summed pair lists, within rtol
-1e-5 / atol 1e-6 with NaN positions equal, the cells not bit-equal
-counted).  Times are CUDA events over
-repeated warm calls of each wrapper, taken base, head, head, base: once
-as the calls come (host launch overhead included, which sets the pace of
-a kernel shorter than it) and once with the calls captured in a CUDA
-graph and replayed (the device's time); the script prints
-the card's name and power limit and, as its last line, one JSON object
-with every time.
+must be equal (K7's float64 terms bit for bit; K3's float64 sums, taken
+in another fixed order by another design, within rtol 1e-12, its counts
+exactly; K10's float32 means, summed by class pairs where earlier
+checkouts summed pair lists, within rtol 1e-5 / atol 1e-6 with NaN
+positions equal, the cells not bit-equal counted).  Times are CUDA events
+over repeated warm calls of each wrapper, taken base, head, head, base:
+once as the calls come (host launch overhead included, which sets the
+pace of a kernel shorter than it) and once with the calls captured in a
+CUDA graph and replayed (the device's time); the script prints the card's
+name and power limit and, as its last line, one JSON object with every
+time.
 """
 
 from __future__ import annotations
@@ -84,6 +91,8 @@ S_P = (596, 2048)                 # run P's first window; K17's 2,048 sites
 W_K, N_K = 128, 625               # the popDist chunk (K2, K3)
 W_L, N_L = 4, 32_000              # K1's long windows
 H_POPS = (56,) * 8 + (64,)        # run H: 8 x 28 + 32 individuals, diploid
+S_C, S_D = 274_671, 257_986       # runs C and D: the largest flush's sites
+N_K16 = 129 ** 3                  # the dry run's SFS bins (3 x 128 haps)
 
 
 def load_port(root: Path, alias: str) -> dict:
@@ -98,11 +107,12 @@ def load_port(root: Path, alias: str) -> dict:
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"{alias}.kernels.{name}")
             for name in ("_build", "pairdist", "counts", "transfer", "ld",
-                         "window_stats")}
+                         "window_stats", "abba")}
 
 
 def same(name: str, x, y) -> int:
-    """Integers and K3's counts exactly; K3's float64 sums within rtol
+    """Integers and K3's counts exactly, K7's float64 terms bit for bit
+    (NaN positions included); K3's float64 sums within rtol
     1e-12 and K10's float32 results within rtol 1e-5 / atol 1e-6 (Fst is
     a difference near 0), NaN positions equal
     (the two checkouts may add them in other orders).  Returns the number
@@ -117,6 +127,9 @@ def same(name: str, x, y) -> int:
         if torch.equal(x[:, 1], y[:, 1]) and torch.allclose(
                 x[:, 0], y[:, 0], rtol=1e-12, atol=1e-15):
             return int((x != y).sum())
+    elif x.dtype == torch.float64 and name.startswith("K7"):
+        if torch.equal(x.view(torch.int64), y.view(torch.int64)):
+            return 0
     elif torch.equal(x, y):
         return 0
     raise AssertionError(f"{name}: base and head differ")
@@ -142,6 +155,26 @@ def biallelic(rng, h: int, s: int) -> np.ndarray:
     return a
 
 
+def abba_counts(rng, S: int):
+    """uint16 [S, 4, 4] counts of 4 classes of 128 haplotypes (P1, P2, P3,
+    O; codes: the class's population bit and the union's) and their int32
+    codes: 5 % missing calls, per-site frequencies from a U-shaped beta
+    drifting a little between populations, alleles 0 and 1 (at 10 % of
+    sites 2 and 3), 1 % of sites with a third allele."""
+    called = 128 - rng.binomial(128, 0.05, size=(S, 4))
+    p = np.clip(rng.beta(0.3, 0.3, size=(S, 1))
+                + rng.normal(0, 0.05, size=(S, 4)), 0, 1)
+    alt = rng.binomial(called, p)
+    c = np.zeros((S, 4, 4), np.int64)
+    swap = rng.random(S) < 0.1
+    c[~swap, :, 0], c[~swap, :, 1] = (called - alt)[~swap], alt[~swap]
+    c[swap, :, 2], c[swap, :, 3] = (called - alt)[swap], alt[swap]
+    third = np.flatnonzero(rng.random(S) < 0.01)
+    c[third, 0, 3 - 3 * swap[third]] += 1
+    codes = np.array([1 | 16, 2 | 16, 4 | 16, 8 | 16], np.int32)
+    return c.astype(np.uint16), codes
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -163,7 +196,7 @@ def main() -> int:
     with ThreadPoolExecutor(4) as ex:
         futs = {(tag, name): ex.submit(port["_build"].build, name)
                 for tag, port in ports.items()
-                for name in ("pair_v3", "pair4", "counts", "ld",
+                for name in ("pair_v3", "pair4", "counts", "abba", "ld",
                              "window_stats")}
         for (tag, name), fut in futs.items():
             so = fut.result()
@@ -219,6 +252,14 @@ def main() -> int:
         np.arange(0, W_L * N_L, N_L, dtype=np.int32),
         np.full(W_L, N_L, np.int32))
     wire_l = v3_l.wire(torch.from_numpy(v3_l.buf).to(dev))
+    k7_in = {}
+    for run, S, mode, full in (("C", S_C, "polarize", False),
+                               ("D", S_D, "minor", True)):
+        cc, cd = abba_counts(rng, S)
+        k7_in[run] = (torch.from_numpy(cc).to(dev),
+                      torch.from_numpy(cd).to(dev), mode, full)
+    stack_k16 = torch.from_numpy(rng.integers(
+        -(1 << 30), 1 << 30, size=(2, N_K16), dtype=np.int32)).to(dev)
     log(f"[inputs] E: [{H}, {S_E}], one window; A: [{H}, {s_a}] (row "
         f"stride {a_a.stride(0)}), {W_A} windows, longest {smax_a}; H: "
         f"[{H}, {S_H}] (row stride {a_h.stride(0)}), {len(H_POPS)} classes; "
@@ -241,6 +282,11 @@ def main() -> int:
         out = torch.empty((S_R, 4, 4), dtype=torch.uint16, device=dev)
         return lambda: port["counts"].site_pop_counts(
             span_r, sp_r, H, 0, S_R, groups, out) or out
+
+    def k7(run):
+        cc, cd, mode, full = k7_in[run]
+        return lambda p: lambda: p["abba"].abba_site_terms(
+            cc, cd, (128,) * 4, 0.3, mode, full)
 
     def k17(s):
         return lambda p: lambda: p["ld"].pair_allele_tables(a_p[s])
@@ -279,6 +325,8 @@ def main() -> int:
         "K3 popDist chunk, run B individual mask": (
             k3(np.repeat(np.eye(H // 2), 2, axis=1)), 5),
         "K6 run A span": (k6, 50),
+        "K7 run C flush": (k7("C"), 20),
+        "K7 run D flush": (k7("D"), 20),
         "K9 run E block": (lambda p: lambda: p["pairdist"].pair_counts_4state(
             a_e, f_e, n_e, S_E), 5),
         "K9 run A flush": (lambda p: lambda: p["pairdist"].pair_counts_4state(
@@ -290,6 +338,9 @@ def main() -> int:
         "K14 run A flush rows 0..255": (
             lambda p: lambda: p["pairdist"].pair_counts_4state_rows(
                 a_a, f_a_t, n_a_t, 0, H // 2, smax_a), 20),
+        "K16 stacked reduce": (
+            lambda p: lambda: p["counts"].stacked_reduce(stack_k16, "sum"),
+            50),
         "K17 run P window": (k17(S_P[0]), 20),
         "K17 2,048 sites": (k17(S_P[1]), 10),
         "K18 run A span": (lambda p: lambda: p["counts"].site_nonmissing(
