@@ -28,8 +28,12 @@ not build, launch or agree, or an output is wrong):
    abba_site_terms against its plain version and the host executor's
    per-site terms exactly (NaN positions equal), K8 abba_window_sums
    against its plain version within rtol 1e-12 of the window's sum of
-   |terms|; K9 pair_counts_4state on messy inputs (H = 160 and 77, S =
-   70,003, windows of 0 and 1 site, unaligned starts, one of 66,000 sites)
+   |terms|, also at its edges (K = 8 and 18; windows of 0, 1 and odd
+   lengths, 2x and 3x overlap, shuffled; NaN terms; terms 8 bytes past a
+   16-byte boundary), two launches bit-equal and windows launched alone
+   bit-equal to the batch; K9 pair_counts_4state on messy inputs (H = 160
+   and 77, S = 70,003, windows of 0 and 1 site, unaligned starts, one of
+   66,000 sites)
    against its plain version and the host executor exactly, on its split
    (atomic) and unsplit paths and on row-strided input, and at the edges
    of its 128 x 128 tensor-core tiles (H = 1, 17, 77, 160, 512, 1000;
@@ -38,7 +42,11 @@ not build, launch or agree, or an output is wrong):
    that are multiples of 16, shifted or not, and its register staging on
    odd strides); K10
    window_stats_tail against its plain version (rtol 1e-6, NaN positions
-   equal) and K11 window_pop_counts exactly, with 5 and 1 populations; K12
+   equal) and K11 window_pop_counts exactly, with 5 and 1 populations,
+   also at the edges of its 16-byte vectors and classes (row strides
+   70,016, S and 70,011 from 3 columns in; windows of 0..625 sites at
+   every start mod 16, clipped at 0 and S, and of 66,001 sites; codes -7,
+   5, 127; P = 5 with rows in none, 1, 77 and 1,100); K12
    site_pop_counts_raw (H = 77, S = 5,003, codes -7..5, strided rows,
    blocks starting anywhere, uint16 and int32, 10 groups and a 10-row
    overlapping mask's classes) against its plain version, and equal to K6
@@ -292,6 +300,13 @@ K6_EDGE = ((77, 1003, 0, 1003), (77, 1003, 8, 1003), (33, 517, 24, 517),
 # tiles; a cell no launch writes keeps SENTINEL
 K1_EDGE_H = (1, 12, 40, 63, 64, 65, 77, 160, 512, 1000)
 SENTINEL = -(1 << 30)
+# K11's edges: rows at an odd stride and at 16-byte multiples, windows of
+# these lengths at every start offset mod 16 (and one past 66,000 sites)
+K11_EDGE_H, K11_EDGE_S = 77, 70_003
+K11_EDGE_LEN = (0, 1, 15, 16, 17, 31, 33, 625)
+# K8's edges: window lengths (S: the whole span) and the windows each
+# launched alone
+K8_EDGE_S, K8_EDGE_LEN, K8_EDGE_ALONE = 5_003, (0, 1, 3, 7, 33, 625, 1251), 24
 # window_stats_step past K9's and K11's 65,535-window grid axis
 STEP_WINDOWS, STEP_H, STEP_SITES = 66_000, 8, 70_000
 # run P: ld_matrix over the popDist cohort's first 32 windows of 50 kb,
@@ -1173,6 +1188,65 @@ def k10_edge_parity(pair, ws, dev) -> int:
     return done
 
 
+def k11_edge_layouts(a: np.ndarray, dev):
+    """``a`` on the card as three row layouts: a stride that is a multiple
+    of 16, a contiguous matrix (stride S, odd) and a view 3 columns into
+    rows of an odd stride.  The bytes around each view hold code 2, which
+    a read that is not masked would count."""
+    import torch
+    H, S = a.shape
+    out = {}
+    for name, ld, col in (("stride 70,016", 70_016, 0),
+                          ("contiguous, stride S", S, 0),
+                          ("odd stride 70,011, 3 columns in", 70_011, 3)):
+        buf = torch.full((H * ld + 32,), 2, dtype=torch.int8, device=dev)
+        view = buf[16:16 + H * ld].view(H, ld)[:, col:col + S]
+        view.copy_(torch.from_numpy(a))
+        out[name] = view
+    return out
+
+
+def k11_edge_parity(ws, dev) -> int:
+    """K11 against its plain version exactly at the edges of its 16-byte
+    vectors and classes: codes -7, 5, 127 beside -1 and 0..3; rows in
+    three layouts (k11_edge_layouts); windows of K11_EDGE_LEN sites at
+    every start offset mod 16, windows clipped at 0 and at S (one wholly
+    outside each), and, launched apart, windows of 66,001 sites; the
+    masks messy_masks (5 populations with rows in none, and 1 of all
+    rows), every row its own population (77) and 1,100 random 0/1 rows
+    (more than a launch's 1,024 populations).  Returns the number of
+    comparisons."""
+    import torch
+    rng = np.random.default_rng(17)
+    H, S = K11_EDGE_H, K11_EDGE_S
+    codes = np.array([-7, -1, 0, 1, 2, 3, 5, 127], np.int8)
+    a = rng.choice(codes, p=[.02, .08, .3, .3, .15, .1, .03, .02],
+                   size=(H, S))
+    first = [16 * (97 * off + 11 * j) + off for off in range(16)
+             for j in range(len(K11_EDGE_LEN))]
+    n = [length for _ in range(16) for length in K11_EDGE_LEN]
+    first += [-5, -20, S - 10, S + 5, S - 625]
+    n += [40, 10, 40, 3, 625]
+    batches = {"short": (first, n),
+               "66,001 sites": ([100, 1, S - 66_001], [66_001] * 3)}
+    masks = [*messy_masks(H), np.eye(H, dtype=np.float32),
+             (rng.random((1_100, H)) < 0.3).astype(np.float32)]
+    masks = [torch.from_numpy(m).to(dev) for m in masks]
+    done = 0
+    for layout, at in k11_edge_layouts(a, dev).items():
+        for what, (f, k) in batches.items():
+            f_d = torch.tensor(f, dtype=torch.int32, device=dev)
+            k_d = torch.tensor(k, dtype=torch.int32, device=dev)
+            for pm in masks:
+                check_equal(f"window_pop_counts {layout}, {what} windows, "
+                            f"P={pm.shape[0]}",
+                            ws.window_pop_counts(at, f_d, k_d, pm),
+                            ws.window_pop_counts_plain(at, f_d, k_d, pm))
+                done += 1
+    torch.cuda.synchronize()
+    return done
+
+
 def abba_input(H: int = 160, S: int = 5003, seed: int = 7):
     """ABBA alleles: beta-distributed allele frequencies, 10 % missing, a
     few multi-allelic sites; the outgroup's rows (the last quarter) all
@@ -1379,6 +1453,64 @@ def k7_edge_parity(abba, dev) -> dict:
                              f"alleles {used.tolist()}")
     torch.cuda.synchronize()
     return {"used": used.tolist(), "cases": len(cases)}
+
+
+def bits_equal(name: str, got, want) -> None:
+    """float64 results bit for bit (NaN positions included)."""
+    import torch
+    if got.shape != want.shape or not torch.equal(got.view(torch.int64),
+                                                  want.view(torch.int64)):
+        raise AssertionError(f"{name}: not bit-equal")
+
+
+def k8_edge_parity(abba, dev) -> dict:
+    """K8 at the edges of its column pairs and its fixed order, for K = 8
+    and 18: windows of K8_EDGE_LEN sites and of the whole span, windows at
+    2x and 3x overlap, the window list shuffled; a few rows of NaN terms;
+    terms starting on a 16-byte boundary and 8 bytes past one.  Against
+    its plain version within RTOL of each window's sum of |terms| (NaN
+    positions equal), two launches bit-equal, and K8_EDGE_ALONE windows
+    each launched alone bit-equal to the batch.  Returns the counts."""
+    import torch
+    rng = np.random.default_rng(18)
+    S = K8_EDGE_S
+    lengths = np.array([*K8_EDGE_LEN, S])
+    first = [rng.integers(0, S - k + 1, size=3) for k in lengths]
+    n = [np.full(3, k) for k in lengths]
+    for step in (300, 200):                         # 2x and 3x overlap
+        f = np.arange(0, S - 600, step)
+        first.append(f)
+        n.append(np.full(f.size, 600))
+    first, n = np.concatenate(first), np.concatenate(n)
+    order = rng.permutation(first.size)
+    f_d = torch.from_numpy(first[order].astype(np.int32)).to(dev)
+    n_d = torch.from_numpy(n[order].astype(np.int32)).to(dev)
+    alone = rng.choice(first.size, size=K8_EDGE_ALONE, replace=False)
+    done = {"windows": int(first.size), "launches": 0}
+    for K in (8, 18):
+        t = rng.normal(size=(S, K)) * rng.choice([1e-3, 1.0, 1e3],
+                                                 size=(S, 1))
+        t[rng.choice(S, size=4, replace=False), rng.integers(0, K)] = np.nan
+        aligned = torch.from_numpy(t).to(dev)
+        flat = torch.empty(S * K + 1, dtype=torch.float64, device=dev)
+        shifted = flat[1:].view(S, K)
+        shifted.copy_(aligned)
+        if aligned.data_ptr() % 16 or shifted.data_ptr() % 16 != 8:
+            raise AssertionError("K8 edges: the terms' alignment")
+        for where, terms in (("16-byte aligned", aligned),
+                             ("8 bytes past 16", shifted)):
+            name = f"abba_window_sums K={K}, terms {where}"
+            got = abba.abba_window_sums(terms, f_d, n_d)
+            check_sums(abba, name, got, terms, f_d, n_d)
+            bits_equal(f"{name}: two launches", got,
+                       abba.abba_window_sums(terms, f_d, n_d))
+            for i in alone:
+                bits_equal(f"{name}: window {i} alone", got[i:i + 1],
+                           abba.abba_window_sums(terms, f_d[i:i + 1],
+                                                 n_d[i:i + 1]))
+            done["launches"] += 2 + len(alone)
+    torch.cuda.synchronize()
+    return done
 
 
 # ------------------------------------------- times at the runs' flushes
@@ -1670,8 +1802,10 @@ def time_abba(abba, counts, transfer, flush, dev) -> dict:
           "ms": cuda_ms(k7_call, 20), "graph_ms": graph_ms(k7_call, 20),
           "plain_ms": cuda_ms(lambda: abba.abba_site_terms_plain(
               cc, codes, n_pops, md, mode, full), 3, 1)}
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     k8 = {"max_abs_err": k8_err,
           "ms": cuda_ms(k8_call, 20), "graph_ms": graph_ms(k8_call, 20),
+          "cold_graph_ms": cold_graph_ms(k8_call, 20, scratch),
           "plain_ms": cuda_ms(lambda: abba.abba_window_sums_plain(
               t, f_d, n_d), 3, 1), "library_ms": None}
     tiles = bool((first[1:] == first[:-1] + n[:-1]).all())
@@ -1702,6 +1836,7 @@ def time_abba(abba, counts, transfer, flush, dev) -> dict:
              f"K={K}, {mode}, {int(gated)} gated sites, {int(pairs)} pairs"
              f"{', tiling' if tiles else ', overlapping'}")
     k7["shape"] = k8["shape"] = shape
+    del scratch
     return {"abba_site_terms": k7, "abba_window_sums": k8}
 
 
@@ -4240,6 +4375,13 @@ def main() -> int:
         "16-byte boundary) == plain bit for bit, NaN positions equal; "
         "polarize and fixed sites with 0 / 1 / 2 selected alleles "
         f"{k7e['used']}")
+    k8e = k8_edge_parity(abba, dev)
+    log(f"[parity] K8 edges (K = 8 and 18, {k8e['windows']} windows: "
+        f"{K8_EDGE_LEN} sites and the whole span of {K8_EDGE_S}, 2x and 3x "
+        "overlap, shuffled; NaN terms; terms 16-byte aligned and 8 bytes "
+        f"past; {k8e['launches']} launches) within rtol {RTOL} of plain "
+        "(NaN positions equal); two launches bit-equal; "
+        f"{K8_EDGE_ALONE} windows launched alone bit-equal to the batch")
     not_bit_equal = 0
     for H in (160, 77):
         a, first, n = k9_input(H)
@@ -4299,6 +4441,14 @@ def main() -> int:
         "all rows, every row its own population at H = 12, fractional "
         "weights at H = 77, 0-site and all-missing windows, run G's shape) "
         "== plain bit for bit")
+    t_edge = time.perf_counter()
+    n_k11 = k11_edge_parity(ws, dev)
+    log(f"[parity] K11 edges in {time.perf_counter() - t_edge:.1f}s ({n_k11} "
+        f"comparisons: H = {K11_EDGE_H}, S = {K11_EDGE_S}, codes -7, 5, 127 "
+        "beside -1..3; strides 70,016, S and 70,011 (3 columns in); "
+        f"windows of {K11_EDGE_LEN} sites at every start mod 16, clipped at "
+        "0 and S, and of 66,001 sites; P = 5 (rows in none), 1, 77 and "
+        "1,100) == plain")
     n_k17 = k17_edge_parity(ldk, dev)
     n_k6 = k6_edge_parity(counts, transfer, pair, dev)
     log(f"[parity] K17 tile edges ({n_k17} comparisons: H={K17_EDGE_H}, "
@@ -4412,7 +4562,9 @@ def main() -> int:
                 abba, counts, transfer,
                 runs["run_D"][1]["window_abba_sums_dispatch"], dev).items():
             log(f"[kernel] {k} at run D's flush ({r['shape']}): kernel "
-                f"{r['ms']:.4f} ms ({r['graph_ms']:.4f} ms in a CUDA graph), "
+                f"{r['ms']:.4f} ms ({r['graph_ms']:.4f} ms in a CUDA graph"
+                + (f", {r['cold_graph_ms']:.4f} with the L2 cold"
+                   if "cold_graph_ms" in r else "") + "), "
                 f"plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms "
                 f"({r['bound'][1]}), max abs err {r['max_abs_err']}")
@@ -4503,6 +4655,8 @@ def main() -> int:
                 f"{r['ms']:.4f} ms"
                 + (f" ({r['graph_ms']:.4f} ms in a CUDA graph)"
                    if "graph_ms" in r else "")
+                + (f" ({r['cold_graph_ms']:.4f} ms with the L2 cold)"
+                   if "cold_graph_ms" in r else "")
                 + f", plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']}, bound {bnd[k][0]:.4f} ms "
                 f"({bnd[k][1]}), max abs err {r['max_abs_err']}")
@@ -4521,8 +4675,8 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": CSRC + src,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
-                **({"graph_ms": res[k]["graph_ms"]}
-                   if "graph_ms" in res[k] else {}),
+                **{key: res[k][key] for key in ("graph_ms", "cold_graph_ms")
+                   if key in res[k]},
                 "plain_ms": res[k]["plain_ms"], "bound_ms": bnd[k][0],
                 "bound_by": bnd[k][1], "library_ms": res[k]["library_ms"]}
                for k, (src, replaces) in KERNELS.items()]

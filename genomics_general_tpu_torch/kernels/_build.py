@@ -51,7 +51,7 @@ _SIGNATURES = {
     "abba": {
         "ggt_abba_site_terms": [_P, _I, _I, _I, _P, _P, _D, _D, _D, _D, _D,
                                 _I, _I, _P, _P],
-        "ggt_abba_window_sums": [_P, _I, _I, _P, _P, _I, _P, _P],
+        "ggt_abba_window_sums": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     },
     "pair4": {
         "ggt_pair_counts_4state": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _P,
@@ -66,8 +66,8 @@ _SIGNATURES = {
     "window_stats": {
         "ggt_window_stats_tail": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                   _P, _P, _P, _P],
-        "ggt_window_pop_counts": [_P, _L, _L, _P, _P, _P, _I, _I, _I, _P,
-                                  _P],
+        "ggt_window_pop_counts": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _P, _P],
     },
 }
 # nvcc flags of one source beyond the common line: abba.cu's f4 terms must

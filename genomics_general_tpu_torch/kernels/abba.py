@@ -17,9 +17,9 @@ semantics: genomics.py:1647-1695, 1585-1643):
   numpy's argsort tie order) and writes each site's K channels — float64
   terms equal to numpy's bit for bit;
 * K8 :func:`abba_window_sums` (abba.cu) sums each window's range of sites
-  (windows may overlap) with a fixed reduction tree.  Only this summation
-  order differs from numpy's, a <= 1 ulp effect below the 4-decimal CSV
-  rounding.
+  (windows may overlap) in a fixed order: each lane on one column pair,
+  then lanes and warps in order.  Only this summation order differs from
+  numpy's, a <= 1 ulp effect below the 4-decimal CSV rounding.
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 ``LAUNCHES``) and runs its plain PyTorch version, in this module, only for
@@ -53,6 +53,8 @@ LAUNCHES = {"abba_site_terms": 0, "abba_window_sums": 0}
 # the C entry points, each resolved on its first launch (_build.Entry)
 _ggt_abba_site_terms = _build.Entry("abba", "ggt_abba_site_terms")
 _ggt_abba_window_sums = _build.Entry("abba", "ggt_abba_window_sums")
+# K8's warps a window (kernel_ab.py --sweep times the others)
+_K8_WARPS = 4
 # flushes run by the host executor (GGT_EXEC=host)
 HOST_FLUSHES = 0
 
@@ -256,7 +258,9 @@ def abba_window_sums(terms: torch.Tensor, first: torch.Tensor,
     """float64 [W, K]: row w sums ``terms`` [S, K] over sites first[w] ..
     first[w] + n_sites[w] - 1 (int32 [W] each; windows may overlap; every
     range must lie inside [0, S), which the kernel clips to).  Replaces
-    the window gather-sum of the JAX ``fused_abba_flush``."""
+    the window gather-sum of the JAX ``fused_abba_flush``.  The kernel
+    adds in a fixed order (``_K8_WARPS`` warps a window), so a window's
+    sums do not depend on the rest of the batch."""
     if terms.dim() != 2 or terms.dtype != torch.float64 or \
             first.shape != n_sites.shape or first.dim() != 1:
         raise ValueError("terms must be float64 [S, K], first and n_sites "
@@ -275,7 +279,7 @@ def abba_window_sums(terms: torch.Tensor, first: torch.Tensor,
         return out
     _ggt_abba_window_sums(
         terms.data_ptr(), S, K, first.data_ptr(), n_sites.data_ptr(), W,
-        out.data_ptr(), _stream_ptr(out))
+        _K8_WARPS, out.data_ptr(), _stream_ptr(out))
     LAUNCHES["abba_window_sums"] += 1
     return out
 

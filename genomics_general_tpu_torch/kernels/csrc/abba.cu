@@ -24,7 +24,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kClassic = 8;    // good, used + 6 terms (CLASSIC_CHANNELS)
 constexpr int kFull = 18;      // good, used + 16 terms (FULL_CHANNELS)
 enum Mode { kPolarize = 0, kFixed = 1, kMinor = 2 };
@@ -263,43 +262,113 @@ abba_site_terms_kernel(const T* __restrict__ counts, int S, int C,
 // genomics_general_tpu/kernels/abba.py fused_abba_flush (its lax.map over
 // window chunks):
 //   out[w, k] = sum of terms[s, k] for s in first[w] .. first[w] + n[w] - 1.
-// Windows may overlap (-s < -w), so each window reduces its own range.
+// Windows may overlap (-s < -w), so each window reduces its own range; a
+// range reaching outside [0, S) is clipped.
 //
 // Bound: bytes — each window's rows of terms read, K doubles written.
-// Design: one block per window; thread t adds rows first + t, first + t +
-// 256, ... (a warp reads 32 consecutive rows, K doubles each) into K
-// register sums; then a fixed shared-memory tree, so a window's sums are
-// the same from run to run.  A range reaching outside [0, S) is clipped.
+// Design: a window's n rows are one contiguous run of n K doubles, read as
+// 16-byte column pairs, kPairs = K / 2 a row:
+//   * a window takes `warps` warps (1, 2, 4 or 8; abba._K8_WARPS), each on
+//     a consecutive segment of its rows, and a block of kSumWarps warps
+//     holds kSumWarps / warps windows;
+//   * a warp step reads kLanes consecutive pairs, kRows whole rows (32
+//     pairs, 8 rows at K = 8; 27 pairs, 3 rows at K = 18), so lane l
+//     always holds column pair l % kPairs; it adds its rows in order, each
+//     kSumAhead loads issued before their adds;
+//   * the lanes of one column pair then add in lane order (shuffles), and
+//     the window's warps in warp order (K doubles a warp in shared memory).
+// The order depends only on the window and `warps`, so a window's sums are
+// the same bits from run to run, and whether it is launched alone or in a
+// batch.  A terms tensor that starts 8 bytes past a 16-byte boundary (its
+// rows too, as K is even) is read from each window's second double: pair
+// q then holds columns 2q + 1 and 2q + 2 (mod K: the next row's column 0),
+// and the window's first and last doubles are added on their own after
+// the warps.
+constexpr int kSumWarps = 8;
+constexpr int kSumAhead = 8;
+
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSumWarps * 32)
 abba_window_sums_kernel(const double* __restrict__ terms, int S,
                         const int32_t* __restrict__ first,
-                        const int32_t* __restrict__ n_sites,
-                        double* __restrict__ out) {
-  __shared__ double red[K][kThreads];
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int f = max(first[w], 0);
-  const int n = min(first[w] + n_sites[w], S) - f;
-  double acc[K];
+                        const int32_t* __restrict__ n_sites, int W,
+                        int warps, double* __restrict__ out) {
+  constexpr int kPairs = K / 2;
+  constexpr int kRows = 32 / kPairs;
+  constexpr int kLanes = kRows * kPairs;
+  __shared__ double part[kSumWarps][K];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int per_block = kSumWarps / warps;
+  const int g = warp % warps;
+  // 1 when terms lies 8 bytes past a 16-byte boundary
+  const int shift = (int)((reinterpret_cast<uintptr_t>(terms) >> 3) & 1);
+  auto range = [&](int w, int& lo, int& n) {
+    const long long f = first[w];
+    lo = (int)(f > 0 ? f : 0);
+    const long long hi = min(f + n_sites[w], (long long)S);
+    n = hi > lo ? (int)(hi - lo) : 0;
+  };
+  int lo = 0, n = 0;
+  const int w = blockIdx.x * per_block + warp / warps;
+  if (w < W) range(w, lo, n);
+  const int q = lane % kPairs;
+  double2 acc = make_double2(0.0, 0.0);
+  if (lane < kLanes && n > 0) {
+    const int steps = (n + kRows - 1) / kRows;
+    const int per = (steps + warps - 1) / warps;
+    const int s1 = min(steps, (g + 1) * per);
+    // row r's pair q; with the shift, the last row's pair kPairs - 1 would
+    // take the column 0 of the row after the window
+    const double2* pair = reinterpret_cast<const double2*>(
+        terms + (size_t)lo * K + shift) + q;
+    const int rows = shift && q == kPairs - 1 ? n - 1 : n;
+    for (int s = g * per; s < s1; s += kSumAhead) {
+      double2 v[kSumAhead];
+      bool ok[kSumAhead];
 #pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = 0.0;
-  for (int i = tid; i < n; i += kThreads) {
-    const double* row = terms + (size_t)(f + i) * K;
+      for (int u = 0; u < kSumAhead; ++u) {
+        const int r = (s + u) * kRows + lane / kPairs;
+        ok[u] = s + u < s1 && r < rows;
+        if (ok[u]) v[u] = __ldg(pair + (size_t)r * kPairs);
+      }
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc[k] += row[k];
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) red[k][tid] = acc[k];
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) red[k][tid] += red[k][tid + stride];
+      for (int u = 0; u < kSumAhead; ++u) {
+        if (ok[u]) {
+          acc.x += v[u].x;
+          acc.y += v[u].y;
+        }
+      }
     }
-    __syncthreads();
   }
-  if (tid < K) out[(size_t)w * K + tid] = red[tid][0];
+  // lane q (< kPairs) adds lanes q + kPairs, q + 2 kPairs, .. in order
+  double2 sum = acc;
+#pragma unroll
+  for (int j = 1; j < kRows; ++j) {
+    sum.x += __shfl_down_sync(0xffffffffu, acc.x, j * kPairs);
+    sum.y += __shfl_down_sync(0xffffffffu, acc.y, j * kPairs);
+  }
+  if (lane < kPairs) {
+    const int c0 = 2 * lane + shift;
+    part[warp][c0] = sum.x;
+    part[warp][c0 + 1 == K ? 0 : c0 + 1] = sum.y;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < per_block * K; t += blockDim.x) {
+    const int j = t / K;
+    const int k = t - j * K;
+    const int wj = blockIdx.x * per_block + j;
+    if (wj >= W) continue;
+    double s = part[j * warps][k];
+    for (int x = 1; x < warps; ++x) s += part[j * warps + x][k];
+    if (shift) {
+      int lj, nj;
+      range(wj, lj, nj);
+      if (nj > 0 && k == 0) s += terms[(size_t)lj * K];
+      if (nj > 0 && k == K - 1) s += terms[(size_t)(lj + nj) * K - 1];
+    }
+    out[(size_t)wj * K + k] = s;
+  }
 }
 
 template <typename T>
@@ -346,20 +415,26 @@ int ggt_abba_site_terms(const void* counts, int u16, int S, int C,
   return (int)cudaGetLastError();
 }
 
-// terms: float64 [S, K] (K = 8 or 18); first, n_sites: int32 [W];
-// out: float64 [W, K].
+// terms: float64 [S, K] (K = 8 or 18), 8-byte aligned; first, n_sites:
+// int32 [W]; warps: warps a window (1, 2, 4 or 8); out: float64 [W, K].
 int ggt_abba_window_sums(const void* terms, int S, int K, const void* first,
-                         const void* n_sites, int W, void* out,
+                         const void* n_sites, int W, int warps, void* out,
                          void* stream) {
+  if (((uintptr_t)terms & 7) ||
+      (warps != 1 && warps != 2 && warps != 4 && warps != 8))
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kSumWarps / warps;
+  const unsigned blocks = (unsigned)((W + per_block - 1) / per_block);
   if (K == kFull)
-    abba_window_sums_kernel<kFull><<<W, kThreads, 0, (cudaStream_t)stream>>>(
-        (const double*)terms, S, (const int32_t*)first,
-        (const int32_t*)n_sites, (double*)out);
+    abba_window_sums_kernel<kFull>
+        <<<blocks, kSumWarps * 32, 0, (cudaStream_t)stream>>>(
+            (const double*)terms, S, (const int32_t*)first,
+            (const int32_t*)n_sites, W, warps, (double*)out);
   else if (K == kClassic)
     abba_window_sums_kernel<kClassic>
-        <<<W, kThreads, 0, (cudaStream_t)stream>>>(
+        <<<blocks, kSumWarps * 32, 0, (cudaStream_t)stream>>>(
             (const double*)terms, S, (const int32_t*)first,
-            (const int32_t*)n_sites, (double*)out);
+            (const int32_t*)n_sites, W, warps, (double*)out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -13,7 +13,7 @@
 
 namespace {
 
-constexpr int kPopThreads = 256;  // K11: 8 warps, one haplotype row each
+constexpr int kPopThreads = 256;  // K11: 8 warps a block
 constexpr int kRowWarps = 8;      // K10 rows pass: warps a block at most
 constexpr int kRowsPerWarp = 2;   // K10 rows pass: rows a warp
 constexpr int kMeanThreads = 256;  // K10 means pass: 8 warps a window
@@ -236,45 +236,231 @@ tail_means_kernel(const int32_t* __restrict__ cls_i,
 
 // ---------------------------------------------------------------- K11
 // window_pop_counts — replaces the per-window allele counts of
-// window_stats_step (einsum("ph,bhsa->bpa") over the gathered one-hot):
+// genomics_general_tpu/kernels/window_stats.py window_stats_step
+// (einsum("ph,bhsa->bpa") over the gathered one-hot):
 //   out[w, p, c] = sum over rows h with pm[p, h] != 0 of
 //                  #{sites of window w where row h has code c}
 // (the mask is 0/1 population membership; the JAX f32 sum of 0/1 products
-// is this integer).
+// is this integer).  Columns outside [0, S) and codes outside 0..3 count
+// as nothing.
 //
-// Bound: bytes — each window's sites of every row read once.  Design: one
-// warp per (row, window) counts its codes in registers, reduces them with
-// __reduce_add_sync, and adds the row's four counts to each population it
-// belongs to with int32 atomics (exact in any order).
+// Bound: bytes — each window's sites of every row read once.  Design: the
+// rows as the mask's membership classes (window_stats.TailClasses, the
+// classes K10 takes: rows in class order, rows in no population dropped),
+// a block per (window, band of `rows` rows):
+//   * a row's window [lo, hi) is read as the aligned 16-byte vectors that
+//     cover it, worked out from the row's own address (any row stride).
+//     The block's threads take the band's (row, inner vector) items in
+//     order, so a warp's lanes read consecutive vectors, kPopAhead loads
+//     in flight a lane; then each row's first and last vector, a thread
+//     each, with the bytes outside [lo, hi) forced to 0xff, which is no
+//     code (the inner vectors need no mask, so the main loop has no
+//     branch on it);
+//   * the codes are compared four bytes a word in plain integer operations
+//     (count_word: a byte is a code when its bits 2..7 are clear, and its
+//     bits 0 and 1 say which), the matches added into byte-wise counters,
+//     flushed to integers every kFlushVectors vectors.  Four counters in
+//     scalar registers: no indexed array, nothing in local memory;
+//   * a class's rows in the band are summed in the block (a warp sum, then
+//     the warps in shared memory) and added to the block's sums of each
+//     population the class lies in (shared memory); the block then adds
+//     each nonzero population sum to out with one int32 atomic, exact in
+//     any order.
+// More than kPopChunk populations take a launch per kPopChunk.
+constexpr int kPopAhead = 4;
+constexpr int kFlushVectors = 60;  // a counter byte takes at most 4 a vector
+constexpr int kPopChunk = 1024;
+constexpr int kMaxRows = 1024;
+
+// a row's window as aligned 16-byte vectors: the first at base, nv of them;
+// edges: the first vector's bytes before the window (bits 0..7) and the
+// last vector's bytes inside it (bits 8..15, 1..16)
+struct __align__(16) RowSpan {
+  const uint4* base;
+  int nv;
+  int edges;
+};
+
+// the codes of the 4 bytes of x into byte-wise counters: byte k of `any`
+// takes 1 when byte k of x is a code 0..3, of `one`, `two`, `three` when
+// it is that code
+__device__ __forceinline__ void count_word(unsigned x, unsigned& any,
+                                           unsigned& one, unsigned& two,
+                                           unsigned& three) {
+  // bit 7 of each byte of t: one of the byte's bits 2..6 is set (the sum
+  // stays inside its byte)
+  const unsigned t = (x & 0x7c7c7c7cu) + 0x7c7c7c7cu;
+  const unsigned code = (~(t | x) & 0x80808080u) >> 7;
+  const unsigned x1 = x >> 1;
+  any += code;
+  one += code & x & ~x1;
+  two += code & ~x & x1;
+  three += code & x & x1;
+}
+
+__device__ __forceinline__ void count_vector(const uint4& q, unsigned* acc) {
+  count_word(q.x, acc[0], acc[1], acc[2], acc[3]);
+  count_word(q.y, acc[0], acc[1], acc[2], acc[3]);
+  count_word(q.z, acc[0], acc[1], acc[2], acc[3]);
+  count_word(q.w, acc[0], acc[1], acc[2], acc[3]);
+}
+
+// 0xff in the bytes of the word at byte `at` of a vector that lie in
+// bytes head .. tail - 1 of the vector
+__device__ __forceinline__ unsigned keep_bytes(int head, int tail, int at) {
+  const int lo = min(max(head - at, 0), 4);
+  const int hi = min(max(tail - at, 0), 4);
+  const unsigned up = hi == 4 ? 0xffffffffu : (1u << (8 * hi)) - 1u;
+  const unsigned down = lo == 4 ? 0xffffffffu : (1u << (8 * lo)) - 1u;
+  return up & ~down;
+}
+
+__device__ __forceinline__ int byte_sum(unsigned x) {
+  x = (x & 0x00ff00ffu) + ((x >> 8) & 0x00ff00ffu);
+  return (int)((x & 0xffffu) + (x >> 16));
+}
+
 __global__ void __launch_bounds__(kPopThreads)
 window_pop_counts_kernel(const int8_t* __restrict__ alleles, long long ld,
                          long long S, const int32_t* __restrict__ first,
                          const int32_t* __restrict__ n_sites,
-                         const float* __restrict__ pm, int h, int P,
+                         const int32_t* __restrict__ cls_i,
+                         const float* __restrict__ wgt, int n_rows, int C,
+                         int P, int p0, int pc, int rows,
                          int32_t* __restrict__ out) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (kPopThreads / 32) + threadIdx.x / 32;
-  const int wl = blockIdx.y;
-  if (row >= h) return;
-  const long long f = first[wl];
-  const int n = n_sites[wl];
-  unsigned c[4] = {0u, 0u, 0u, 0u};
-  const int8_t* r = alleles + (long long)row * ld;
-  for (int k = lane; k < n; k += 32) {
-    const long long col = f + k;
-    if (col < 0 || col >= S) continue;
-    const int code = r[col];
-    if (code >= 0 && code <= 3) ++c[code];
+  extern __shared__ __align__(16) unsigned char smem[];
+  RowSpan* span = reinterpret_cast<RowSpan*>(smem);      // [rows]
+  int* sums = reinterpret_cast<int*>(span + rows);       // [pc][4]
+  __shared__ int red[kPopThreads / 32][4];
+  __shared__ int first_class;
+  const int w = blockIdx.y;
+  const long long f = first[w];
+  const long long lo = f > 0 ? f : 0;
+  const long long hi = min(f + n_sites[w], S);
+  if (hi <= lo) return;                                  // the whole block
+  const int k0 = blockIdx.x * rows;
+  const int nk = min(n_rows - k0, rows);
+  const int32_t* members = cls_i;
+  const int32_t* starts = cls_i + n_rows;
+  for (int j = threadIdx.x; j < nk; j += kPopThreads) {
+    const uintptr_t a =
+        reinterpret_cast<uintptr_t>(alleles + members[k0 + j] * ld + lo);
+    const uintptr_t b = a + (uintptr_t)(hi - lo);
+    const uintptr_t a16 = a & ~(uintptr_t)15;
+    RowSpan r;
+    r.base = reinterpret_cast<const uint4*>(a16);
+    r.nv = (int)((b - a16 + 15) >> 4);
+    r.edges = (int)(a - a16) |
+              ((int)(b - a16 - 16 * (uintptr_t)(r.nv - 1)) << 8);
+    span[j] = r;
   }
+  for (int c = threadIdx.x; c < C; c += kPopThreads)
+    if (starts[c] <= k0 && k0 < starts[c + 1]) first_class = c;
+  for (int j = threadIdx.x; j < 4 * pc; j += kPopThreads) sums[j] = 0;
+  __syncthreads();
+  // item t of a class's rows r0 .. r1 - 1 is (row r0 + t / inner, inner
+  // vector 1 + t % inner), inner = vmax - 2 for vmax the most vectors a
+  // row's window can take; a thread takes t = threadIdx.x, + kPopThreads,
+  // ..
+  const int inner = (int)((hi - lo + 30) >> 4) - 2;
+  const int step_r = inner > 0 ? kPopThreads / inner : 0;
+  const int step_v = inner > 0 ? kPopThreads - step_r * inner : 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int c = first_class; c < C && starts[c] < k0 + nk; ++c) {
+    const int r0 = max(starts[c] - k0, 0);
+    const int r1 = min(starts[c + 1] - k0, nk);
+    // is this thread's first population in the class (read ahead)
+    const bool in_c = threadIdx.x < pc &&
+                      wgt[(size_t)c * P + p0 + threadIdx.x] != 0.0f;
+    unsigned acc[4] = {0u, 0u, 0u, 0u};
+    int tot[4] = {0, 0, 0, 0};
+    int row = inner > 0 ? r0 + threadIdx.x / inner : r1;
+    int v = inner > 0 ? threadIdx.x % inner : 0;
+    int pending = 0;
+    while (row < r1) {
+      uint4 q[kPopAhead];
+      bool ok[kPopAhead];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) c[k] = __reduce_add_sync(0xffffffffu, c[k]);
-  if (lane != 0) return;
-  for (int p = 0; p < P; ++p) {
-    if (pm[(size_t)p * h + row] == 0.0f) continue;
+      for (int u = 0; u < kPopAhead; ++u) {
+        ok[u] = false;
+        if (row < r1) {
+          const RowSpan rs = span[row];
+          if (v < rs.nv - 2) {
+            ok[u] = true;
+            q[u] = __ldg(rs.base + 1 + v);
+          }
+        }
+        row += step_r;
+        v += step_v;
+        if (v >= inner) {
+          v -= inner;
+          ++row;
+        }
+      }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (c[k]) atomicAdd(&out[((size_t)wl * P + p) * 4 + k], (int)c[k]);
+      for (int u = 0; u < kPopAhead; ++u)
+        if (ok[u]) count_vector(q[u], acc);
+      pending += kPopAhead;
+      if (pending >= kFlushVectors) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tot[i] += byte_sum(acc[i]);
+          acc[i] = 0u;
+        }
+        pending = 0;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tot[i] += byte_sum(acc[i]);
+      acc[i] = 0u;
+    }
+    // each row's first and last vector (one, when the window fits in one)
+    for (int j = threadIdx.x; j < 2 * (r1 - r0); j += kPopThreads) {
+      const RowSpan rs = span[r0 + (j >> 1)];
+      const bool last = j & 1;
+      if (last && rs.nv == 1) continue;
+      uint4 q = __ldg(rs.base + (last ? rs.nv - 1 : 0));
+      const int head = last ? 0 : rs.edges & 0xff;
+      const int tail = last || rs.nv == 1 ? rs.edges >> 8 : 16;
+      q.x |= ~keep_bytes(head, tail, 0);
+      q.y |= ~keep_bytes(head, tail, 4);
+      q.z |= ~keep_bytes(head, tail, 8);
+      q.w |= ~keep_bytes(head, tail, 12);
+      count_vector(q, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      tot[i] = __reduce_add_sync(kFull, tot[i] + byte_sum(acc[i]));
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[warp][i] = tot[i];
+    }
+    __syncthreads();
+    if (threadIdx.x < pc) {
+      int n4[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int k = 0; k < kPopThreads / 32; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) n4[i] += red[k][i];
+      // code 0 is the codes that are none of 1, 2, 3
+      const int n0 = n4[0] - n4[1] - n4[2] - n4[3];
+      for (int j = threadIdx.x; j < pc; j += kPopThreads) {
+        if (j == threadIdx.x ? !in_c
+                             : wgt[(size_t)c * P + p0 + j] == 0.0f)
+          continue;
+        sums[4 * j] += n0;
+        sums[4 * j + 1] += n4[1];
+        sums[4 * j + 2] += n4[2];
+        sums[4 * j + 3] += n4[3];
+      }
+    }
+    __syncthreads();
   }
+  int32_t* o = out + ((size_t)w * P + p0) * 4;
+  for (int j = threadIdx.x; j < 4 * pc; j += kPopThreads)
+    if (sums[j] != 0) atomicAdd(o + j, sums[j]);
 }
 
 }  // namespace
@@ -340,18 +526,30 @@ int ggt_window_stats_tail(const void* m, const void* s, const void* cls_i,
 }
 
 // alleles: int8 rows of ld elements, columns 0 .. S - 1 valid; first,
-// n_sites: int32 [nwin]; pm: float32 [P, h]; out: int32 [nwin, P, 4],
+// n_sites: int32 [nwin]; the mask's classes (window_stats.TailClasses):
+// cls_i int32 [members n_rows | starts C + 1 | ..], cls_f float32 [weights
+// C x P | ..]; rows: rows a block (1 .. kMaxRows); out: int32 [nwin, P, 4],
 // zeroed by the caller.
 int ggt_window_pop_counts(const void* alleles, long long ld, long long S,
                           const void* first, const void* n_sites,
-                          const void* pm, int h, int P, int nwin, void* out,
+                          const void* cls_i, const void* cls_f, int n_rows,
+                          int C, int P, int nwin, int rows, void* out,
                           void* stream) {
-  const int rows = kPopThreads / 32;
-  dim3 grid((h + rows - 1) / rows, nwin);
-  window_pop_counts_kernel<<<grid, kPopThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)alleles, ld, S, (const int32_t*)first,
-      (const int32_t*)n_sites, (const float*)pm, h, P, (int32_t*)out);
-  return (int)cudaGetLastError();
+  if (rows < 1 || rows > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0 || nwin == 0) return (int)cudaSuccess;
+  const dim3 grid((n_rows + rows - 1) / rows, nwin);
+  for (int p0 = 0; p0 < P; p0 += kPopChunk) {
+    const int pc = P - p0 < kPopChunk ? P - p0 : kPopChunk;
+    const size_t smem = sizeof(RowSpan) * rows + 16 * (size_t)pc;
+    window_pop_counts_kernel<<<grid, kPopThreads, smem,
+                               (cudaStream_t)stream>>>(
+        (const int8_t*)alleles, ld, S, (const int32_t*)first,
+        (const int32_t*)n_sites, (const int32_t*)cls_i, (const float*)cls_f,
+        n_rows, C, P, p0, pc, rows, (int32_t*)out);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

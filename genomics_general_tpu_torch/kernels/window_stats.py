@@ -11,11 +11,11 @@ the host (stats/popgen.py).
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 ``LAUNCHES``; K10's two launches count once) and runs its plain PyTorch
-version only for CPU tensors.  K10 works on the mask's membership classes
-(:class:`TailClasses`); its plain version sums in the kernel's own fixed
-order (:func:`_fixed_sum`), so on the same inputs the two agree bit for
-bit; against the JAX function, whose XLA sums run in another order, they
-agree to float32 rounding.
+version only for CPU tensors.  K10 and K11 work on the mask's membership
+classes (:class:`TailClasses`); K10's plain version sums in the kernel's
+own fixed order (:func:`_fixed_sum`), so on the same inputs the two agree
+bit for bit; against the JAX function, whose XLA sums run in another
+order, they agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ LAUNCHES = {"window_stats_tail": 0, "window_pop_counts": 0}
 _ggt_window_stats_tail = _build.Entry("window_stats", "ggt_window_stats_tail")
 _ggt_window_pop_counts = _build.Entry("window_stats", "ggt_window_pop_counts")
 _NT = 1024                       # lanes of a population size's sum
+_K11_ROWS = 128                  # K11's rows a block (kernel_ab.py --sweep)
 # windows per launch of the step's kernels: K9 and K11 put the window on a
 # grid axis of at most 65,535 blocks
 STEP_CHUNK = 65535
@@ -255,6 +256,18 @@ def window_pop_counts(alleles: torch.Tensor, first: torch.Tensor,
     counts of the JAX ``window_stats_step``."""
     if not alleles.is_cuda:
         return window_pop_counts_plain(alleles, first, n_sites, pop_mask)
+    return _pop_counts(alleles, first, n_sites, pop_mask,
+                       tail_classes(pop_mask, alleles.device))
+
+
+def _pop_counts(alleles: torch.Tensor, first: torch.Tensor,
+                n_sites: torch.Tensor, pop_mask: torch.Tensor,
+                classes: TailClasses):
+    """:func:`window_pop_counts` on the mask's classes, built beforehand:
+    the kernel sums each class's rows and adds them to the class's
+    populations (``_K11_ROWS`` rows a block)."""
+    if not alleles.is_cuda:
+        return window_pop_counts_plain(alleles, first, n_sites, pop_mask)
     if alleles.dtype != torch.int8 or alleles.stride(1) != 1 or \
             pop_mask.dtype != torch.float32 or first.dtype != torch.int32 \
             or n_sites.dtype != torch.int32:
@@ -265,15 +278,19 @@ def window_pop_counts(alleles: torch.Tensor, first: torch.Tensor,
             raise ValueError("kernel inputs must be contiguous CUDA tensors")
     h, S = alleles.shape
     B, P = first.shape[0], pop_mask.shape[0]
+    if pop_mask.shape[1] != h:
+        raise ValueError(f"mask {tuple(pop_mask.shape)} does not fit {h} "
+                         "rows")
     out = torch.zeros((B, P, 4), dtype=torch.int32, device=alleles.device)
-    if B == 0 or P == 0 or h == 0:
+    if B == 0 or P == 0 or classes.n_rows == 0:
         return out
     if B > 65535:
         raise ValueError(f"{B} windows in one launch (at most 65535)")
     _ggt_window_pop_counts(
         alleles.data_ptr(), alleles.stride(0), S, first.data_ptr(),
-        n_sites.data_ptr(), pop_mask.data_ptr(), h, P, B, out.data_ptr(),
-        pairdist._stream_ptr(out))
+        n_sites.data_ptr(), classes.ints.data_ptr(),
+        classes.floats.data_ptr(), classes.n_rows, classes.C, P, B,
+        _K11_ROWS, out.data_ptr(), pairdist._stream_ptr(out))
     LAUNCHES["window_pop_counts"] += 1
     return out
 
@@ -314,9 +331,6 @@ def window_stats_step(alleles, first, n_sites, pop_mask):
     ``shared`` [B, H, H] and ``pop_counts`` [B, P, 4].  Any B: the kernels
     run ``STEP_CHUNK`` windows at a time (on every device, so the CPU
     tests hold the chunking too) and the outputs join in window order."""
-    if isinstance(pop_mask, np.ndarray) and \
-            not np.isin(pop_mask, (0.0, 1.0)).all():
-        raise ValueError("pop_mask must be 0/1 population membership")
     dev = alleles.device if isinstance(alleles, torch.Tensor) \
         else get_device()
     a = alleles if isinstance(alleles, torch.Tensor) and \
@@ -327,6 +341,10 @@ def window_stats_step(alleles, first, n_sites, pop_mask):
     pm = _as_tensor(pop_mask, torch.float32, dev)
     classes = tail_classes(pop_mask if isinstance(pop_mask, np.ndarray)
                            else pm, dev)
+    # every nonzero entry of the mask is in its classes' columns, kept on
+    # the host: a tensor mask is refused without reading it again
+    if not np.isin(classes.weights, (0.0, 1.0)).all():
+        raise ValueError("pop_mask must be 0/1 population membership")
     s_max = int(np.max(n_sites)) if isinstance(n_sites, np.ndarray) \
         and n_sites.size else None
     parts = []
@@ -336,7 +354,7 @@ def window_stats_step(alleles, first, n_sites, pop_mask):
         pi, dxy, fst = _tail(mismatch, shared, pm, classes)
         parts.append({"pi": pi, "dxy": dxy, "fst": fst,
                       "mismatch": mismatch, "shared": shared,
-                      "pop_counts": window_pop_counts(a, fc, nc, pm)})
+                      "pop_counts": _pop_counts(a, fc, nc, pm, classes)})
     if len(parts) == 1:
         return parts[0]
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2, K3, K6, K7, K9, K10, K12, K13, K14, K16, K17,
-K18 and K20 kernels of two checkouts on one NVIDIA GPU, in one process, on
-the same inputs:
+"""Time the port's K1, K2, K3, K6, K7, K8, K9, K10, K11, K12, K13, K14,
+K16, K17, K18 and K20 kernels of two checkouts on one NVIDIA GPU, in one
+process, on the same inputs:
 
-    python3 kernel_ab.py --base DIR [--only TEXT ...] [--out FILE]
+    python3 kernel_ab.py --base DIR [--only TEXT ...] [--sweep] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR``).
@@ -32,11 +32,16 @@ its output allocation), on inputs made here from a seed at the shapes of
   minor), uint16 counts of 4 classes of 128 haplotypes (the populations
   P1, P2, P3, O) made from a seed: 5 % missing, per-site frequencies from
   a U-shaped beta, 1 % of sites with a third allele, minData 0.3;
+* K8 ``abba_window_sums``: the head's K7 terms of those two flushes, run
+  C's tiled by windows of 585 to 664 sites, run D's by windows of as many
+  sites every 312 (each site in two windows);
 * K9 ``pair_counts_4state``: run E's block (one window of 262,144 sites,
   a contiguous matrix) and run A's largest flush (32 windows of about 625
   sites, in the raw upload's layout);
 * K10 ``window_stats_tail``: run G's shape, K3's 128 windows of counts on
   popDist's mask (4 populations of 128 rows);
+* K11 ``window_pop_counts``: run G's shape, 128 windows of 625 sites of
+  an [H, 80,000] matrix, popDist's mask;
 * K12 ``site_pop_counts_raw``: run H's span (16,176 sites, rows read
   through the bucket-padded upload's stride), with the 256 individuals in
   9 populations as 9 classes and with all 512 rows as one class;
@@ -54,15 +59,19 @@ its output allocation), on inputs made here from a seed at the shapes of
 example ``K12``; ``"K1 "`` for K1 alone).  The two outputs of each kernel
 must be equal (K7's float64 terms bit for bit; K3's float64 sums, taken
 in another fixed order by another design, within rtol 1e-12, its counts
-exactly; K10's float32 means, summed by class pairs where earlier
-checkouts summed pair lists, within rtol 1e-5 / atol 1e-6 with NaN
-positions equal, the cells not bit-equal counted).  Times are CUDA events
-over repeated warm calls of each wrapper, taken base, head, head, base:
-once as the calls come (host launch overhead included, which sets the
-pace of a kernel shorter than it) and once with the calls captured in a
-CUDA graph and replayed (the device's time); the script prints the card's
-name and power limit and, as its last line, one JSON object with every
-time.
+exactly; K8's float64 sums, likewise, within rtol 1e-12 of each window's
+sum of |terms| with NaN positions equal; K10's float32 means, summed by
+class pairs where earlier checkouts summed pair lists, within rtol 1e-5 /
+atol 1e-6 with NaN positions equal, the cells not bit-equal counted).
+``--sweep`` also times the head's K11 at other rows a block and its K8 at
+other warps a window (the wrappers' ``_K11_ROWS`` and ``_K8_WARPS``), in
+a CUDA graph, each variant's outputs held to the default's as above.
+Times are CUDA events over repeated warm calls of each wrapper, taken
+base, head, head, base: once as the calls come (host launch overhead
+included, which sets the pace of a kernel shorter than it) and once with
+the calls captured in a CUDA graph and replayed (the device's time); the
+script prints the card's name and power limit and, as its last line, one
+JSON object with every time.
 """
 
 from __future__ import annotations
@@ -90,6 +99,10 @@ S_R = 32_647                      # run A's largest count span (K6, K18)
 S_P = (596, 2048)                 # run P's first window; K17's 2,048 sites
 W_K, N_K = 128, 625               # the popDist chunk (K2, K3)
 W_L, N_L = 4, 32_000              # K1's long windows
+S_G, W_G, N_G = 80_000, 128, 625  # run G: the entry() step's batch
+D_STEP = 312                      # run D: -w 50000 -s 25000 in sites
+K11_ROWS = (16, 32, 64, 128, 256)  # --sweep: K11's rows a block
+K8_WARPS = (1, 2, 4, 8)            # --sweep: K8's warps a window
 H_POPS = (56,) * 8 + (64,)        # run H: 8 x 28 + 32 individuals, diploid
 S_C, S_D = 274_671, 257_986       # runs C and D: the largest flush's sites
 N_K16 = 129 ** 3                  # the dry run's SFS bins (3 x 128 haps)
@@ -110,15 +123,21 @@ def load_port(root: Path, alias: str) -> dict:
                          "window_stats", "abba")}
 
 
-def same(name: str, x, y) -> int:
+def same(name: str, x, y, scale=None) -> int:
     """Integers and K3's counts exactly, K7's float64 terms bit for bit
     (NaN positions included); K3's float64 sums within rtol
-    1e-12 and K10's float32 results within rtol 1e-5 / atol 1e-6 (Fst is
-    a difference near 0), NaN positions equal
+    1e-12, K8's within rtol 1e-12 of ``scale`` (each window's sum of
+    |terms|) and K10's float32 results within rtol 1e-5 / atol 1e-6 (Fst
+    is a difference near 0), NaN positions equal
     (the two checkouts may add them in other orders).  Returns the number
     of cells not bit-equal."""
     import torch
-    if x.dtype == torch.float32 and name.startswith("K10"):
+    if x.dtype == torch.float64 and name.startswith("K8"):
+        nan = torch.isnan(x)
+        if torch.equal(nan, torch.isnan(y)) and bool(
+                ((x - y).abs()[~nan] <= 1e-12 * scale[~nan] + 1e-15).all()):
+            return int((x.view(torch.int64) != y.view(torch.int64)).sum())
+    elif x.dtype == torch.float32 and name.startswith("K10"):
         nan = torch.isnan(x)
         if torch.equal(nan, torch.isnan(y)) and torch.allclose(
                 x[~nan], y[~nan], rtol=1e-5, atol=1e-6):
@@ -175,11 +194,52 @@ def abba_counts(rng, S: int):
     return c.astype(np.uint16), codes
 
 
+def sweep(port, k8_in, g_in) -> dict:
+    """The head's K11 at each of K11_ROWS rows a block (run G) and its K8
+    at each of K8_WARPS warps a window (runs C and D, also with the L2
+    cold): graph ms each, every variant's outputs held to the default's.
+    Restores the defaults."""
+    import torch
+    from chip_smoke import cold_graph_ms
+    ws, abba = port["window_stats"], port["abba"]
+    out = {"K11 run G": {}, "K8 run C flush": {}, "K8 run D flush": {}}
+    rows0 = ws._K11_ROWS
+    want = ws.window_pop_counts(*g_in)
+    for rows in K11_ROWS:
+        ws._K11_ROWS = rows
+        call = lambda: ws.window_pop_counts(*g_in)  # noqa: E731
+        same("K11 sweep", call(), want)
+        out["K11 run G"][rows] = graph_ms(call, 20)
+        log(f"[sweep] K11 run G, {rows} rows a block: "
+            f"{out['K11 run G'][rows]:.4f} ms in a CUDA graph")
+    ws._K11_ROWS = rows0
+    warps0 = abba._K8_WARPS
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for run in ("C", "D"):
+        terms, f8_t, n8_t, scale = k8_in[run]
+        want = abba.abba_window_sums(terms, f8_t, n8_t)
+        name = f"K8 run {run} flush"
+        for warps in K8_WARPS:
+            abba._K8_WARPS = warps
+            call = lambda: abba.abba_window_sums(  # noqa: E731
+                terms, f8_t, n8_t)
+            same(name, call(), want, scale)
+            out[name][warps] = (graph_ms(call, 20),
+                                cold_graph_ms(call, 20, scratch))
+            log(f"[sweep] {name}, {warps} warps a window: "
+                f"{out[name][warps][0]:.4f} ms in a CUDA graph, "
+                f"{out[name][warps][1]:.4f} with the L2 cold")
+        abba._K8_WARPS = warps0
+    del scratch
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True, type=Path)
     ap.add_argument("--only", nargs="+", default=[""])
+    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -260,6 +320,29 @@ def main() -> int:
                       torch.from_numpy(cd).to(dev), mode, full)
     stack_k16 = torch.from_numpy(rng.integers(
         -(1 << 30), 1 << 30, size=(2, N_K16), dtype=np.int32)).to(dev)
+    # K8: the head's K7 terms of runs C and D; run C's windows tile the
+    # flush, run D's start every D_STEP sites
+    k8_in = {}
+    for run in ("C", "D"):
+        cc, cd, mode, full = k7_in[run]
+        terms = ports["head"]["abba"].abba_site_terms(cc, cd, (128,) * 4,
+                                                      0.3, mode, full)
+        S = terms.shape[0]
+        n8 = rng.integers(N_K - 40, N_K + 40,
+                          size=S // (N_K if run == "C" else D_STEP) + 1)
+        f8 = np.concatenate([[0], np.cumsum(n8)[:-1]]) if run == "C" \
+            else np.arange(n8.size) * D_STEP
+        keep = f8 < S
+        f8, n8 = f8[keep], np.minimum(n8[keep], S - f8[keep])
+        f8_t, n8_t = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                      for x in (f8, n8))
+        scale = ports["head"]["abba"].abba_window_sums_plain(
+            torch.nan_to_num(terms.abs()), f8_t, n8_t)
+        k8_in[run] = (terms, f8_t, n8_t, scale)
+    # K11: run G's windows of an [H, S_G] matrix on popDist's mask
+    a_g = torch.from_numpy(codes(rng, H, S_G)).to(dev)
+    f_g = torch.arange(0, W_G * N_G, N_G, dtype=torch.int32, device=dev)
+    n_g = torch.full((W_G,), N_G, dtype=torch.int32, device=dev)
     log(f"[inputs] E: [{H}, {S_E}], one window; A: [{H}, {s_a}] (row "
         f"stride {a_a.stride(0)}), {W_A} windows, longest {smax_a}; H: "
         f"[{H}, {S_H}] (row stride {a_h.stride(0)}), {len(H_POPS)} classes; "
@@ -287,6 +370,11 @@ def main() -> int:
         cc, cd, mode, full = k7_in[run]
         return lambda p: lambda: p["abba"].abba_site_terms(
             cc, cd, (128,) * 4, 0.3, mode, full)
+
+    def k8(run):
+        terms, f8_t, n8_t, _ = k8_in[run]
+        return lambda p: lambda: p["abba"].abba_window_sums(terms, f8_t,
+                                                            n8_t)
 
     def k17(s):
         return lambda p: lambda: p["ld"].pair_allele_tables(a_p[s])
@@ -327,12 +415,16 @@ def main() -> int:
         "K6 run A span": (k6, 50),
         "K7 run C flush": (k7("C"), 20),
         "K7 run D flush": (k7("D"), 20),
+        "K8 run C flush": (k8("C"), 20),
+        "K8 run D flush": (k8("D"), 20),
         "K9 run E block": (lambda p: lambda: p["pairdist"].pair_counts_4state(
             a_e, f_e, n_e, S_E), 5),
         "K9 run A flush": (lambda p: lambda: p["pairdist"].pair_counts_4state(
             a_a, f_a_t, n_a_t, smax_a), 20),
         "K10 run G": (lambda p: lambda: p["window_stats"].window_stats_tail(
             m_k, s_k, pm_k), 20),
+        "K11 run G": (lambda p: lambda: p["window_stats"].window_pop_counts(
+            a_g, f_g, n_g, pm_k), 20),
         "K12 run H span": (k12(pop_mask), 50),
         "K12 run H span, one class": (k12(one_class), 50),
         "K14 run A flush rows 0..255": (
@@ -362,7 +454,9 @@ def main() -> int:
             out = run()
             got[tag] = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
-        unequal = sum(same(name, x, y)
+        scale = k8_in[name.split()[2]][3] if name.startswith("K8") \
+            else None
+        unequal = sum(same(name, x, y, scale)
                       for x, y in zip(got["base"], got["head"]))
         del got
         times = {"base": [], "head": [], "base_graph": [], "head_graph": []}
@@ -381,6 +475,8 @@ def main() -> int:
             + (f" ({unequal} cells not bit-equal)" if unequal else ""))
         del runs
         torch.cuda.empty_cache()
+    if args.sweep:
+        report["sweep"] = sweep(ports["head"], k8_in, (a_g, f_g, n_g, pm_k))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
