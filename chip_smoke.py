@@ -67,9 +67,17 @@ not build, launch or agree, or an output is wrong):
    mesh's data- and tensor-parallel pair counts on two shards of the card
    against K9 (two-window shards on K9's split path);
    K15 global_sfs_hist on counts built to tie against its plain version
-   (uint16 and int32); K16 stacked_reduce (sum, min; int64 beyond 2^31,
-   int32) against torch.sum / torch.amin, also at the edges of its 16-byte
-   vectors (k = 1..4, n = 1 to 4,099 and not a multiple of the vector,
+   (uint16 and int32), and at the edges of its tile, corner and
+   arithmetic (k15_edge_parity: P = 1, 2, 3, 5, an n_hap of 0, S = 1 and
+   not a multiple of the tile, views off a 16-byte boundary, all sites
+   monomorphic or in one bin outside the corner, both sides of the
+   corner's edge, int32 counts negative or summing past 2^31, more than
+   2^31 - 1 bins), and on every card when there are several
+   (k15_each_card); K5 at its edges (k5_edge_parity: one individual, a
+   haploid pair, rows 0 and H - 1, one window); K16 stacked_reduce (sum,
+   min; int64 beyond 2^31, int32) against torch.sum / torch.amin, also at
+   the edges of its 16-byte vectors (k = 1..4, n = 1 to 4,099 and not a
+   multiple of the vector,
    stacks starting one element past a 16-byte boundary, sums wrapping);
    K7 at the edges of its tile and selection (S = 1, 129, 5,003; outgroup
    classes outside the union, so sites select 0, 1 or 2 alleles; NaN
@@ -155,7 +163,9 @@ not build, launch or agree, or an output is wrong):
    tails against K1 + K2 + tails on run A's and run B's flushes;
    K14 at run A's largest flush on two row shards; K15 and K16 over the
    500,000-site cohort's first three populations made complete, 129^3
-   bins, against the mesh's sharded_global_sfs on two shards; K17 at run
+   bins, against the mesh's sharded_global_sfs on two shards (K15's
+   torch.zeros timed alone beside it); K5 beside a zero-work probe kernel
+   at its grid (its launch floor); K17 at run
    P's first window and at 2,048 sites beside the bf16 one-hot Gram and
    torch._int_mm of the int8 one-hot, K18,
    K19 and K20 at run R's inputs, K20 beside K9 + K4 and K9's two bf16
@@ -1554,10 +1564,16 @@ def time_het(pair, transfer, flush, dev):
     err = check_equal("het_pairs (run B flush)", out,
                       pair.het_pairs_plain(m, s, r1, r2))
     r1l, r2l = r1.long(), r2.long()
+    k5 = lambda: pair.het_pairs(m, s, r1, r2, out)  # noqa: E731
+    probe = lambda: pair.launch_probe(nwin * n_ind, dev)  # noqa: E731
+    # K5 and the zero-work probe at its grid in turns (K5, probe, probe,
+    # K5): their difference is what K5 spends beyond a launch
+    graphs = {k5: [], probe: []}
+    for fn in (k5, probe, probe, k5):
+        graphs[fn].append(graph_ms(fn, 20))
     res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: pair.het_pairs(m, s, r1, r2, out), 20),
-           "graph_ms": graph_ms(lambda: pair.het_pairs(m, s, r1, r2, out),
-                                20),
+           "ms": cuda_ms(k5, 20),
+           "graph_ms": min(graphs[k5]),
            "plain_ms": cuda_ms(lambda: pair.het_pairs_plain(m, s, r1, r2),
                                20),
            "library_ms": cuda_ms(lambda: (m[:, r1l, r2l], s[:, r1l, r2l]),
@@ -1565,6 +1581,12 @@ def time_het(pair, transfer, flush, dev):
     # each (window, individual) reads one sector of m and one of s
     res["bound"] = bound(nwin * n_ind * (2 * SECTOR + 16))
     res["shape"] = f"{nwin} windows, H={H}, I={n_ind}"
+    log(f"[kernel] launch probe at het_pairs' grid ({nwin} x {n_ind} "
+        f"cells, zero work): {min(graphs[probe]):.4f} ms in a CUDA graph "
+        f"(readings {graphs[probe]}), het_pairs {res['graph_ms']:.4f} "
+        f"(readings {graphs[k5]}); het_pairs less the probe "
+        f"{res['graph_ms'] - min(graphs[probe]):.4f} ms against twice its "
+        f"bound {2 * res['bound'][0]:.4f}")
     groups = pair.PopGroups(ind_mask, dev)
     blk = torch.empty((nwin, 2, groups.P, groups.P), dtype=torch.float64,
                       device=dev)
@@ -2459,6 +2481,197 @@ def k16_edge_parity(counts, rng, dev) -> int:
     return n_checks
 
 
+def sfs_edge_counts(counts, rng, n_hap, S: int) -> np.ndarray:
+    """int64 [S, P, 4] counts of complete sites over two alleles x, y of
+    the site (a third allele z in one haplotype of population 0 at every
+    6th site from the 4th, an extra count making every 6th from the 5th
+    incomplete), each population's minor count drawn from both sides of
+    K15's corner edge k (k - 1, k, k + 1, k + 2), its ends and its
+    middle."""
+    P = len(n_hap)
+    cdim = counts.sfs_corner(n_hap, counts._K15_CORNER_BYTES)
+    xyz = np.argsort(rng.random((S, 4)), axis=1)[:, :3]
+    c = np.zeros((S, P, 4), np.int64)
+    s = np.arange(S)
+    for p, n in enumerate(n_hap):
+        k = int(cdim[p]) - 1
+        cand = np.unique(np.clip([0, 1, k - 1, k, k + 1, k + 2, n // 2,
+                                  n - k - 1, n - k, n], 0, n))
+        minor = rng.choice(cand, size=S)
+        c[s, p, xyz[:, 0]] = n - minor
+        c[s, p, xyz[:, 1]] += minor
+    third = s[(s % 6 == 3) & (c[s, 0, xyz[:, 0]] > 0)]
+    c[third, 0, xyz[third, 0]] -= 1
+    c[third, 0, xyz[third, 2]] += 1
+    c[s % 6 == 4, P - 1, 0] += 1
+    return c
+
+
+def sfs_int32_extremes(n_hap, S: int) -> np.ndarray:
+    """int64 [S, P, 4] of int32 counts: passing sites with negative counts
+    ([n + m, -m, 0, 0]: bin 0; [n - a + m, a, -m, 0], a below half: the
+    a's bin), failing ones (three alleles through a -m, m pair), sites
+    whose population sums pass 2^31 (and wrap to n_hap in 32 bits) and
+    passing sites whose totals pass 2^31 ([2^30 + n, -2^30, 0, 0])."""
+    P = len(n_hap)
+    c = np.zeros((S, P, 4), np.int64)
+    big = (1 << 31) - 1
+    for j in range(S):
+        kind, m = j % 5, 1 + j % 7
+        for p, n in enumerate(n_hap):
+            a = (j // 5) % (n // 2) if n >= 2 else 0
+            c[j, p] = {0: [n + m, -m, 0, 0],
+                       1: [n - a + m, a, -m, 0],
+                       2: [n - 1, 1, -m, m],
+                       3: [big, big, n + 2, 0],
+                       4: [(1 << 30) + n, -(1 << 30), 0, 0]}[kind]
+    return c
+
+
+def k15_edge_parity(counts, dev) -> int:
+    """K15 exactly against its plain version at the edges of its tile,
+    corner and arithmetic: uint16 and int32; P = 1, 2, 3 and 5, with an
+    n_hap of 0 in a population; S = 1, 1,023 and 5,003 (the tile is
+    1,024 sites); views 1 site and 1..3 elements past the tensor's start
+    (off a 16-byte boundary); every site monomorphic; every site in one
+    bin outside the corner; minor counts on both sides of the corner's
+    edge; int32 counts negative and summing past 2^31; and 300 sites in
+    46,341^2 and 40,001 x 53,688 bins (both past 2^31 - 1; in the second,
+    150 sites bin past it), held as the non-zero bins and their counts
+    against the plain version's flat bins."""
+    import torch
+    rng = np.random.default_rng(16)
+    n_checks = 0
+
+    def hold(name, ct, n_hap):
+        nonlocal n_checks
+        check_equal(f"global_sfs_hist {name}", counts.global_sfs_hist(
+            ct, n_hap), counts.global_sfs_hist_plain(ct, n_hap))
+        n_checks += 1
+
+    def shifted(ct, off):
+        buf = torch.zeros(ct.numel() + off, dtype=ct.dtype, device=dev)
+        v = buf[off:].view(ct.shape)
+        v.copy_(ct)
+        return v
+    for n_hap in ([2000], [1000, 0], [128, 0, 64], [10, 20, 0, 30, 8]):
+        for S in (1, 1023, 5003):
+            c = sfs_edge_counts(counts, rng, n_hap, S)
+            for dt in (torch.uint16, torch.int32):
+                ct = torch.from_numpy(c).to(dev, dt)
+                name = f"P={len(n_hap)} n_hap={n_hap} S={S} {dt}"
+                hold(name, ct, n_hap)
+                if S > 1:
+                    hold(name + " [1:]", ct[1:], n_hap)
+                for off in (1, 2, 3):
+                    hold(f"{name} {off} elements in", shifted(ct, off), n_hap)
+    n_hap = [128, 0, 64]
+    S = 5003
+    mono = np.zeros((S, 3, 4), np.int64)
+    mono[:, :, 2] = n_hap
+    # pop 0 splits 100 / 28: the target (y) counts (28, 0, 0), past k
+    one = np.zeros((S, 3, 4), np.int64)
+    one[:, 0, :2] = (100, 28)
+    one[:, 2, 0] = 64
+    if 28 < counts.sfs_corner(n_hap, counts._K15_CORNER_BYTES)[0]:
+        raise AssertionError("the one-bin case should lie outside the corner")
+    for name, c in (("all monomorphic", mono), ("all in one bin", one),
+                    ("int32 extremes", sfs_int32_extremes(n_hap, S))):
+        for dt in ((torch.int32,) if name == "int32 extremes" else
+                   (torch.uint16, torch.int32)):
+            ct = torch.from_numpy(c).to(dev, dt)
+            hold(f"{name} {dt}", ct, n_hap)
+            hold(f"{name} {dt} [1:]", ct[1:], n_hap)
+    want_pass = {"all monomorphic": S, "all in one bin": S}
+    for name, c in (("all monomorphic", mono), ("all in one bin", one)):
+        got = int(counts.global_sfs_hist(torch.from_numpy(c).to(
+            dev, torch.uint16), n_hap).sum())
+        if got != want_pass[name]:
+            raise AssertionError(f"global_sfs_hist {name}: {got} binned")
+    # more than 2^31 - 1 bins: the 64-bit index path on uint16 and int32.
+    # A passing site's target is its minor allele, so at n_hap = (46340,
+    # 46340) no bin past 2^31 - 1 is reachable; at (40000, 53687) a site
+    # with all 40,000 of population 0 on its minor allele lands past it
+    for n_hap, far in (([46340, 46340], 0), ([40000, 53687], 150)):
+        c = sfs_edge_counts(counts, rng, n_hap, 300)
+        c[:far] = 0
+        c[:far, 0, 1] = n_hap[0]
+        t1 = rng.integers(0, 6844, size=far)
+        c[:far, 1, 0], c[:far, 1, 1] = n_hap[1] - t1, t1
+        for dt in (torch.uint16, torch.int32):
+            ct = torch.from_numpy(c).to(dev, dt)
+            hist = counts.global_sfs_hist(ct, n_hap)
+            if hist.numel() <= (1 << 31) - 1:
+                raise AssertionError("the wide case should pass 2^31 - 1 "
+                                     "bins")
+            idx = torch.nonzero(hist).reshape(-1)
+            got = torch.stack([idx, hist[idx].to(torch.int64)])
+            del hist
+            flat, n = torch.unique(counts.global_sfs_bins_plain(ct, n_hap),
+                                   return_counts=True)
+            check_equal(f"global_sfs_hist n_hap={n_hap} {dt} (non-zero "
+                        "bins)", got, torch.stack([flat, n]))
+            if far and int((flat > (1 << 31) - 1).sum()) == 0:
+                raise AssertionError("no site binned past 2^31 - 1")
+            n_checks += 1
+            del got, idx
+            torch.cuda.empty_cache()
+    return n_checks
+
+
+def k15_each_card(counts) -> int:
+    """K15 exactly against its plain version on every visible card, in
+    turn: int32 counts of three populations of 128 haplotypes (a tile of
+    1,024 sites then takes 48 KB of shared memory, past the 48 KB a
+    kernel gets without raising its limit, which is a card's own) and
+    uint16.  Returns the cards checked."""
+    import torch
+    rng = np.random.default_rng(18)
+    n_hap = [128, 128, 128]
+    c = sfs_edge_counts(counts, rng, n_hap, 5003)
+    n = torch.cuda.device_count()
+    for d in range(n):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(dev):
+            for dt in (torch.int32, torch.uint16):
+                ct = torch.from_numpy(c).to(dev, dt)
+                check_equal(f"global_sfs_hist on {dev} {dt}",
+                            counts.global_sfs_hist(ct, n_hap),
+                            counts.global_sfs_hist_plain(ct, n_hap))
+    return n
+
+
+def k5_edge_parity(pair, dev) -> int:
+    """K5 exactly against its plain version: one individual, a haploid
+    row pair (r1 == r2), rows 0 and H - 1 (both orders), one window, 7
+    and 128 windows, into a view of a larger output (as a flush's chunk
+    writes), at H = 1, 77 and 512."""
+    import torch
+    rng = np.random.default_rng(17)
+    n_checks = 0
+    for H in (1, 77, 512):
+        for nwin in (1, 7, 128):
+            m = torch.from_numpy(rng.integers(0, 1 << 20, size=(
+                nwin, H, H), dtype=np.int32)).to(dev)
+            s = torch.from_numpy(rng.integers(0, 1 << 20, size=(
+                nwin, H, H), dtype=np.int32)).to(dev)
+            pairs = {"one individual": [(0, min(1, H - 1))],
+                     "haploid": [(H // 2, H // 2)],
+                     "rows 0 and H - 1": [(0, H - 1), (H - 1, 0)],
+                     "all diploid": [(2 * k, 2 * k + 1)
+                                     for k in range(H // 2)] or [(0, 0)]}
+            for name, rows in pairs.items():
+                r1, r2 = (torch.tensor(x, dtype=torch.int32, device=dev)
+                          for x in zip(*rows))
+                flat = torch.full((nwin + 3, len(rows), 2), -1.0,
+                                  dtype=torch.float64, device=dev)
+                pair.het_pairs(m, s, r1, r2, flat[3:])
+                check_equal(f"het_pairs H={H} nwin={nwin} {name}",
+                            flat[3:], pair.het_pairs_plain(m, s, r1, r2))
+                n_checks += 1
+    return n_checks
+
+
 def step_past_grid(pair, ws, dev) -> dict:
     """window_stats_step over STEP_WINDOWS windows (more than the 65,535 a
     K9 or K11 launch takes, which K9 refuses): its K9, K10 and K11
@@ -2609,24 +2822,22 @@ def sfs_full_width(counts, pmesh, mesh, geno, pops, dev) -> dict:
                                  .reshape(-1)), hist)
     binned = int(hist.sum())
     # the passing sites' flat bin indices, as the plain version makes them
-    cl = c.to(torch.int64)
-    total = cl.sum(dim=1)
-    nh = torch.from_numpy(n_hap).to(dev)
-    ok = (cl.sum(dim=2) == nh).all(dim=1) & ((total > 0).sum(dim=1) <= 2)
-    tgt = torch.gather(cl, 2, torch.argsort(total, dim=1, stable=True)[
-        :, 2, None, None].expand(-1, cl.shape[1], 1))[:, :, 0]
-    dims = counts.sfs_dims(n_hap)
-    stride = torch.tensor([int(np.prod(dims[p + 1:])) for p in
-                           range(len(dims))], device=dev)
-    flat = (tgt * stride).sum(dim=1)[ok]
-    nbins = int(np.prod(dims))
+    flat = counts.global_sfs_bins_plain(c, n_hap)
+    nbins = hist.numel()
     check_equal("torch.bincount yardstick vs K15",
                 torch.bincount(flat, minlength=nbins), hist)
-    del cl, total, tgt
+    zeros = lambda: torch.zeros(nbins, dtype=torch.int32,  # noqa: E731
+                                device=dev)
+    k15_call = lambda: counts.global_sfs_hist(c, n_hap)  # noqa: E731
+    # the wrapper's call in a graph (its torch.zeros, then K15) and the
+    # zeroing alone, in turns
+    graphs = {k15_call: [], zeros: []}
+    for fn in (k15_call, zeros, zeros, k15_call):
+        graphs[fn].append(graph_ms(fn, 20))
     k15 = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: counts.global_sfs_hist(c, n_hap), 20),
-           "graph_ms": graph_ms(lambda: counts.global_sfs_hist(c, n_hap),
-                                20),
+           "ms": cuda_ms(k15_call, 20),
+           "graph_ms": min(graphs[k15_call]),
+           "memset_graph_ms": min(graphs[zeros]),
            "plain_ms": cuda_ms(lambda: counts.global_sfs_hist_plain(
                c, n_hap), 3, 1),
            "library_ms": cuda_ms(lambda: torch.bincount(
@@ -2662,6 +2873,12 @@ def sfs_full_width(counts, pmesh, mesh, geno, pops, dev) -> dict:
     log(f"[kernel] global_sfs_hist at full width ({k15['shape']}): K15 == "
         f"plain == {MESH_SHARDS} shards + K16 (== plain) == "
         f"sharded_global_sfs on {mesh} == torch.bincount")
+    log(f"[kernel] global_sfs_hist at full width: a call {k15['ms']:.4f} "
+        f"ms, in a CUDA graph {k15['graph_ms']:.4f} (readings "
+        f"{graphs[k15_call]}), of which its histogram's torch.zeros "
+        f"{k15['memset_graph_ms']:.4f} (readings {graphs[zeros]}); "
+        f"torch.bincount {k15['library_ms']:.4f}; bound "
+        f"{k15['bound'][0]:.4f} ms ({k15['bound'][1]})")
     log(f"[kernel] stacked_reduce at {k16['shape']}: K16 {k16['ms']:.4f} ms "
         f"(readings {calls[k16_call]}; "
         f"{k16['graph_ms']:.4f} ms in a CUDA graph, "
@@ -4422,6 +4639,23 @@ def main() -> int:
     log("[parity] K15 on tie-built counts (8/8, 9/7, monomorphic, 3-allele, "
         "incomplete; uint16 and int32) == plain; K16 sum / min (int64 beyond "
         "2^31, int32; k = 1, 2, 5) == torch.sum / torch.amin")
+    t_edge = time.perf_counter()
+    n_k15 = k15_edge_parity(counts, dev)
+    log(f"[parity] K15 edges in {time.perf_counter() - t_edge:.1f}s ({n_k15} "
+        "comparisons: uint16 and int32; P = 1, 2, 3, 5 with an n_hap of 0; "
+        "S = 1, 1,023, 5,003; views 1 site and 1..3 elements in; all "
+        "monomorphic; all in one bin outside the corner; minor counts on "
+        "both sides of the corner's edge; int32 counts negative and summing "
+        "past 2^31; 46,341^2 and 40,001 x 53,688 bins, sites binned past "
+        "2^31 - 1) == plain")
+    if torch.cuda.device_count() > 1:
+        n_cards = k15_each_card(counts)
+        log(f"[parity] K15 on each of {n_cards} cards (int32 and uint16, "
+            "3 x 128 haplotypes) == plain")
+    n_k5 = k5_edge_parity(pair, dev)
+    log(f"[parity] K5 edges ({n_k5} comparisons: H = 1, 77, 512; 1, 7 and "
+        "128 windows; one individual, a haploid pair, rows 0 and H - 1, "
+        "every diploid; into a view of a larger output) == plain")
     step = step_past_grid(pair, ws, dev)
     log(f"[parity] window_stats_step over {STEP_WINDOWS} windows (H="
         f"{STEP_H}): K9 alone refuses them; the step launches {step} and "

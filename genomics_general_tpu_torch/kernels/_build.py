@@ -36,13 +36,15 @@ _SIGNATURES = {
                             _P],
         "ggt_tri_pack": [_P, _P, _I, _I, _I, _P, _P],
         "ggt_het_pairs": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+        "ggt_launch_probe": [_L, _P],
     },
     "counts": {
         "ggt_site_pop_counts": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P,
                                 _P],
         "ggt_site_pop_counts_raw": [_P, _L, _I, _I, _P, _P, _I, _I, _I, _P,
                                     _P],
-        "ggt_global_sfs_hist": [_P, _I, _I, _I, _P, _L, _P, _P],
+        "ggt_global_sfs_hist": [_P, _I, _I, _I, _I, _P, _I, _L, _I, _P,
+                                _P],
         "ggt_stacked_reduce": [_P, _I, _I, _L, _I, _P, _P],
         "ggt_site_nonmissing": [_P, _L, _I, _P, _P, _I, _P, _I, _I, _P,
                                 _P],

@@ -36,6 +36,8 @@ masks, numpy above that.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -207,6 +209,59 @@ def sfs_dims(n_hap) -> tuple[int, ...]:
     return tuple(int(n) + 1 for n in n_hap)
 
 
+# K15's launch (counts.cu; 256 threads a block): sites a tile staged in
+# shared memory, blocks an SM, and the bytes of each block's private
+# histogram of the low corner (the bins where every population's target
+# count is at most k).  On the H100 at full width (3 x 128 haplotypes;
+# kernel_ab.py --sweep) 2 and 4 KB corners tied, and 16 KB (k = 15) cost
+# more in its zeroing and flush than it saved: a block sees few sites of
+# any bin but the hottest, so its flush made nearly one atomic a site it
+# held.
+_K15_TILE = 1024
+_K15_BLOCKS_PER_SM = 8
+_K15_CORNER_BYTES = 2 << 10
+# the most bytes of a tile (fewer sites a tile when a site is wide), and
+# the most populations K15 takes (its shared memory holds their constants
+# and at least one site)
+_K15_TILE_BYTES = 64 << 10
+_K15_MAX_POPS = 2048
+
+
+def sfs_corner(n_hap, corner_bytes: int) -> np.ndarray:
+    """The radices of K15's corner: ``min(k + 1, n_hap[p] + 1)`` a
+    population for the largest k whose corner of int32 entries fits
+    ``corner_bytes`` (0 everywhere, no corner, when a population has a
+    negative ``n_hap``)."""
+    n = np.asarray(n_hap, dtype=np.int64).reshape(-1)
+    if n.size == 0 or n.min() < 0:
+        return np.zeros(n.size, np.int64)
+    cap = max(corner_bytes // 4, 1)
+    lo, hi = 0, int(n.max())
+    while lo < hi:                       # the largest k that fits
+        k = (lo + hi + 1) // 2
+        if math.prod(np.minimum(k + 1, n + 1).tolist()) <= cap:
+            lo = k
+        else:
+            hi = k - 1
+    return np.minimum(lo + 1, n + 1)
+
+
+def _sfs_pop_consts(n_hap: np.ndarray, corner_bytes: int,
+                    device: torch.device):
+    """K15's int64 [4, P] (each population's bin stride, n_hap, corner
+    radix and corner stride) on ``device`` and the corner's entries,
+    built once per (n_hap, corner budget)."""
+    def build(_):
+        dims = sfs_dims(n_hap)
+        cdim = sfs_corner(n_hap, corner_bytes).tolist()
+        stride = [math.prod(dims[p + 1:]) for p in range(len(dims))]
+        cstride = [math.prod(cdim[p + 1:]) for p in range(len(dims))]
+        pop = np.array([stride, n_hap, cdim, cstride], np.int64)
+        return torch.from_numpy(pop).to(device), math.prod(cdim)
+    key = np.append(np.asarray(n_hap, np.int64), corner_bytes)
+    return _run_const("sfs", key, device, build)
+
+
 def global_sfs_hist(counts: torch.Tensor, n_hap) -> torch.Tensor:
     """The dense folded joint SFS of one shard's sites as int32
     [prod(n_hap + 1)] (row-major, population 0 most significant), from
@@ -225,23 +280,40 @@ def global_sfs_hist(counts: torch.Tensor, n_hap) -> torch.Tensor:
     if counts.dtype not in (torch.uint16, torch.int32):
         raise ValueError("counts must be uint16 or int32")
     _check_cuda(counts)
-    nbins = int(np.prod(sfs_dims(n_hap)))
-    hist = torch.zeros(nbins, dtype=torch.int32, device=counts.device)
     S, P, _ = counts.shape
+    if P > _K15_MAX_POPS:
+        raise ValueError(f"global_sfs_hist takes at most {_K15_MAX_POPS} "
+                         "populations")
+    nbins = math.prod(sfs_dims(n_hap))
+    hist = torch.zeros(nbins, dtype=torch.int32, device=counts.device)
     if S == 0:
         return hist
-    nh = _run_const("n_hap", n_hap, counts.device,
-                    lambda a: torch.from_numpy(a.copy()).to(counts.device))
+    pop, ncorner = _sfs_pop_consts(n_hap, _K15_CORNER_BYTES, counts.device)
+    site_bytes = 4 * P * counts.element_size()
+    tile = max(1, min(_K15_TILE, _K15_TILE_BYTES // site_bytes))
+    blocks = min(-(-S // tile), _K15_BLOCKS_PER_SM * _sm_count(counts.device))
     _ggt_global_sfs_hist(
-        counts.data_ptr(), int(counts.dtype == torch.uint16), S, P,
-        nh.data_ptr(), nbins, hist.data_ptr(), _stream_ptr(hist))
+        counts.data_ptr(), int(counts.dtype == torch.uint16), S, P, tile,
+        pop.data_ptr(), ncorner, nbins, blocks, hist.data_ptr(),
+        _stream_ptr(hist))
     LAUNCHES["global_sfs_hist"] += 1
     return hist
 
 
 def global_sfs_hist_plain(counts: torch.Tensor, n_hap) -> torch.Tensor:
-    """Plain PyTorch K15, the JAX form: the gate, a stable argsort of the
-    totals, the target's counts as a flat index, a scatter-add."""
+    """Plain PyTorch K15, the JAX form: the passing sites' flat bins
+    (:func:`global_sfs_bins_plain`) scatter-added into a dense histogram."""
+    flat = global_sfs_bins_plain(counts, n_hap)
+    hist = torch.zeros(math.prod(sfs_dims(n_hap)), dtype=torch.int64,
+                       device=flat.device)
+    hist.index_add_(0, flat, torch.ones_like(flat))
+    return hist.to(torch.int32)
+
+
+def global_sfs_bins_plain(counts: torch.Tensor, n_hap) -> torch.Tensor:
+    """The flat int64 bin of each site that passes K15's gate, in site
+    order: a stable argsort of the totals, the target's counts as a flat
+    index (int64, wrapping as it does)."""
     c = counts.to(torch.int64)
     nh = torch.as_tensor(np.asarray(n_hap, np.int64), device=c.device)
     complete = (c.sum(dim=2) == nh[None, :]).all(dim=1)
@@ -257,9 +329,7 @@ def global_sfs_hist_plain(counts: torch.Tensor, n_hap) -> torch.Tensor:
     for p in range(len(dims) - 1, -1, -1):
         flat += tgt[:, p] * stride
         stride *= dims[p]
-    hist = torch.zeros(stride, dtype=torch.int64, device=c.device)
-    hist.index_add_(0, flat[ok], torch.ones_like(flat[ok]))
-    return hist.to(torch.int32)
+    return flat[ok]
 
 
 # ------------------------------------------- K16 the stacked reduction

@@ -301,48 +301,186 @@ site_pop_counts_raw_kernel(const int8_t* __restrict__ alleles,
 //   stride_p, row-major with population 0 most significant.
 //
 // Bound: bytes — the [S, P, 4] counts read once and the histogram written
-// once, against a few integer operations a site.  Design: one thread per
-// site, the totals and the stable rank in registers, one int32 atomicAdd
-// into the zeroed histogram per passing site (exact in any order).
+// once (its zeroing, by the wrapper), against a few integer operations a
+// site.  What bounds it on the H100 is atomics (k15_breakdown.py): every
+// monomorphic site lands in bin 0 (the third zero total is the target),
+// 4.7 % of the cohort's sites, serialised on one address; and the other
+// sites scatter (31.2 distinct bins in 32 consecutive sites), one L2
+// atomic each, which alone take longer than the bytes (the 455,188 sites
+// outside the corner take 0.0146 ms, the reads 0.0033).  Design:
+// - a grid of a few blocks an SM walks tiles of `tile` sites; a tile's
+//   counts are one contiguous run, read as 16-byte vectors into shared
+//   memory at the same offset mod 16 as in device memory (so a view off a
+//   16-byte boundary, c[1:], reads a scalar head and tail), and each
+//   thread takes its sites from there;
+// - 64-bit arithmetic, wrapping as the int64 plain version does (int32
+//   counts may be negative or sum past 2^31; a histogram may pass 2^31
+//   bins);
+// - the low corner (every population's target count below cdim[p], the
+//   wrapper's choice within a byte budget) is each block's private int32
+//   histogram in shared memory: bin 0 and the lowest bins add there, and
+//   the block flushes each non-zero corner entry with one global atomic
+//   at its end (a large corner loses: a block holds few sites of any but
+//   the hottest bins, so its flush costs about an atomic a site);
+// - every passing site first joins its warp's lanes with the same bin
+//   (__match_any_sync) and the group's first lane adds the group's size,
+//   shared or global: a run of one bin outside the corner (a file of
+//   fixed differences) costs an atomic a warp, not a site.
+// Exact in any order: integer adds.  The populations' strides, n_hap and
+// corner radices (the wrapper's int64 [4, P]) sit in shared memory.
+__host__ __device__ constexpr long long align16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+// K15's dynamic shared memory: the corner's int32 entries, the
+// populations' constants, then the tile (16 bytes of slack for its
+// offset mod 16).
+template <typename T>
+__host__ __device__ constexpr long long sfs_smem_bytes(int P, int ncorner,
+                                                       int tile) {
+  return align16(4LL * ncorner) + align16(24LL * P)
+         + align16(4LL * P * tile * (long long)sizeof(T)) + 16;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-global_sfs_hist_kernel(const T* __restrict__ counts, int S, int P,
-                       const int32_t* __restrict__ n_hap, long long nbins,
-                       int32_t* __restrict__ hist) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
-  const T* c = counts + (size_t)s * P * 4;
-  long long tot[4] = {0, 0, 0, 0};
-  for (int p = 0; p < P; ++p) {
-    long long sum = 0;
+global_sfs_hist_kernel(const T* __restrict__ counts, int S, int P, int tile,
+                       const long long* __restrict__ pop, int ncorner,
+                       long long nbins, int32_t* __restrict__ hist) {
+  constexpr int V = 16 / sizeof(T);            // elements a 16-byte vector
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* corner = reinterpret_cast<int32_t*>(smem);
+  unsigned long long* stride =
+      reinterpret_cast<unsigned long long*>(smem + align16(4LL * ncorner));
+  long long* nh = reinterpret_cast<long long*>(stride + P);
+  int* cdim = reinterpret_cast<int*>(nh + P);
+  int* cstride = cdim + P;
+  T* stage = reinterpret_cast<T*>(smem + align16(4LL * ncorner) +
+                                  align16(24LL * P));
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    stride[p] = (unsigned long long)pop[p];
+    nh[p] = pop[P + p];
+    cdim[p] = (int)pop[2 * P + p];
+    cstride[p] = (int)pop[3 * P + p];
+  }
+  for (int i = threadIdx.x; i < ncorner; i += kThreads) corner[i] = 0;
+
+  const int lane = threadIdx.x & 31;
+  const long long per = 4LL * P;               // elements a site
+  const int m0 = (int)(((uintptr_t)counts / sizeof(T)) % V);
+  const int ntiles = (S + tile - 1) / tile;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int s0 = t * tile;
+    const int ns = min(tile, S - s0);
+    const long long e0 = s0 * per;
+    const long long e1 = e0 + ns * per;
+    // element e sits at stage[e - e0 + r]: the same offset mod 16 as in
+    // device memory, so [ea, eb) moves as aligned vectors
+    const int r = (int)((m0 + e0) % V);
+    const long long ea = min(e1, e0 + (V - r) % V);
+    const long long eb = max(ea, e1 - (m0 + e1) % V);
+    __syncthreads();                           // the last tile is read
+    const uint4* src = reinterpret_cast<const uint4*>(counts + ea);
+    uint4* dst = reinterpret_cast<uint4*>(stage + (ea - e0 + r));
+    const int nv = (int)((eb - ea) / V);
+    for (int i = threadIdx.x; i < nv; i += kThreads)
+      dst[i] = __ldcs(src + i);
+    if (threadIdx.x < ea - e0)
+      stage[r + threadIdx.x] = counts[e0 + threadIdx.x];
+    if (threadIdx.x < e1 - eb)
+      stage[eb - e0 + r + threadIdx.x] = counts[eb + threadIdx.x];
+    __syncthreads();
+    // every lane runs every step, so the warp's vote and match see it
+    for (int j0 = 0; j0 < ns; j0 += kThreads) {
+      const int j = j0 + threadIdx.x;
+      const T* c = stage + r + (j < ns ? j : 0) * per;
+      long long tot[4] = {0, 0, 0, 0};
+      bool ok = j < ns;
+      for (int p = 0; p < P; ++p) {
+        long long sum = 0;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const long long v = c[4 * p + a];
-      sum += v;
-      tot[a] += v;
+        for (int a = 0; a < 4; ++a) {
+          const long long v = c[4 * p + a];
+          sum += v;
+          tot[a] += v;
+        }
+        ok &= sum == nh[p];
+      }
+      const int n_alleles = (tot[0] > 0) + (tot[1] > 0) + (tot[2] > 0) +
+                            (tot[3] > 0);
+      ok &= n_alleles >= 1 && n_alleles <= 2;
+      int target = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int rank = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          rank += tot[k] < tot[i] || (k < i && tot[k] == tot[i]);
+        if (rank == 2) target = i;
+      }
+      unsigned long long idx = 0;
+      unsigned ci = 0;
+      bool in_corner = true;
+      for (int p = 0; p < P; ++p) {
+        const long long x = c[4 * p + target];
+        idx += (unsigned long long)x * stride[p];
+        in_corner &= x >= 0 && x < cdim[p];
+        ci += (unsigned)x * (unsigned)cstride[p];
+      }
+      const unsigned want = __ballot_sync(0xffffffffu, ok);
+      if (ok) {
+        const unsigned grp = __match_any_sync(want, idx);
+        if (lane == __ffs(grp) - 1) {
+          if (in_corner)
+            atomicAdd(&corner[ci], __popc(grp));
+          else if ((long long)idx >= 0 && (long long)idx < nbins)
+            atomicAdd(&hist[idx], __popc(grp));
+        }
+      }
     }
-    if (sum != n_hap[p]) return;
   }
-  int n_alleles = 0;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) n_alleles += tot[a] > 0;
-  if (n_alleles < 1 || n_alleles > 2) return;
-  int target = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int rank = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      rank += tot[j] < tot[i] || (j < i && tot[j] == tot[i]);
-    if (rank == 2) target = i;
+  __syncthreads();
+  for (int i = threadIdx.x; i < ncorner; i += kThreads) {
+    const int v = corner[i];
+    if (!v) continue;
+    unsigned q = i;
+    unsigned long long idx = 0;
+    for (int p = P - 1; p >= 0; --p) {
+      const unsigned d = q % (unsigned)cdim[p];
+      q /= (unsigned)cdim[p];
+      idx += (unsigned long long)d * stride[p];
+    }
+    atomicAdd(&hist[idx], v);
   }
-  long long idx = 0;
-  long long stride = 1;
-  for (int p = P - 1; p >= 0; --p) {
-    idx += (long long)c[4 * p + target] * stride;
-    stride *= n_hap[p] + 1;
+}
+
+// The shared-memory limit is raised once per device (the attribute is a
+// device's) to the device's opt-in limit.
+template <typename T>
+int launch_global_sfs(const void* counts, int S, int P, int tile,
+                      const void* pop, int ncorner, long long nbins,
+                      int blocks, void* hist, cudaStream_t stream) {
+  static bool raised[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int limit = 0;
+  e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !raised[dev]) {
+    e = cudaFuncSetAttribute(global_sfs_hist_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             limit);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) raised[dev] = true;
   }
-  if (idx >= 0 && idx < nbins) atomicAdd(&hist[idx], 1);
+  const long long smem = sfs_smem_bytes<T>(P, ncorner, tile);
+  if (smem > limit) return (int)cudaErrorInvalidValue;
+  global_sfs_hist_kernel<T><<<blocks, kThreads, (size_t)smem, stream>>>(
+      (const T*)counts, S, P, tile, (const long long*)pop, ncorner, nbins,
+      (int32_t*)hist);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K16
@@ -603,24 +741,19 @@ int ggt_site_pop_counts_raw(const void* alleles, long long row_stride,
                             stream);
 }
 
-// counts: [S, P, 4], uint16 when u16 != 0, else int32; n_hap: int32 [P];
-// hist: int32 [nbins], zeroed by the caller.
-int ggt_global_sfs_hist(const void* counts, int u16, int S, int P,
-                        const void* n_hap, long long nbins, void* hist,
-                        void* stream) {
-  const unsigned blocks = (unsigned)((S + kThreads - 1) / kThreads);
-  if (u16) {
-    global_sfs_hist_kernel<uint16_t><<<blocks, kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-        (const uint16_t*)counts, S, P, (const int32_t*)n_hap, nbins,
-        (int32_t*)hist);
-  } else {
-    global_sfs_hist_kernel<int32_t><<<blocks, kThreads, 0,
-                                      (cudaStream_t)stream>>>(
-        (const int32_t*)counts, S, P, (const int32_t*)n_hap, nbins,
-        (int32_t*)hist);
-  }
-  return (int)cudaGetLastError();
+// counts: [S, P, 4], uint16 when u16 != 0, else int32; pop: int64 [4,
+// P], each population's stride, n_hap, corner radix and corner stride;
+// ncorner: the corner's entries (the product of the radices); tile: sites
+// a tile; hist: int32 [nbins], zeroed by the caller.
+int ggt_global_sfs_hist(const void* counts, int u16, int S, int P, int tile,
+                        const void* pop, int ncorner, long long nbins,
+                        int blocks, void* hist, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (u16)
+    return launch_global_sfs<uint16_t>(counts, S, P, tile, pop, ncorner,
+                                       nbins, blocks, hist, st);
+  return launch_global_sfs<int32_t>(counts, S, P, tile, pop, ncorner, nbins,
+                                    blocks, hist, st);
 }
 
 // x: [k, n] (k >= 1), int64 when is64 != 0, else int32; out: [n] of the

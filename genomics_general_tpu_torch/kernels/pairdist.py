@@ -507,6 +507,9 @@ def het_pairs(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
     ``_modes_tail`` ``blocks_het`` mode."""
     nwin, h, _ = m.shape
     n_ind = r1.shape[0]
+    if m.dtype != torch.int32 or s.dtype != torch.int32 or \
+            s.shape != m.shape:
+        raise ValueError("m and s must be int32 of one shape [nwin, h, h]")
     if out.shape != (nwin, n_ind, 2) or out.dtype != torch.float64:
         raise ValueError(f"out must be float64 {(nwin, n_ind, 2)}")
     if not m.is_cuda:
@@ -521,6 +524,17 @@ def het_pairs(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,
         m.data_ptr(), s.data_ptr(), r1.data_ptr(), r2.data_ptr(), h, n_ind,
         nwin, out.data_ptr(), _stream_ptr(m))
     LAUNCHES["het_pairs"] += 1
+
+
+def launch_probe(n: int, device: torch.device) -> None:
+    """Launch the zero-work probe kernel with K5's grid and block for
+    ``n`` (window, individual) cells: a measurement of the launch floor a
+    short kernel cannot go below, not a kernel of the port (no launch
+    count, and no entry point of its own: it resolves through the
+    library on every call)."""
+    _build.check(_build.lib("pair_v3").ggt_launch_probe(n, _raw_stream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())), "launch_probe")
 
 
 def het_pairs_plain(m: torch.Tensor, s: torch.Tensor, r1: torch.Tensor,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2, K3, K6, K7, K8, K9, K10, K11, K12, K13, K14,
-K16, K17, K18 and K20 kernels of two checkouts on one NVIDIA GPU, in one
-process, on the same inputs:
+"""Time the port's K1, K2, K3, K5, K6, K7, K8, K9, K10, K11, K12, K13,
+K14, K15, K16, K17, K18 and K20 kernels of two checkouts on one NVIDIA
+GPU, in one process, on the same inputs:
 
     python3 kernel_ab.py --base DIR [--only TEXT ...] [--sweep] [--out FILE]
 
@@ -25,6 +25,8 @@ its output allocation), on inputs made here from a seed at the shapes of
 * K3 ``blocks_tail``: 128 windows of counts on popDist's mask (4 groups
   of 128 rows) and on run B's individual mask (256 groups of 2), min
   sites 100;
+* K5 ``het_pairs``: run B's first chunk, int32 m and s [128, 512, 512]
+  made from a seed, rows (2k, 2k + 1) of 256 individuals;
 * K6 ``site_pop_counts``: the span wire of run A's largest span (32,647
   sites) on its 4 populations of 128 rows;
 * K7 ``abba_site_terms``: run C's largest flush (274,671 sites, the
@@ -46,6 +48,9 @@ its output allocation), on inputs made here from a seed at the shapes of
   through the bucket-padded upload's stride), with the 256 individuals in
   9 populations as 9 classes and with all 512 rows as one class;
 * K14 ``pair_counts_4state_rows``: rows 0..255 of run A's flush;
+* K15 ``global_sfs_hist``: uint16 counts [500,000, 3, 4] of three
+  complete populations of 128 haplotypes made from a seed: K7's U-shaped
+  frequencies, 1 % of sites with a third allele (129^3 bins);
 * K16 ``stacked_reduce``: the sum of a [2, 2,146,689] int32 stack (the dry
   run's SFS merge of two shards' 129^3 bins);
 * K17 ``pair_allele_tables``: run P's first window (596 sites) and 2,048
@@ -63,9 +68,11 @@ exactly; K8's float64 sums, likewise, within rtol 1e-12 of each window's
 sum of |terms| with NaN positions equal; K10's float32 means, summed by
 class pairs where earlier checkouts summed pair lists, within rtol 1e-5 /
 atol 1e-6 with NaN positions equal, the cells not bit-equal counted).
-``--sweep`` also times the head's K11 at other rows a block and its K8 at
-other warps a window (the wrappers' ``_K11_ROWS`` and ``_K8_WARPS``), in
-a CUDA graph, each variant's outputs held to the default's as above.
+``--sweep`` also times the head's K11 at other rows a block, its K8 at
+other warps a window and its K15 at other corner budgets, tiles and
+blocks an SM (the wrappers' ``_K11_ROWS``, ``_K8_WARPS``,
+``_K15_CORNER_BYTES``, ``_K15_TILE`` and ``_K15_BLOCKS_PER_SM``), in a
+CUDA graph, each variant's outputs held to the default's as above.
 Times are CUDA events over repeated warm calls of each wrapper, taken
 base, head, head, base: once as the calls come (host launch overhead
 included, which sets the pace of a kernel shorter than it) and once with
@@ -103,6 +110,11 @@ S_G, W_G, N_G = 80_000, 128, 625  # run G: the entry() step's batch
 D_STEP = 312                      # run D: -w 50000 -s 25000 in sites
 K11_ROWS = (16, 32, 64, 128, 256)  # --sweep: K11's rows a block
 K8_WARPS = (1, 2, 4, 8)            # --sweep: K8's warps a window
+K15_CORNER = (4, 1024, 2048, 4096, 16384)  # --sweep: K15's corner bytes
+K15_TILE = (256, 1024)             # --sweep: K15's sites a tile
+K15_BLOCKS = (2, 4, 8)             # --sweep: K15's blocks an SM
+S_SFS = 500_000                    # K15: the dry run's SFS at full width
+W_B = 128                          # run B's first chunk (K5)
 H_POPS = (56,) * 8 + (64,)        # run H: 8 x 28 + 32 individuals, diploid
 S_C, S_D = 274_671, 257_986       # runs C and D: the largest flush's sites
 N_K16 = 129 ** 3                  # the dry run's SFS bins (3 x 128 haps)
@@ -194,15 +206,50 @@ def abba_counts(rng, S: int):
     return c.astype(np.uint16), codes
 
 
-def sweep(port, k8_in, g_in) -> dict:
-    """The head's K11 at each of K11_ROWS rows a block (run G) and its K8
-    at each of K8_WARPS warps a window (runs C and D, also with the L2
-    cold): graph ms each, every variant's outputs held to the default's.
-    Restores the defaults."""
+def sfs_counts(rng, S: int) -> np.ndarray:
+    """uint16 [S, 3, 4] counts of three complete populations of 128
+    haplotypes: per-site frequencies from abba_counts' U-shaped beta
+    drifting a little between populations, alleles 0 and 1, and at 1 % of
+    sites one haplotype of population 0 moved to allele 2."""
+    p = np.clip(rng.beta(0.3, 0.3, size=(S, 1))
+                + rng.normal(0, 0.05, size=(S, 3)), 0, 1)
+    alt = rng.binomial(128, p)
+    c = np.zeros((S, 3, 4), np.int64)
+    c[:, :, 0], c[:, :, 1] = 128 - alt, alt
+    third = np.flatnonzero(rng.random(S) < 0.01)
+    src = np.where(c[third, 0, 0] > 0, 0, 1)
+    c[third, 0, src] -= 1
+    c[third, 0, 2] += 1
+    return c.astype(np.uint16)
+
+
+def sweep(port, k8_in, g_in, sfs_in) -> dict:
+    """The head's K11 at each of K11_ROWS rows a block (run G), its K8 at
+    each of K8_WARPS warps a window (runs C and D, also with the L2 cold)
+    and its K15 at each of K15_CORNER corner bytes, K15_TILE sites a tile
+    and K15_BLOCKS blocks an SM: graph ms each, every variant's outputs
+    held to the default's.  Restores the defaults."""
     import torch
     from chip_smoke import cold_graph_ms
-    ws, abba = port["window_stats"], port["abba"]
-    out = {"K11 run G": {}, "K8 run C flush": {}, "K8 run D flush": {}}
+    ws, abba, counts = port["window_stats"], port["abba"], port["counts"]
+    out = {"K11 run G": {}, "K8 run C flush": {}, "K8 run D flush": {},
+           "K15 full width": {}}
+    base = (counts._K15_CORNER_BYTES, counts._K15_TILE,
+            counts._K15_BLOCKS_PER_SM)
+    want = counts.global_sfs_hist(*sfs_in)
+    for cb in K15_CORNER:
+        for tile in K15_TILE:
+            for bps in K15_BLOCKS:
+                (counts._K15_CORNER_BYTES, counts._K15_TILE,
+                 counts._K15_BLOCKS_PER_SM) = cb, tile, bps
+                call = lambda: counts.global_sfs_hist(*sfs_in)  # noqa: E731
+                same("K15 sweep", call(), want)
+                key = f"{cb} bytes, {tile} sites, {bps} blocks an SM"
+                ms = out["K15 full width"][key] = graph_ms(call, 20)
+                log(f"[sweep] K15 full width, {key}: {ms:.4f} ms in a CUDA "
+                    "graph")
+    (counts._K15_CORNER_BYTES, counts._K15_TILE,
+     counts._K15_BLOCKS_PER_SM) = base
     rows0 = ws._K11_ROWS
     want = ws.window_pop_counts(*g_in)
     for rows in K11_ROWS:
@@ -318,6 +365,14 @@ def main() -> int:
         cc, cd = abba_counts(rng, S)
         k7_in[run] = (torch.from_numpy(cc).to(dev),
                       torch.from_numpy(cd).to(dev), mode, full)
+    c_sfs = torch.from_numpy(sfs_counts(rng, S_SFS)).to(dev)
+    n_hap_sfs = np.array([128, 128, 128])
+    m_b = torch.from_numpy(rng.integers(0, 625, size=(W_B, H, H),
+                                        dtype=np.int32)).to(dev)
+    s_b = torch.from_numpy(rng.integers(0, 625, size=(W_B, H, H),
+                                        dtype=np.int32)).to(dev)
+    r1_b = torch.arange(0, H, 2, dtype=torch.int32, device=dev)
+    r2_b = r1_b + 1
     stack_k16 = torch.from_numpy(rng.integers(
         -(1 << 30), 1 << 30, size=(2, N_K16), dtype=np.int32)).to(dev)
     # K8: the head's K7 terms of runs C and D; run C's windows tile the
@@ -388,6 +443,11 @@ def main() -> int:
                 mt, st, wire_k, 0, index) or (mt, st)
         return lambda: pd.exception_patch(mt, st, wire_k, 0) or (mt, st)
 
+    def k5(port):
+        out = torch.empty((W_B, H // 2, 2), dtype=torch.float64, device=dev)
+        return lambda: port["pairdist"].het_pairs(
+            m_b, s_b, r1_b, r2_b, out) or out
+
     def k3(mask):
         def make(port):
             groups = port["pairdist"].PopGroups(mask, dev)
@@ -412,6 +472,7 @@ def main() -> int:
             k3(np.repeat(np.eye(4), H // 4, axis=1)), 20),
         "K3 popDist chunk, run B individual mask": (
             k3(np.repeat(np.eye(H // 2), 2, axis=1)), 5),
+        "K5 run B flush": (k5, 50),
         "K6 run A span": (k6, 50),
         "K7 run C flush": (k7("C"), 20),
         "K7 run D flush": (k7("D"), 20),
@@ -430,6 +491,9 @@ def main() -> int:
         "K14 run A flush rows 0..255": (
             lambda p: lambda: p["pairdist"].pair_counts_4state_rows(
                 a_a, f_a_t, n_a_t, 0, H // 2, smax_a), 20),
+        "K15 full width": (
+            lambda p: lambda: p["counts"].global_sfs_hist(c_sfs, n_hap_sfs),
+            20),
         "K16 stacked reduce": (
             lambda p: lambda: p["counts"].stacked_reduce(stack_k16, "sum"),
             50),
@@ -476,7 +540,8 @@ def main() -> int:
         del runs
         torch.cuda.empty_cache()
     if args.sweep:
-        report["sweep"] = sweep(ports["head"], k8_in, (a_g, f_g, n_g, pm_k))
+        report["sweep"] = sweep(ports["head"], k8_in, (a_g, f_g, n_g, pm_k),
+                                (c_sfs, n_hap_sfs))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

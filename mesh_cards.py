@@ -14,10 +14,11 @@ with the CLIs' own default (parallel/dispatch.default_mesh(): every card).
 It fails unless that mesh holds every card once, every mesh run writes the
 bytes of the meshless runs, launches exactly its mesh route's kernels, all
 of them inside per-card shard calls with every call launching, and every
-card gets calls and holds memory.  Then entry.dryrun_multichip over every
-card.  It prints each card's name and power limit, each run's walls and
-shard calls per card, and as its last line one JSON object of them.  It
-imports nothing of JAX.
+card gets calls and holds memory.  Then K15 on each card against its
+plain version (chip_smoke.k15_each_card), and entry.dryrun_multichip over
+every card.  It prints each card's name and power limit, each run's walls
+and shard calls per card, and as its last line one JSON object of them.
+It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -168,6 +169,9 @@ def main() -> int:
                               pops, args.sites, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    cs.reset(mods)
+    cs.k15_each_card(counts)
+    cs.log(f"[parity] K15 on each of {n} cards (int32 and uint16) == plain")
     cs.reset(mods)
     t0 = time.perf_counter()
     port_entry.dryrun_multichip(n)
