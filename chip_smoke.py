@@ -144,7 +144,16 @@ not build, launch or agree, or an output is wrong):
    use_device=False; run R: the library entry points no CLI calls, once
    each at full width (K18 over run A's largest count span, K19 over
    65,536 sites, K20 on run A's largest flush), equal to K6, K12 and K9 +
-   K4; run Q: phymlSlidingWindows (builtin NJ, --maxLDphase, one
+   K4; run S: multi-process runs, each of two gloo ranks a child process
+   on the card (GGT_COORDINATOR / GGT_NUM_PROCS=2 / GGT_PROC_ID; one card
+   a rank, CUDA_VISIBLE_DEVICES, where the host has two): popDist from the
+   .geno.gz and from a BGZF copy with its .tbi (K1, K2, K3 on each rank),
+   run C's flags with --jackknife (K6, K7, K8), run I's sfs (K6; int64 sum
+   and min) and run E's distMat cat (K9; the packed sum), each output
+   byte-identical to its one-process run, every rank launching its
+   route's kernels (crc32 gives scaf4 to rank 0 and the rest to rank 1),
+   each rank's wall and card beside the one-process wall; run Q:
+   phymlSlidingWindows (builtin NJ, --maxLDphase, one
    bootstrap, -T 4) on run F's first scaffold and raxmlSlidingWindows on
    run F's cohort, one tree ending in ';' a window;
 2b. parity and times at the runs' largest flushes: each kernel's, its
@@ -198,6 +207,7 @@ error, times and bound; the last line is
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import csv
 import io
@@ -280,6 +290,7 @@ N_SITES_G, WINDOWS_G = 80_000, 128     # run G: the entry() step's batch
 # sites on 4 x 4 Mb (the popDist density) to bound the second cohort's
 # generation
 N_SITES_I, SCAFFOLD_I, MISSING_I = 200_000, 4_000_000, 0.005
+SPECTRA_I = ("pop1", "pop2", "pop3", "pop1_pop2", "pop1_pop3", "pop2_pop3")
 # run J: the popDist cohort's first 4,000 sites — filterGenotypes
 # assembles ~256 output columns per site in Python (~2 ms a site at H = 512)
 N_SITES_J = 4_000
@@ -3713,6 +3724,18 @@ def make_cohort(testing, work: Path, name: str, n_sites: int,
     return geno, pops
 
 
+def make_cohorts(testing, work: Path) -> dict:
+    """Phase 3's four cohorts by name: (geno, pops files)."""
+    return {"cohort": make_cohort(testing, work, "cohort", N_SITES,
+                                  10_000_000),
+            "cohort_b": make_cohort(testing, work, "cohort_b", N_SITES_B,
+                                    2_000_000),
+            "cohort_f": make_cohort(testing, work, "cohort_f", N_SITES_F,
+                                    SCAFFOLD_F),
+            "cohort_i": make_cohort(testing, work, "cohort_i", N_SITES_I,
+                                    SCAFFOLD_I, MISSING_I)}
+
+
 def short(mod) -> str:
     return mod.__name__.rsplit(".", 1)[-1]
 
@@ -3871,6 +3894,181 @@ def traced_child(argv) -> int:
                          for e in top)}))
     return 0
 
+
+# ------------------------------------------------------------ run S
+
+S_SCAFFOLDS = ("scaf1", "scaf2", "scaf3", "scaf4")   # make_cohort's names
+S_TIMEOUT = 300                        # seconds for all ranks of one run
+
+
+def rank_child(argv) -> int:
+    """One rank of run S: CLI ``argv[0]`` with the arguments ``argv[1:]``
+    in this process (its ``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` /
+    ``GGT_PROC_ID`` set by :func:`run_ranks`) on the kernel path, the
+    launch counts reset just before; prints one JSON line: the rank, the
+    process group's size and backend, the CLI's wall, its launches and its
+    card."""
+    import torch
+    import torch.distributed as dist
+    from genomics_general_tpu_torch.kernels import abba, counts, pairdist
+    from genomics_general_tpu_torch.parallel import multihost
+    os.environ["GGT_DEVICE"] = "cuda"
+    mods = (pairdist, counts, abba)
+    reset(mods)
+    wall, _ = run_cli(port_clis()[argv[0]], argv[1:], {"GGT_EXEC": "device"})
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    print(json.dumps({
+        "rank": multihost.process_index(), "n": multihost.process_count(),
+        "backend": dist.get_backend(), "wall_s": wall,
+        "launches": {k: v for k, v in launches_of(mods).items() if v},
+        "card": torch.cuda.get_device_name(),
+        "bus": "{:04x}:{:02x}:{:02x}".format(
+            getattr(props, "pci_domain_id", 0),
+            getattr(props, "pci_bus_id", 0),
+            getattr(props, "pci_device_id", 0)),
+        "visible": os.environ.get("CUDA_VISIBLE_DEVICES", "all")}))
+    return 0
+
+
+def run_ranks(argv, n_ranks: int, logs: Path) -> list[dict]:
+    """The port's CLI ``argv`` as ``n_ranks`` gloo ranks, each a child
+    process (:func:`rank_child`) on the card, or on its own card
+    (``CUDA_VISIBLE_DEVICES``) when the host has one a rank, started and
+    watched by parallel/launch.run_group: every rank still running is
+    killed as soon as one exits non-zero or the ranks outlast S_TIMEOUT.
+    Returns each rank's JSON line, by rank."""
+    import torch
+    from genomics_general_tpu_torch.parallel import launch
+    port = launch.free_port()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else \
+        [str(i) for i in range(torch.cuda.device_count())]
+    envs = []
+    for r in range(n_ranks):
+        env = {**os.environ, "GGT_DEVICE": "cuda",
+               "GGT_COORDINATOR": f"127.0.0.1:{port}",
+               "GGT_NUM_PROCS": str(n_ranks), "GGT_PROC_ID": str(r)}
+        if len(cards) >= n_ranks:
+            env["CUDA_VISIBLE_DEVICES"] = cards[r]
+        envs.append(env)
+    child = [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.rank_child(sys.argv[1:]))", *argv]
+    try:
+        got = launch.run_group([child] * n_ranks, envs, logs, S_TIMEOUT,
+                               cwd=REPO)
+    except RuntimeError as e:
+        raise AssertionError(f"run_S {argv[0]}: {e}") from e
+    return sorted((json.loads(out.strip().splitlines()[-1]) for out, _ in got),
+                  key=lambda g: g["rank"])
+
+
+def s_runs(cohorts: dict, work: Path):
+    """Run S's four CLI runs: (name, CLI, argv writing ``tag``'s files,
+    those files, the route's kernels) a run; the argv and the files are
+    functions of the tag (the argv also of the input)."""
+    geno, pops = cohorts["cohort"]
+    geno_i, pops_i = cohorts["cohort_i"]
+    popdist = RUNS["popDist"][1] + ["--popsFile", str(pops)]
+    abba = RUNS["run_C"][1] + ["--popsFile", str(pops), "--jackknife",
+                               "1000000"]
+    sfs = ["--inputType", "genotypes", "-p", "pop1", "-p", "pop2", "-p",
+           "pop3", "--popsFile", str(pops_i), "--doPairs"]
+    return [
+        ("S-popDist", "popgen",
+         lambda tag, g=geno: ["-g", str(g), "-f", "phased", *popdist, "-o",
+                              str(work / f"{tag}.csv")],
+         lambda tag: [work / f"{tag}.csv"], RUNS["popDist"][2]),
+        ("S-ABBA", "abba",
+         lambda tag, g=geno: ["-g", str(g), "-f", "phased", *abba,
+                              "--jackknifeFile", str(work / f"{tag}.jk.tsv"),
+                              "-o", str(work / f"{tag}.csv")],
+         lambda tag: [work / f"{tag}.csv", work / f"{tag}.jk.tsv"],
+         ABBA_KERNELS),
+        ("S-sfs", "sfs",
+         lambda tag, g=geno_i: ["-i", str(g), *sfs, "--pref",
+                                f"{work}/{tag}.", "--suff", ".sfs"],
+         lambda tag: [work / f"{tag}.{n}.sfs" for n in SPECTRA_I],
+         ("site_pop_counts",)),
+        ("S-cat", "distmat",
+         lambda tag, g=geno: ["-g", str(g), "-f", "phased",
+                              *DISTMAT_ARGS["run_E"], "-o",
+                              str(work / f"{tag}.phy")],
+         lambda tag: [work / f"{tag}.phy"], ("pair_counts_4state",)),
+    ]
+
+
+def run_s(clis, cohorts: dict, work: Path, baselines: dict | None = None,
+          n_ranks: int = 2) -> dict:
+    """Run S: popDist (once from the .geno.gz, once from a BGZF copy with
+    its .tbi), ABBABABAwindows with --jackknife, sfs and distMat --windType
+    cat as ``n_ranks`` gloo ranks (:func:`run_ranks`), each rank on its
+    scaffolds of the 4-scaffold cohorts (crc32: scaf4 to rank 0, the rest
+    to rank 1 of two).  Every rank that owns a scaffold must launch each
+    kernel of its route, a rank that owns none no kernel (at 4 ranks, rank
+    2), and every output must be byte-identical to the
+    one-process run on one card: ``baselines`` {run: (paths, wall)} where
+    an earlier run wrote them (popDist, run I, run E), else a one-process
+    run here under ``GGT_NO_MESH=1``.  The BGZF copy is written while the
+    other runs' ranks run.  Returns {run: report}."""
+    from genomics_general_tpu_torch.io import tabix
+    from genomics_general_tpu_torch.parallel import multihost
+    cases = s_runs(cohorts, work)
+    ones = dict(baselines or {})
+    for name, cli, argv_for, outs_for, _ in cases:
+        if name not in ones:
+            ones[name] = (outs_for(f"{name}.one"), run_cli(
+                clis[cli], argv_for(f"{name}.one"),
+                {"GGT_EXEC": "device", "GGT_NO_MESH": "1"})[0])
+    report = {}
+
+    def ranks_run(name, cli, argv_for, outs_for, need, geno=None, extra=""):
+        one, one_wall = ones[name.split(" ")[0]]
+        tag = f"{name}.ranks{n_ranks}".replace(" ", "_")
+        argv = argv_for(tag) if geno is None else argv_for(tag, geno)
+        ranks = run_ranks([cli, *argv], n_ranks, work / f"{tag}.logs")
+        for r, g in enumerate(ranks):
+            owns = any(multihost.owner(sc, n_ranks) == r
+                       for sc in S_SCAFFOLDS)
+            if (g["rank"], g["n"], g["backend"]) != (r, n_ranks, "gloo"):
+                raise AssertionError(f"run_S {name}: rank {r} reports {g}")
+            if owns and not all(g["launches"].get(k, 0) > 0 for k in need):
+                raise AssertionError(
+                    f"run_S {name}: rank {r} owns a scaffold and launched "
+                    f"{g['launches']}, not all of {need}")
+            if not owns and g["launches"]:
+                raise AssertionError(
+                    f"run_S {name}: rank {r} owns no scaffold and launched "
+                    f"{g['launches']}")
+        for a, b in zip(one, outs_for(tag)):
+            same_bytes([a, b], f"run_S {name} {b.name} vs one process")
+        log(f"[e2e] run_S {name}: {n_ranks} ranks over gloo, "
+            + "; ".join(f"rank {g['rank']} wall {g['wall_s']:.3f}s "
+                        f"launches {g['launches']} on {g['card']} "
+                        f"({g['bus']}, CUDA_VISIBLE_DEVICES={g['visible']})"
+                        for g in ranks)
+            + f"; one process wall {one_wall:.3f}s; {len(one)} output "
+            f"file(s) byte-identical{extra}")
+        report[name] = {"ranks": n_ranks, "backend": "gloo",
+                        "rank_wall_s": [g["wall_s"] for g in ranks],
+                        "rank_launches": [g["launches"] for g in ranks],
+                        "rank_cards": [f"{g['card']} {g['bus']}"
+                                       for g in ranks],
+                        "one_process_wall_s": one_wall}
+
+    def index(geno, bgz):
+        t0 = time.perf_counter()
+        tabix.bgzip_file(str(geno), str(bgz))
+        tabix.build_index(str(bgz), preset="geno")
+        return time.perf_counter() - t0
+    bgz = work / "cohort.geno.bgz"
+    with ThreadPoolExecutor(1) as ex:
+        indexing = ex.submit(index, cohorts["cohort"][0], bgz)
+        for case in cases:
+            ranks_run(*case)
+        t_index = indexing.result()
+    ranks_run("S-popDist indexed", *cases[0][1:], geno=bgz,
+              extra=f"; bgzip + .tbi {t_index:.3f}s, beside the other runs")
+    return report
 
 def port_clis() -> dict:
     """The port's CLI entry points by the names RUNS uses."""
@@ -4133,12 +4331,11 @@ def run_i(mods, clis, geno, pops, work):
     args = ["-i", str(geno), "--inputType", "genotypes", "-p", "pop1",
             "-p", "pop2", "-p", "pop3", "--popsFile", str(pops), "--doPairs",
             "--profile"]
-    names = ["pop1", "pop2", "pop3", "pop1_pop2", "pop1_pop3", "pop2_pop3"]
 
     def argv_for(route):
         pref = f"{work}/run_I.{route}."
         return args + ["--pref", pref, "--suff", ".sfs"], \
-            [Path(f"{pref}{n}.sfs") for n in names]
+            [Path(f"{pref}{n}.sfs") for n in SPECTRA_I]
     launches, _, report = routes_run("run_I", clis["sfs"], argv_for,
                                      count_routes("site_pop_counts"), mods)
     sites = sum(int(ln.split()[-1]) for ln in
@@ -4537,6 +4734,14 @@ def main() -> int:
         ptxas = so.with_suffix(".log").read_text()
         log("[build] " + ptxas.strip().replace("\n", "\n[build] "))
 
+    # the cohorts are written while phase 2a runs (it times nothing); the
+    # work directory goes at exit, whatever happens
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-",
+                                 dir=REPO / "build"))
+    atexit.register(shutil.rmtree, work, True)
+    maker = ThreadPoolExecutor(1)
+    made = maker.submit(make_cohorts, testing, work)
+
     # ---- phase 2a: parity on messy inputs (H=77: ragged pair tiles)
     errs = {k: 0.0 for k in KERNELS}
     for H in (160, 77):
@@ -4698,15 +4903,15 @@ def main() -> int:
         "windows, unaligned metadata and the int32 branch == plain == K9 + "
         "K4")
     log(f"[time] phase 2a done at {time.perf_counter() - t_start:.1f}s")
-
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke-",
-                                 dir=REPO / "build"))
+    cohorts = made.result()
+    maker.shutdown()
+    log(f"[time] cohorts written at {time.perf_counter() - t_start:.1f}s")
     try:
         # ---- phase 3: the three paths end to end at H = 512
-        geno, pops = make_cohort(testing, work, "cohort", N_SITES,
-                                 10_000_000)
-        geno_b, pops_b = make_cohort(testing, work, "cohort_b", N_SITES_B,
-                                     2_000_000)
+        geno, pops = cohorts["cohort"]
+        geno_b, pops_b = cohorts["cohort_b"]
+        geno_f, _ = cohorts["cohort_f"]
+        geno_i, pops_i = cohorts["cohort_i"]
         runs = {}
         runs["popDist"] = drive(
             "popDist", mods, clis, native, geno, pops, N_SITES,
@@ -4728,13 +4933,9 @@ def main() -> int:
                 [(abba, "window_abba_sums_dispatch",
                   lambda a: a[0].shape[1])])
         runs["run_E"] = run_e(pair, mods, clis, geno, work)
-        geno_f, _ = make_cohort(testing, work, "cohort_f", N_SITES_F,
-                                SCAFFOLD_F)
         runs["run_F"] = run_f(pair, mods, clis, geno_f, work)
         runs["run_G"] = run_g(pair, ws, geno, pops, dev)
         runs["run_H"] = run_h(counts, mods, clis, geno, work)
-        geno_i, pops_i = make_cohort(testing, work, "cohort_i", N_SITES_I,
-                                     SCAFFOLD_I, MISSING_I)
         runs["run_I"] = run_i(mods, clis, geno_i, pops_i, work)
         runs["run_J"] = run_j(mods, clis, geno, pops, work)
         runs["run_K"] = run_k(mods, clis, {"popDist": (geno, pops),
@@ -4755,6 +4956,14 @@ def main() -> int:
             runs["run_A"][1]["site_pop_counts_dispatch"],
             runs["run_A"][1]["window_pair_counts_dispatch"],
             runs["run_E"][1], dev)
+        runs["run_S"] = (None, None, run_s(
+            clis, cohorts, work, {"S-popDist": ([work / "popDist.gpu.csv"],
+                                 runs["popDist"][2]["wall_s"]),
+                   "S-sfs": ([work / f"run_I.default.{n}.sfs"
+                              for n in SPECTRA_I],
+                             runs["run_I"][2]["default_wall_s"]),
+                   "S-cat": ([work / "run_E.gpu.phy"],
+                             runs["run_E"][2]["wall_s"])}))
         runs["run_Q"] = run_q(clis, geno_f, work)
         log(f"[time] phase 3 done at {time.perf_counter() - t_start:.1f}s")
 

@@ -13,8 +13,11 @@ on the host (stats/abbababa.py), byte-identical to the reference.
 
 One process drives one device or, with more than one local card, the
 device mesh (cli.common.get_mesh: window slabs data-parallel;
-``GGT_NO_MESH=1`` keeps one device); multi-process runs
-(``GGT_NUM_PROCS>1``) raise in parallel/multihost.
+``GGT_NO_MESH=1`` keeps one device).  Multi-process runs
+(``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` / ``GGT_PROC_ID``,
+parallel/multihost) shard the input by scaffold; process 0 writes the rows
+in one-process order and the jackknife table from every process's window
+partials.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ import numpy as np
 
 from .. import engine
 from ..device import get_device
-from ..io import geno as geno_io
 from ..io import writers
 from ..kernels import abba as abba_k
 from ..kernels import counts as counts_k
@@ -126,10 +128,25 @@ def main(argv=None, full_panel: bool = False) -> int:
         # consumer thread (single consumer -> no locking needed)
         jk_rows: list[tuple[str, int, float, float, float, float]] = []
 
-    out, skip_windows, cursor = common.open_resumable_out(args, head + "\n")
-    reader = geno_io.GenoReader(
-        args.genoFile if args.genoFile else sys.stdin,
-        sample_data=sd, geno_format=args.genoFormat, header=args.header)
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # per-process scaffold sharding; rows gathered to an ordered
+        # process-0 writer at the end (parallel/multihost.py), like
+        # popgen_windows
+        assert not args.resume, "--resume is not supported in multi-host runs"
+        assert not (args.addWindowID and wind["windType"] != "predefined"), \
+            "--addWindowID numbering is per-host in sharded runs; use " \
+            "predefined windows (IDs from the file) instead"
+        wc_order_keys = common.own_window_coords(wind, shard_pred)
+        mh_writer = multihost.MultiHostWriter()
+        out, skip_windows, cursor = None, 0, None
+    else:
+        mh_writer, wc_order_keys = None, None
+        out, skip_windows, cursor = common.open_resumable_out(
+            args, head + "\n")
+    reader, shard_pred = common.sharded_reader(
+        args.genoFile, shard_pred, sample_data=sd,
+        geno_format=args.genoFormat, header=args.header)
 
     mesh = common.get_mesh()
     timer = engine.StageTimer(args.profile)
@@ -224,7 +241,13 @@ def main(argv=None, full_panel: bool = False) -> int:
                         writers.fmt_int_or_nan(mid[w]), str(n_sites_w),
                         str(sites_used) if sites_used == sites_used else "nan"]
                 row += values
-                out.write(",".join(row) + "\n")
+                text = ",".join(row) + "\n"
+                if mh_writer is not None:
+                    key = wc_order_keys[batch.window_offset + w] \
+                        if wc_order_keys is not None else None
+                    mh_writer.write_row(scaf_name, text, order_key=key)
+                else:
+                    out.write(text)
                 rows_written += 1
             progress.update(rows=rows_written)
             if cursor is not None:
@@ -236,14 +259,18 @@ def main(argv=None, full_panel: bool = False) -> int:
             reader, wind,
             include=common.read_scaffold_list(args.include),
             exclude=common.read_scaffold_list(args.exclude),
-            progress=progress, timer=timer),
+            progress=progress, timer=timer, scaffold_pred=shard_pred),
         dispatch, finalize,
         skip=lambda b: (b.plan.n_windows == 0
                         or b.window_offset + b.plan.n_windows <= skip_windows))
 
-    if cursor is not None:
+    if mh_writer is not None:
+        out = writers.open_out(args.outFile) \
+            if multihost.process_index() == 0 else None
+        mh_writer.finish(out, head + "\n", reader.scaffold_names)
+    elif cursor is not None:
         cursor.clear()
-    if args.outFile:
+    if args.outFile and out is not None:
         out.close()
     if jackknife_bs is not None:
         _write_jackknife(jk_rows, jackknife_bs, reader.scaffold_names, args)
@@ -260,8 +287,19 @@ def _write_jackknife(jk_rows, block_size: int, scaffold_order, args) -> None:
     first good-window midpoint; delete-one-block pseudovalues via the
     O(blocks) ratio jackknife (stats/jackknife.ratio_jackknife), which
     equals block.jackknife (jackknife.R:41-61) with FUN = ratio-of-sums
-    over the per-window num/den columns."""
+    over the per-window num/den columns.  In multi-process runs every
+    process contributes its windows' partial sums (allgathered; process 0
+    computes and writes)."""
+    import pickle
+
+    from ..parallel import multihost
     from ..stats import jackknife as J
+    if multihost.process_count() > 1:
+        blobs = multihost.allgather_bytes(
+            pickle.dumps(jk_rows, protocol=pickle.HIGHEST_PROTOCOL))
+        if multihost.process_index() != 0:
+            return
+        jk_rows = [r for b in blobs for r in pickle.loads(b)]
     order = {n: i for i, n in enumerate(scaffold_order)}
     jk_rows = sorted(jk_rows,
                      key=lambda r: (order.get(r[0], len(order)), r[1]))

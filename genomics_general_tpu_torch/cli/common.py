@@ -7,6 +7,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import os
+import sys
 
 import numpy as np
 
@@ -125,6 +126,51 @@ def get_mesh():
     card): parallel/dispatch.default_mesh."""
     from ..parallel.dispatch import default_mesh
     return default_mesh()
+
+
+def shard_predicate():
+    """This process's scaffold ownership in a multi-process run
+    (parallel/multihost: crc32 of the name), a predicate on the scaffold
+    name; None in a one-process run."""
+    from ..parallel import multihost
+    n_procs = multihost.process_count()
+    if n_procs == 1:
+        return None
+    return multihost.shard_predicate(n_procs, multihost.process_index())
+
+
+def sharded_reader(path, shard_pred, reader=None, **reader_kw):
+    """(reader, shard_pred) for a CLI's geno input.  Where ``shard_pred``
+    is set and ``{path}.tbi`` exists, the reader streams only the owned
+    scaffolds' BGZF blocks (multihost.indexed_input), seeded with the
+    index's full contig list so scaffold ids, and the gather thresholds
+    drawn from them, agree on every process; the predicate returned is
+    then None, since nothing is left to drop.  Otherwise the whole input:
+    ``reader`` where the CLI already opened it, else a GenoReader of
+    ``path`` (stdin when empty), and ``shard_pred`` unchanged."""
+    from ..io import geno as geno_io
+    from ..parallel import multihost
+    if shard_pred is not None:
+        stream, names = multihost.indexed_input(path, shard_pred)
+        if stream is not None:
+            return geno_io.GenoReader(stream, preseed_scaffolds=names,
+                                      **reader_kw), None
+    if reader is None:
+        reader = geno_io.GenoReader(path if path else sys.stdin, **reader_kw)
+    return reader, shard_pred
+
+
+def own_window_coords(wind, shard_pred):
+    """Keep only the owned rows of a predefined window list; returns each
+    kept row's index in the original file, so that process 0 writes the
+    rows in file order (a window file may interleave scaffolds), or None
+    without a window list."""
+    if not wind.get("windCoords"):
+        return None
+    kept = [(i, r) for i, r in enumerate(wind["windCoords"])
+            if shard_pred(r[0])]
+    wind["windCoords"] = [r for _, r in kept]
+    return [i for i, _ in kept]
 
 
 def config_key(args) -> str:

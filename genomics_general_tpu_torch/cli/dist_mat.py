@@ -11,8 +11,10 @@ dispatch: K1, K2, K4 on the wire-v3 buffer, or K9 and K4 under
 through the accumulating 4-state pair-count kernel K9 instead of
 materializing it (fixing the reference's RAM cliff, README.md:214).
 
-One process on one device: multi-process runs (``GGT_NUM_PROCS>1``) raise
-in parallel/multihost.
+Multi-process runs (``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` /
+``GGT_PROC_ID``, parallel/multihost) shard the input by scaffold: windowed
+matrices and window rows gather to process 0 in one-process order; cat
+mode sums the processes' pair counts with one collective.
 
 Reference quirk kept: with --windowDataOutFile, the header is comma-separated
 with a trailing comma and no newline, while data rows are tab-separated
@@ -78,6 +80,16 @@ def main(argv=None) -> int:
         wind = common.resolve_window_args(args)
     min_sites = wind["minSites"]
 
+    n_procs = multihost.process_count()
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # scaffold-sharded multi-process run.  Windowed modes gather matrix
+        # blocks to a process-0 ordered writer; cat mode sums the
+        # genome-wide pair-count accumulators across processes.
+        assert args.windType != "predefined", \
+            "predefined window lists are not supported in multi-host " \
+            "distMat runs (absent-scaffold rows have no owner)"
+
     # samples (distMat.py:199-206)
     if args.samples:
         samples = args.samples
@@ -104,9 +116,9 @@ def main(argv=None) -> int:
 
     sd = SampleData(ind_names=list(samples), ploidy=ploidy)
     header = "\t".join(args.headers) if args.headers else None
-    reader = geno_io.GenoReader(
-        args.genoFile if args.genoFile else sys.stdin,
-        sample_data=sd, geno_format=args.genoFormat, header=header)
+    reader, shard_pred = common.sharded_reader(
+        args.genoFile, shard_pred, sample_data=sd,
+        geno_format=args.genoFormat, header=header)
     model = reader.model
     n_ind = len(samples)
     progress = engine.Progress(args.verbose)
@@ -114,10 +126,19 @@ def main(argv=None) -> int:
 
     winmeta_head = ("windowID," if args.addWindowID else "") \
         + "scaffold,start,end,mid,sites,"
-    outs = {"main": writers.open_out(args.outFile)}
-    if args.windowDataOutFile:
-        outs["windows"] = writers.open_out(args.windowDataOutFile)
-        outs["windows"].write(winmeta_head)
+    outs = {}
+    mh_main = mh_meta = None
+    if n_procs > 1:
+        # cat mode's one matrix is written by process 0 after the merge
+        if wind["windType"] != "cat":
+            mh_main = multihost.MultiHostWriter()
+            mh_meta = multihost.MultiHostWriter() \
+                if args.windowDataOutFile else None
+    else:
+        outs["main"] = writers.open_out(args.outFile)
+        if args.windowDataOutFile:
+            outs["windows"] = writers.open_out(args.windowDataOutFile)
+            outs["windows"].write(winmeta_head)
 
     def emit(plan, mism, shar, batch, w, mid, ind_called=None):
         """Write one window's matrix (+ optional window metadata row).
@@ -152,13 +173,20 @@ def main(argv=None) -> int:
         else:
             s_ = writers.dist_mat_string(dist_out, args.roundTo) + "\n"
         scaf = scaffold_name(batch, plan, w)
-        outs["main"].write(s_)
+        if mh_main is not None:
+            mh_main.write_row(scaf, s_)
+        else:
+            outs["main"].write(s_)
         if args.windowDataOutFile:
             row = [] if not args.addWindowID else [plan.ids[w]]
             row += [scaf,
                     int(plan.start[w]), int(plan.end[w]),
                     writers.fmt_int_or_nan(mid[w]), int(sites[w])]
-            outs["windows"].write("\t".join(str(x) for x in row) + "\n")
+            text = "\t".join(str(x) for x in row) + "\n"
+            if mh_meta is not None:
+                mh_meta.write_row(scaf, text)
+            else:
+                outs["windows"].write(text)
         return 1
 
     def batch_alleles(batch):
@@ -199,10 +227,11 @@ def main(argv=None) -> int:
 
         for chunk in engine._prefetched(_timed_chunks()):
             a, p, sids = chunk.alleles, chunk.positions, chunk.scaffold_ids
-            if inc is not None or exc is not None:
+            if inc is not None or exc is not None or shard_pred is not None:
                 names = reader.scaffold_names
                 ok = np.array([(inc is None or n in inc)
                                and (exc is None or n not in exc)
+                               and (shard_pred is None or shard_pred(n))
                                for n in names])
                 km = ok[sids]
                 if not km.all():
@@ -221,6 +250,25 @@ def main(argv=None) -> int:
             progress.update(sites=p.size)
         with timer.stage("d2h"):
             m0, s0 = acc.finish()
+        if n_procs > 1:
+            # genome-wide accumulator merge: each process counts its
+            # scaffolds, the [H,H] mismatch/shared matrices + per-haplotype
+            # called counts + site total sum across processes with one
+            # collective; process 0 writes the matrix
+            assert not args.windowDataOutFile, \
+                "--windowDataOutFile is not supported for multi-host cat " \
+                "mode (window metadata is host-local)"
+            packed = np.concatenate(
+                [m0.ravel(), s0.ravel(), called, [np.int64(total_sites)]])
+            merged = multihost.collective_reduce(packed, "sum")
+            if multihost.process_index() != 0:
+                progress.close()
+                return 0
+            m0 = merged[:H * H].reshape(H, H)
+            s0 = merged[H * H:2 * H * H].reshape(H, H)
+            called = merged[2 * H * H:2 * H * H + H]
+            total_sites = int(merged[-1])
+            outs["main"] = writers.open_out(args.outFile)
         plan = W.WindowPlan(np.array([first_sid], np.int32),
                             np.array([first_pos], np.int64),
                             np.array([last_pos], np.int64),
@@ -267,10 +315,22 @@ def main(argv=None) -> int:
                 reader, wind,
                 include=common.read_scaffold_list(args.include),
                 exclude=common.read_scaffold_list(args.exclude),
-                progress=progress, timer=timer,
+                progress=progress, timer=timer, scaffold_pred=shard_pred,
                 max_flush_windows=_whh_cap),
             dispatch, finalize,
             skip=lambda b: b.plan.n_windows == 0)
+        if mh_main is not None:
+            rank0 = multihost.process_index() == 0
+            out0 = writers.open_out(args.outFile) if rank0 else None
+            mh_main.finish(out0, "", reader.scaffold_names)
+            if out0 is not None:
+                outs["main"] = out0
+            if mh_meta is not None:
+                outm = writers.open_out(args.windowDataOutFile) \
+                    if rank0 else None
+                mh_meta.finish(outm, winmeta_head, reader.scaffold_names)
+                if outm is not None:
+                    outs["windows"] = outm
 
     for o in outs.values():
         if o is not sys.stdout:

@@ -1,7 +1,8 @@
 """Per-window ancestry painting (distPaint) on the GPU.
 
 The port of genomics_general_tpu/cli/dist_paint.py, with the same flags and
-output bytes, in one process on one device (``GGT_NUM_PROCS>1`` raises in
+output bytes, in one process or, sharded by scaffold, in several
+(``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` / ``GGT_PROC_ID``,
 parallel/multihost).  Mirror of distPaint.py: for every individual and
 window, compute masked-Hamming distances to each reference-population member
 (haploid genotypes only, distPaint.py:65), then assign the individual to the
@@ -111,15 +112,27 @@ def main(argv=None) -> int:
 
     # haploid-only analysis (distPaint.py:257-259)
     sd = SampleData(ind_names=all_inds, ploidy={s: 1 for s in all_inds})
-    reader = geno_io.GenoReader(args.genoFile, sample_data=sd,
-                                geno_format="haplo", header=args.header)
-
     head = ["scaffold", "start", "end", "mid", "sites"]
     if args.addWindowID:
         head = ["windowID"] + head
     header_line = "\t".join(head) + "\t" + "\t".join(all_inds) + "\n"
-    out = writers.open_out(args.outFile)
-    out.write(header_line)
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # scaffold-sharded painting (same pattern as popgen/abba/dist_mat)
+        assert not args.addWindowID, \
+            "--addWindowID numbering is per-host in sharded runs"
+        assert wind["windType"] != "predefined", \
+            "predefined window lists are not supported in multi-host " \
+            "distPaint runs (absent-scaffold rows have no owner)"
+        mh_writer = multihost.MultiHostWriter()
+        out = None
+    else:
+        mh_writer = None
+        out = writers.open_out(args.outFile)
+        out.write(header_line)
+    reader, shard_pred = common.sharded_reader(
+        args.genoFile, shard_pred, sample_data=sd, geno_format="haplo",
+        header=args.header)
 
     n_ind = len(all_inds)
 
@@ -162,7 +175,11 @@ def main(argv=None) -> int:
                 row += [scaf, start, end,
                         writers.fmt_int_or_nan(mid[w]), int(sites[w])]
                 row += best_match
-                out.write("\t".join(str(x) for x in row) + "\n")
+                text = "\t".join(str(x) for x in row) + "\n"
+                if mh_writer is not None:
+                    mh_writer.write_row(scaf, text)
+                else:
+                    out.write(text)
 
     # stream flush batches (O(flush) memory; the old path materialized the
     # genome like the reference's whole-file read, distPaint.py)
@@ -183,11 +200,16 @@ def main(argv=None) -> int:
             reader, wind,
             include=common.read_scaffold_list(args.include),
             exclude=common.read_scaffold_list(args.exclude),
+            scaffold_pred=shard_pred,
             max_flush_windows=_whh_cap),
         dispatch, finalize,
         skip=lambda b: b.plan.n_windows == 0)
 
-    if out is not sys.stdout:
+    if mh_writer is not None:
+        out = writers.open_out(args.outFile) \
+            if multihost.process_index() == 0 else None
+        mh_writer.finish(out, header_line, reader.scaffold_names)
+    if out is not None and out is not sys.stdout:
         out.close()
     return 0
 

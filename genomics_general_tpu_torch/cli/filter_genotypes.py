@@ -22,14 +22,16 @@ would crash (partial genotypes under 'diplo'/HWE) are emitted as missing.
 
 Each chunk makes two count calls (kernels/counts.py: K6 on the span wire,
 K12 on the raw upload, the host counter under ``GGT_EXEC=host``): all rows,
-then the populations.  The --HWE test runs per site on the host.  One
-process drives one device: multi-process runs (``GGT_NUM_PROCS>1``) raise
-in parallel/multihost.
+then the populations.  The --HWE test runs per site on the host.
+Multi-process runs (``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` /
+``GGT_PROC_ID``, parallel/multihost) shard the input by scaffold and gather
+the rows to process 0 every ``GGT_GATHER_SCAFS`` scaffolds, as freq does.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
 import string as _string
 import sys
@@ -41,6 +43,7 @@ from ..io import geno as geno_io
 from ..io import writers
 from ..samples import SampleData
 from ..stats import filters as F
+from . import common
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -231,8 +234,40 @@ def main(argv=None) -> int:
                        for letter in _string.ascii_uppercase[:sd.ploidy[s]]]
         head = "\t".join(header_cols + out_samples) + "\n"
 
-    out = writers.open_out(args.outfile)
-    out.write(head)
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # scaffold-sharded multi-process run: the analog of the reference's
+        # line-pod -T pool (filterGenotypes.py:387-412).  Thinning state is
+        # per-scaffold (lastScaf resets on scaffold change), so sharding by
+        # scaffold preserves one-process output exactly.  randomAllele
+        # draws come from each process's own RNG stream (the reference's
+        # -T pods are equally nondeterministic there).
+        assert not args.thinDist, \
+            "--thinDist pod resets are absolute-line-indexed; thinning is " \
+            "not supported in scaffold-sharded multi-host runs"
+        # incremental gather (default every 8 scaffolds): process 0 writes
+        # while the others still stream — peak buffered memory is
+        # O(scaffold group), not O(output) (same wiring as freq).
+        # GGT_GATHER_SCAFS=0 restores the single end-of-run gather.
+        inc_every = int(os.environ.get("GGT_GATHER_SCAFS", "8"))
+        mh_writer = multihost.MultiHostWriter(
+            incremental_every=inc_every if inc_every > 0 else None,
+            open_out=lambda: writers.open_out(args.outfile), header=head)
+        out = None
+    else:
+        mh_writer = None
+        out = writers.open_out(args.outfile)
+        out.write(head)
+    whole = reader
+    reader, shard_pred = common.sharded_reader(
+        args.infile, shard_pred, reader, sample_data=sd,
+        geno_format=args.inputGenoFormat)
+    if reader is not whole:
+        # the indexed stream serves everything from the start: the ploidy
+        # peek above already derived what it needed, and its first chunk
+        # is dropped
+        model = reader.model
+        first_chunk = None
 
     # ---- per-chunk streaming filter (O(chunk) memory; everything below is
     # sitewise except thinning, whose (lastScaf, lastPos, absolute line
@@ -399,14 +434,30 @@ def main(argv=None) -> int:
 
         scafs_of = scaf_names[scaffold_ids]
 
+        def flush(buf, buf_sids):
+            if not buf:
+                return
+            if mh_writer is None:
+                out.write("".join(buf))
+                return
+            sids_arr = np.asarray(buf_sids)
+            bounds = np.concatenate(
+                [[0], np.flatnonzero(sids_arr[1:] != sids_arr[:-1]) + 1,
+                 [len(buf)]])
+            for a, b in zip(bounds[:-1], bounds[1:]):
+                mh_writer.write_row(reader.scaffold_names[sids_arr[a]],
+                                    "".join(buf[a:b]))
+
         buf = []
+        buf_sids = []
         for s in kept:
             buf.append(scafs_of[s] + "\t" + str(int(positions[s])) + "\t"
                        + "\t".join(fields_for_site(int(s))) + "\n")
+            buf_sids.append(scaffold_ids[s])
             if len(buf) >= 10000:
-                out.write("".join(buf))
-                buf = []
-        out.write("".join(buf))
+                flush(buf, buf_sids)
+                buf, buf_sids = [], []
+        flush(buf, buf_sids)
 
     from .. import engine as _engine
     progress = _engine.Progress(args.verbose)
@@ -418,11 +469,37 @@ def main(argv=None) -> int:
 
     for chunk in _engine._prefetched(all_chunks()):
         a, pos, sids = chunk.alleles, chunk.positions, chunk.scaffold_ids
+        # global stream frontier BEFORE shard filtering: every process
+        # observes the same scaffold sequence, so incremental gather rounds
+        # trigger identically everywhere
+        frontier = int(sids[-1]) if sids.size else None
+        if shard_pred is not None:
+            owned = np.array([shard_pred(n)
+                              for n in reader.scaffold_names], dtype=bool)
+            keep = owned[sids]
+            if not keep.all():
+                a, pos, sids = a[:, keep], pos[keep], sids[keep]
         if pos.size:
             process_chunk(a, pos, sids)
             progress.update(sites=pos.shape[0])
+        if mh_writer is not None and frontier is not None:
+            mh_writer.maybe_gather(frontier, reader.scaffold_names)
 
-    if args.outfile:
+    if mh_writer is not None:
+        # flush all remaining incremental rounds BEFORE finish: with
+        # indexed (subset) input streams processes end at different
+        # frontiers (a process owning nothing never saw a chunk), and the
+        # collective call counts must match everywhere
+        mh_writer.maybe_gather(len(reader.scaffold_names),
+                               reader.scaffold_names)
+        if multihost.process_index() == 0 and not mh_writer.incr:
+            out = writers.open_out(args.outfile)
+        out = mh_writer.finish(out, head, reader.scaffold_names)
+        if os.environ.get("GGT_GATHER_DEBUG"):
+            sys.stderr.write(
+                f"[gather] rank {multihost.process_index()} peak buffered "
+                f"{mh_writer.peak_buffered} B\n")
+    if args.outfile and out is not None:
         out.close()
     progress.close()
     return 0

@@ -17,8 +17,10 @@ The counts mode formats rows in one C pass over each parsed chunk
 (io/native.freq_counts_rows), as the JAX CLI does; ``GGT_HOST_FREQ_ROWS=0``
 and every ``--target`` count through kernels/counts.py (K6 on the span
 wire, K12 on the raw upload, the host counter under ``GGT_EXEC=host``).
-One process drives one device: multi-process runs (``GGT_NUM_PROCS>1``)
-raise in parallel/multihost.
+Multi-process runs (``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` /
+``GGT_PROC_ID``, parallel/multihost) shard the input by scaffold and gather
+the rows to process 0 every ``GGT_GATHER_SCAFS`` scaffolds (default 8; 0
+gathers once at the end).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..io import native
 from ..io import writers
 from ..kernels import counts as counts_k
 from ..samples import SampleData
+from . import common
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,15 +168,35 @@ def main(argv=None) -> int:
     sd = SampleData(ind_names=all_inds, pop_names=pop_names,
                     pop_inds=pop_inds, ploidy=ploidy)
     reader = geno_io.rebind_reader(tmp_reader, sd)
-    model = reader.model
 
     as_counts = args.asCounts if args.target else True
     keep_nan_lines = args.keepNanLines if args.target else True
     min_data = args.minData if args.target else 0
 
     head = "scaffold\tposition\t" + "\t".join(pop_names) + "\n"
-    out = writers.open_out(args.outFile)
-    out.write(head)
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # scaffold-sharded parse + process-0 ordered writer: the analog of
+        # the reference's fileSlicer -T pool (freq.py:23-27, 315-350);
+        # per-site rows buffer per scaffold (zlib segments) and gather in
+        # rounds
+        # incremental gather (default every 8 scaffolds): process 0 writes
+        # while the others still stream — peak buffered memory is
+        # O(scaffold group), not O(output), which matters for this per-site
+        # output.  GGT_GATHER_SCAFS=0 restores the single end-of-run gather.
+        inc_every = int(os.environ.get("GGT_GATHER_SCAFS", "8"))
+        mh_writer = multihost.MultiHostWriter(
+            incremental_every=inc_every if inc_every > 0 else None,
+            open_out=lambda: writers.open_out(args.outFile), header=head)
+        out = None
+    else:
+        mh_writer = None
+        out = writers.open_out(args.outFile)
+        out.write(head)
+    reader, shard_pred = common.sharded_reader(
+        args.genoFile, shard_pred, reader, sample_data=sd,
+        geno_format=args.genoFormat)
+    model = reader.model
 
     # ---- device counts: one mask per pop (+ingroup union for derived,
     # +all-rows union for multi-pop minor)
@@ -196,15 +219,28 @@ def main(argv=None) -> int:
 
     progress = _engine.Progress(args.verbose)
 
-    def emit(lines):
-        if lines:
+    def emit(row_sids, lines):
+        """Write formatted lines: directly (one process) or buffered per
+        scaffold run for the process-0 gather (multi-process)."""
+        if not lines:
+            return
+        if mh_writer is None:
             out.write("".join(lines))
+            return
+        row_sids = np.asarray(row_sids)
+        bounds = np.concatenate(
+            [[0], np.flatnonzero(row_sids[1:] != row_sids[:-1]) + 1,
+             [len(lines)]])
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            mh_writer.write_row(reader.scaffold_names[row_sids[a]],
+                                "".join(lines[a:b]))
 
-    # counts mode: fused C count+format (io/native.freq_counts_rows), as the
-    # JAX CLI does.  The per-site counts ARE the output here, and the C pass
-    # over the parsed chunk replaces both the count fetch and the per-row
-    # Python string assembly.  Binary writes bypass the text wrapper.
-    use_c_rows = (not args.target
+    # counts mode, one process: fused C count+format (io/native.
+    # freq_counts_rows), as the JAX CLI does.  The per-site counts ARE the
+    # output here, and the C pass over the parsed chunk replaces both the
+    # count fetch and the per-row Python string assembly.  Binary writes
+    # bypass the text wrapper.
+    use_c_rows = (not args.target and mh_writer is None
                   and os.environ.get("GGT_HOST_FREQ_ROWS") != "0")
     c_out = getattr(out, "buffer", None) if use_c_rows else None
     if c_out is not None:
@@ -263,7 +299,7 @@ def main(argv=None) -> int:
                     cols.append([",".join(r) for r in c])
             lines = ["\t".join(t) + "\n"
                      for t in zip(scafs, pos_strs, *cols)]
-            emit(lines)
+            emit(scaffold_ids, lines)
             return S
 
         if args.target == "derived":
@@ -322,7 +358,7 @@ def main(argv=None) -> int:
                  for t in zip((scafs[s] for s in rows_out),
                               (pos_strs[s] for s in rows_out),
                               *vals_str.T)]
-        emit(lines)
+        emit(scaffold_ids[rows_out], lines)
         return S
 
     # --test mirrors the reference's 10-slice smoke run (freq.py:222,
@@ -344,6 +380,10 @@ def main(argv=None) -> int:
 
     for chunk in _engine._prefetched(_timed_chunks()):
         a, sids, pos = chunk.alleles, chunk.scaffold_ids, chunk.positions
+        # global stream frontier BEFORE shard filtering: every process
+        # observes the same scaffold sequence, so incremental gather rounds
+        # trigger identically everywhere
+        frontier = int(sids[-1]) if sids.size else None
         if test_sites_left is not None:
             if test_sites_left <= 0:
                 break
@@ -351,12 +391,33 @@ def main(argv=None) -> int:
             sids = sids[:test_sites_left]
             pos = pos[:test_sites_left]
             test_sites_left -= pos.size
+        if shard_pred is not None:
+            owned = np.array([shard_pred(n)
+                              for n in reader.scaffold_names], dtype=bool)
+            keep = owned[sids]
+            if not keep.all():
+                a, sids, pos = a[:, keep], sids[keep], pos[keep]
         if pos.size:
             with timer.stage("rows"):
                 done = process_block(a, sids, pos)
             progress.update(sites=done, rows=done)
+        if mh_writer is not None and frontier is not None:
+            mh_writer.maybe_gather(frontier, reader.scaffold_names)
 
-    if args.outFile:
+    if mh_writer is not None:
+        # flush all remaining incremental rounds BEFORE finish: with
+        # indexed (subset) input streams processes end at different
+        # frontiers, and the collective call counts must match everywhere
+        mh_writer.maybe_gather(len(reader.scaffold_names),
+                               reader.scaffold_names)
+        if multihost.process_index() == 0 and not mh_writer.incr:
+            out = writers.open_out(args.outFile)
+        out = mh_writer.finish(out, head, reader.scaffold_names)
+        if os.environ.get("GGT_GATHER_DEBUG"):
+            sys.stderr.write(
+                f"[gather] rank {multihost.process_index()} peak buffered "
+                f"{mh_writer.peak_buffered} B\n")
+    if args.outFile and out is not None:
         out.close()
     progress.close()
     timer.report()

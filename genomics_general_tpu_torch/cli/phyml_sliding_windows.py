@@ -1,7 +1,8 @@
 """Sliding-window phylogenies (phyml orchestration + built-in NJ).
 
 The port of genomics_general_tpu/cli/phyml_sliding_windows.py, with the
-same flags and output bytes, in one process (``GGT_NUM_PROCS>1`` raises in
+same flags and output bytes, in one process or, sharded by scaffold, in
+several (``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` / ``GGT_PROC_ID``,
 parallel/multihost); it launches no kernel (--maxLDphase runs
 stats/ld.max_ld_phase's numpy tables, as the JAX CLI does).  Mirror of
 phylo/phyml_sliding_windows.py: per window an
@@ -229,11 +230,30 @@ def main(argv=None) -> int:
     heads = ["scaffold", "start", "end", "mid", "sites", "lnL"]
     if args.crossVal:
         heads.append("cv_lnL")
-    data_file = open(args.prefix + ".data.tsv", "wt")
-    data_file.write("\t".join(heads) + "\n")
-    trees_file = gzip.open(args.prefix + ".trees.gz", "wt")
-    bs_files = [gzip.open(f"{args.prefix}.BS{b}.trees.gz", "wt")
-                for b in range(args.bootstraps)]
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # scaffold-sharded tree inference: each process runs phyml/NJ on
+        # the windows of the scaffolds it owns; rows for every output file
+        # gather to process-0 writers (all files share the same
+        # per-scaffold ordering, so data/tree line alignment is preserved).
+        # Bootstrap column resampling draws come from each process's own
+        # seeded stream, so bootstrap trees differ from a one-process run
+        # (the point estimates and data rows are identical).
+        assert not args.test, "--test stops after a global window count " \
+            "and is not supported in multi-host runs"
+        mh_data = multihost.MultiHostWriter()
+        mh_trees = multihost.MultiHostWriter()
+        mh_bs = [multihost.MultiHostWriter() for _ in range(args.bootstraps)]
+        data_file = trees_file = None
+        bs_files = [None] * args.bootstraps
+    else:
+        mh_data = mh_trees = None
+        mh_bs = []
+        data_file = open(args.prefix + ".data.tsv", "wt")
+        data_file.write("\t".join(heads) + "\n")
+        trees_file = gzip.open(args.prefix + ".trees.gz", "wt")
+        bs_files = [gzip.open(f"{args.prefix}.BS{b}.trees.gz", "wt")
+                    for b in range(args.bootstraps)]
 
     use_builtin = args.phyml == "builtin-nj"
     tmp_dir = None
@@ -281,10 +301,16 @@ def main(argv=None) -> int:
         row = [scaf, str(start), str(end), mid, str(n_sites), str(lnl)]
         if args.crossVal:
             row.append(str(cvlnl))
-        data_file.write("\t".join(row) + "\n")
-        trees_file.write(trees[0] + "\n")
-        for b, bf in enumerate(bs_files):
-            bf.write(trees[1 + b] + "\n")
+        if mh_data is not None:
+            mh_data.write_row(scaf, "\t".join(row) + "\n")
+            mh_trees.write_row(scaf, trees[0] + "\n")
+            for b, mw in enumerate(mh_bs):
+                mw.write_row(scaf, trees[1 + b] + "\n")
+        else:
+            data_file.write("\t".join(row) + "\n")
+            trees_file.write(trees[0] + "\n")
+            for b, bf in enumerate(bs_files):
+                bf.write(trees[1 + b] + "\n")
 
     # -T worker pool: N windows infer concurrently (threads — the work is
     # an external C binary, or GIL-releasing numpy for builtin-nj) with an
@@ -300,7 +326,8 @@ def main(argv=None) -> int:
     # stream flush batches: O(flush) memory with subprocess work per window
     from .. import engine
     for batch in engine.stream_windows(reader, wind, include=include,
-                                       exclude=exclude):
+                                       exclude=exclude,
+                                       scaffold_pred=shard_pred):
         if stop:
             break
         plan = batch.plan
@@ -347,10 +374,21 @@ def main(argv=None) -> int:
                 stop = True
                 break
     pool.close()
-    data_file.close()
-    trees_file.close()
-    for bf in bs_files:
-        bf.close()
+    if mh_data is not None:
+        rank0 = multihost.process_index() == 0
+        data_file = open(args.prefix + ".data.tsv", "wt") if rank0 else None
+        mh_data.finish(data_file, "\t".join(heads) + "\n",
+                       reader.scaffold_names)
+        trees_file = gzip.open(args.prefix + ".trees.gz", "wt") \
+            if rank0 else None
+        mh_trees.finish(trees_file, "", reader.scaffold_names)
+        for b, mw in enumerate(mh_bs):
+            bs_files[b] = gzip.open(f"{args.prefix}.BS{b}.trees.gz", "wt") \
+                if rank0 else None
+            mw.finish(bs_files[b], "", reader.scaffold_names)
+    for f in (data_file, trees_file, *bs_files):
+        if f is not None:
+            f.close()
     if tmp_dir and not args.test:
         os.rmdir(tmp_dir)
     sys.stderr.write(f"{windows_done} windows were tested.\n")

@@ -13,8 +13,10 @@ Every ``--analysis`` and ``--fstMethod`` runs, in one process, with the
 JAX package's wire options (``GGT_WIRE=2``, ``GGT_PACKED_TRANSFER=0``), on
 one device or, with more than one local card, data-parallel over the
 device mesh (cli.common.get_mesh; ``GGT_NO_MESH=1`` keeps one device).
-Multi-process runs (``GGT_NUM_PROCS>1``) raise ``NotImplementedError`` in
-parallel/multihost.
+Multi-process runs (``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` /
+``GGT_PROC_ID``, parallel/multihost) shard the input by scaffold, each
+process on its own scaffolds and card(s), and process 0 writes the rows in
+one-process order.
 
 Extension beyond the reference: ``--fstMethod WC`` adds Weir-Cockerham Fst
 columns (the reference only has 1 - pi_s/pi_t, genomics.py:987-993).
@@ -133,16 +135,32 @@ def main(argv=None) -> int:
     head = "windowID,scaffold,start,end,mid,sites," if args.addWindowID \
         else "scaffold,start,end,mid,sites,"
     header_line = head + ",".join(stats) + "\n"
-    out, skip_windows, cursor = common.open_resumable_out(args, header_line)
-    reader = geno_io.GenoReader(
-        args.genoFile if args.genoFile else sys.stdin,
-        sample_data=sd, geno_format=args.genoFormat, header=args.header)
+
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # per-process scaffold sharding; rows gathered to an ordered
+        # process-0 writer at the end (parallel/multihost.py)
+        assert not args.resume, "--resume is not supported in multi-host runs"
+        assert not (args.addWindowID and wind["windType"] != "predefined"), \
+            "--addWindowID numbering is per-host in sharded runs; use " \
+            "predefined windows (IDs from the file) instead"
+        wc_order_keys = common.own_window_coords(wind, shard_pred)
+        mh_writer = multihost.MultiHostWriter()
+        out, skip_windows, cursor = None, 0, None
+    else:
+        mh_writer = None
+        out, skip_windows, cursor = common.open_resumable_out(
+            args, header_line)
+    reader, shard_pred = common.sharded_reader(
+        args.genoFile, shard_pred, sample_data=sd,
+        geno_format=args.genoFormat, header=args.header)
     model = reader.model
 
-    # non-resume runs emit rows via the C formatter over the binary buffer
-    # (one write channel; the text wrapper only carried the header, flushed
-    # before any raw write)
-    use_c_csv = (cursor is None and not args.addWindowID
+    # one-process non-resume runs emit rows via the C formatter over the
+    # binary buffer (one write channel; the text wrapper only carried the
+    # header, flushed before any raw write)
+    use_c_csv = (mh_writer is None and cursor is None
+                 and not args.addWindowID
                  and os.environ.get("GGT_HOST_CSV") != "0")
     c_out = getattr(out, "buffer", None) if use_c_csv else None
     if c_out is not None:
@@ -421,7 +439,11 @@ def main(argv=None) -> int:
                     else:
                         row.append(writers.fmt_float(values[s][w], rt))
                 text = ",".join(row) + "\n"
-                if c_out is not None:
+                if mh_writer is not None:
+                    key = wc_order_keys[batch.window_offset + w] \
+                        if wc_order_keys is not None else None
+                    mh_writer.write_row(scaf_name, text, order_key=key)
+                elif c_out is not None:
                     c_out.write(text.encode())   # same channel as the C path
                 else:
                     out.write(text)
@@ -446,15 +468,20 @@ def main(argv=None) -> int:
             reader, wind,
             include=common.read_scaffold_list(args.include),
             exclude=common.read_scaffold_list(args.exclude),
-            progress=progress, timer=timer, max_flush_windows=whh_cap),
+            progress=progress, timer=timer, scaffold_pred=shard_pred,
+            max_flush_windows=whh_cap),
         dispatch, finalize,
         # resume: skip batches already fully written
         skip=lambda b: (b.plan.n_windows == 0
                         or b.window_offset + b.plan.n_windows <= skip_windows))
 
-    if cursor is not None:
+    if mh_writer is not None:
+        out = writers.open_out(args.outFile) \
+            if multihost.process_index() == 0 else None
+        mh_writer.finish(out, header_line, reader.scaffold_names)
+    elif cursor is not None:
         cursor.clear()
-    if args.outFile:
+    if args.outFile and out is not None:
         out.close()
     progress.close()
     timer.report()

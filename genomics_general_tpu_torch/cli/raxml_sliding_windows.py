@@ -1,7 +1,8 @@
 """Sliding-window ML trees via RAxML (+ built-in NJ backend).
 
 The port of genomics_general_tpu/cli/raxml_sliding_windows.py, with the
-same flags and output bytes, in one process (``GGT_NUM_PROCS>1`` raises in
+same flags and output bytes, in one process or, sharded by scaffold, in
+several (``GGT_COORDINATOR`` / ``GGT_NUM_PROCS`` / ``GGT_PROC_ID``,
 parallel/multihost); it launches no kernel.  Mirror of
 phylo/raxml_sliding_windows.py (which is
 Python-2-only there; ``print >>`` statements make it unrunnable under
@@ -113,9 +114,20 @@ def main(argv=None) -> int:
                              if s not in outgroup], dtype=np.int64)
 
     heads = ["scaffold", "start", "end", "mid", "sites"]
-    data_file = open(args.prefix + ".data.tsv", "wt")
-    data_file.write("\t".join(heads) + "\n")
-    trees_file = gzip.open(args.prefix + ".trees.gz", "wt")
+    shard_pred = common.shard_predicate()
+    if shard_pred is not None:
+        # scaffold-sharded tree inference (same layout as phyml): each
+        # process infers the windows of the scaffolds it owns; data and
+        # tree rows gather to process-0 writers in matching per-scaffold
+        # order
+        mh_data = multihost.MultiHostWriter()
+        mh_trees = multihost.MultiHostWriter()
+        data_file = trees_file = None
+    else:
+        mh_data = mh_trees = None
+        data_file = open(args.prefix + ".data.tsv", "wt")
+        data_file.write("\t".join(heads) + "\n")
+        trees_file = gzip.open(args.prefix + ".trees.gz", "wt")
     use_builtin = args.raxml == "builtin-nj"
     tmp_dir = args.tmp or "."
 
@@ -132,8 +144,12 @@ def main(argv=None) -> int:
         row = "\t".join([scaf, str(start), str(end), mid,
                          str(n_sites)]) + "\n"
         tree = tree if tree.endswith("\n") else tree + "\n"
-        data_file.write(row)
-        trees_file.write(tree)
+        if mh_data is not None:
+            mh_data.write_row(scaf, row)
+            mh_trees.write_row(scaf, tree)
+        else:
+            data_file.write(row)
+            trees_file.write(tree)
 
     # -T worker pool with an ordered bounded reorder queue (the reference's
     # raxml script has the same worker/sorter architecture,
@@ -147,7 +163,8 @@ def main(argv=None) -> int:
     for batch in engine.stream_windows(
             reader, wind,
             include=common.read_scaffold_list(args.include),
-            exclude=common.read_scaffold_list(args.exclude)):
+            exclude=common.read_scaffold_list(args.exclude),
+            scaffold_pred=shard_pred):
         plan = batch.plan
         mids = plan.mid(batch.positions)
         for w in range(plan.n_windows):
@@ -180,8 +197,17 @@ def main(argv=None) -> int:
             else:
                 pool.submit(meta, None, "NA\n")
     pool.close()
-    data_file.close()
-    trees_file.close()
+    if mh_data is not None:
+        rank0 = multihost.process_index() == 0
+        data_file = open(args.prefix + ".data.tsv", "wt") if rank0 else None
+        mh_data.finish(data_file, "\t".join(heads) + "\n",
+                       reader.scaffold_names)
+        trees_file = gzip.open(args.prefix + ".trees.gz", "wt") \
+            if rank0 else None
+        mh_trees.finish(trees_file, "", reader.scaffold_names)
+    if data_file is not None:
+        data_file.close()
+        trees_file.close()
     return 0
 
 

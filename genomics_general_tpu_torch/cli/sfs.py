@@ -13,9 +13,11 @@ raw upload, the host counter under ``GGT_EXEC=host``); completeness gates
 and target selection are vectorized on host; only qualifying SNPs enter the
 (insertion-ordered) accumulation loop.  With --subsample the whole site
 loop runs on host to consume np.random in the reference's exact order.  The
-table inputs (baseCounts / targetCounts) run on the host only.  One process
-drives one device: multi-process runs (``GGT_NUM_PROCS>1``) raise in
-parallel/multihost.
+table inputs (baseCounts / targetCounts) run on the host only.
+Multi-process runs of a genotypes input (``GGT_COORDINATOR`` /
+``GGT_NUM_PROCS`` / ``GGT_PROC_ID``, parallel/multihost) shard it by
+scaffold and merge the spectra with int64 collectives (sum of counts, min
+of first-occurrence keys); process 0 writes them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..kernels import counts as counts_k
 from ..regions import Intervals
 from ..samples import SampleData
 from ..stats.sfs import SparseFS, down_sample_base_counts, get_target_counts
+from . import common
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -289,10 +292,25 @@ def _run(args, include, exclude, n_intervals):
 
     # ---------------- site filtering + counts
     if input_type == "genotypes":
+        from ..parallel import multihost
+        shard_pred = common.shard_predicate()
+        if shard_pred is not None:
+            assert subsample_dict is None, \
+                "--subsample consumes a single RNG stream and cannot be " \
+                "scaffold-sharded; run multi-host sfs without it"
         emitters = _stream_genotypes(
             args, reader, pop_names, in_pop_names, outgroup, n_hap,
             pop_dict, subsample_dict, fs_pops, fss, include, exclude,
-            intervals, n_intervals)
+            intervals, n_intervals, shard_pred)
+        if shard_pred is not None:
+            # merge the per-process dense accumulators (sum of counts, min
+            # of first-occurrence keys reproduces the one-process nested
+            # insertion order)
+            for acc in emitters:
+                acc.counts = multihost.collective_reduce(acc.counts, "sum")
+                acc.first = multihost.collective_reduce(acc.first, "min")
+            if multihost.process_index() != 0:
+                return 0
         return _write_output(args, emitters, fs_pops)
 
     # ---------------- table inputs (baseCounts / targetCounts)
@@ -456,7 +474,7 @@ def _write_output(args, emitters, fs_pops) -> int:
 
 def _stream_genotypes(args, reader, pop_names, in_pop_names, outgroup, n_hap,
                       pop_dict, subsample_dict, fs_pops, fss, include,
-                      exclude, intervals, n_intervals):
+                      exclude, intervals, n_intervals, shard_pred):
     """Streaming accumulation over geno chunks: the count kernels with
     dispatch/collect overlap (chunk k + 1 is dispatched before chunk k is
     collected), O(chunk) host memory (the reference streams site-by-site,
@@ -481,23 +499,32 @@ def _stream_genotypes(args, reader, pop_names, in_pop_names, outgroup, n_hap,
     tracker = ScaffoldKeyTracker()
 
     def keep_mask(sids):
-        if include is None and exclude is None:
+        if include is None and exclude is None and shard_pred is None:
             return None
         names = reader.scaffold_names
         ok = np.array([(include is None or n in include)
                        and (exclude is None or n not in exclude)
+                       and (shard_pred is None or shard_pred(n))
                        for n in names])
         return ok[sids]
+
+    def kept(chunks):
+        """Each chunk cut to the sites of included, not excluded and owned
+        scaffolds before its upload, so that each process counts only its
+        own scaffolds on the card."""
+        for chunk in chunks:
+            km = keep_mask(chunk.scaffold_ids)
+            if km is not None and not km.all():
+                if not km.any():
+                    continue
+                chunk = geno_io.GenoChunk(chunk.alleles[:, km],
+                                          chunk.positions[km],
+                                          chunk.scaffold_ids[km])
+            yield chunk
 
     def process(chunk, counts):
         sids, pos = chunk.scaffold_ids, chunk.positions
         alleles = chunk.alleles
-        km = keep_mask(sids)
-        if km is not None:
-            counts, sids, pos = counts[km], sids[km], pos[km]
-            alleles = alleles[:, km]
-        if pos.size == 0:
-            return
         keys = tracker.keys_for(sids)
         if fast:
             in_counts = counts[:, in_k, :].astype(np.int64)
@@ -560,7 +587,7 @@ def _stream_genotypes(args, reader, pop_names, in_pop_names, outgroup, n_hap,
                 fss[i].add([d[p] for p in g], add_value)
 
     prev = None
-    for chunk in _engine._prefetched(reader.iter_chunks()):
+    for chunk in _engine._prefetched(kept(reader.iter_chunks())):
         handle = counts_k.site_pop_counts_dispatch(chunk.alleles, mask)
         if prev is not None:
             pc, ph = prev

@@ -4,13 +4,18 @@ the repository root on a machine with two or more NVIDIA GPUs:
 
     python3 mesh_cards.py [--sites 500000]
 
-It builds the kernels from the checkout, makes chip_smoke.py's cohort
-(H = 512 in 4 populations, 50 kb windows, ``--sites`` sites) and runs three
-of chip_smoke.py's runs through the port's CLIs: popDist (popDist
-popPairDist), run A (popFreq popDist popPairDist indHet hapStats, WC) and
-run C (ABBABABAwindows).  Each runs four times, in the order meshless,
-mesh, mesh, meshless: meshless under ``GGT_NO_MESH=1`` (one card), mesh
-with the CLIs' own default (parallel/dispatch.default_mesh(): every card).
+It builds the kernels from the checkout, makes chip_smoke.py's cohorts
+(H = 512 in 4 populations, 50 kb windows, ``--sites`` sites, and run I's
+cohort) and first runs chip_smoke.py's run S with one gloo rank a card
+(``CUDA_VISIBLE_DEVICES=<rank>``), at 2 ranks and at one rank for every
+card: each output byte-identical to its one-process run on one card,
+every rank that owns a scaffold launching its route's kernels
+(chip_smoke.run_s).  Then three of chip_smoke.py's runs through the port's
+CLIs: popDist (popDist popPairDist), run A (popFreq popDist popPairDist
+indHet hapStats, WC) and run C (ABBABABAwindows).  Each runs four times,
+in the order meshless, mesh, mesh, meshless: meshless under
+``GGT_NO_MESH=1`` (one card), mesh with the CLIs' own default
+(parallel/dispatch.default_mesh(): every card).
 It fails unless that mesh holds every card once, every mesh run writes the
 bytes of the meshless runs, launches exactly its mesh route's kernels, all
 of them inside per-card shard calls with every call launching, and every
@@ -165,8 +170,15 @@ def main() -> int:
     try:
         geno, pops = cs.make_cohort(testing, work, "cohort", args.sites,
                                     20 * args.sites)
-        report = compare_runs(mods, cs.port_clis(), transfer, mesh, geno,
-                              pops, args.sites, work)
+        cohorts = {"cohort": (geno, pops),
+                   "cohort_i": cs.make_cohort(testing, work, "cohort_i",
+                                              cs.N_SITES_I, cs.SCAFFOLD_I,
+                                              cs.MISSING_I)}
+        report = {f"run_S_{k}_ranks": cs.run_s(cs.port_clis(), cohorts,
+                                               work, n_ranks=k)
+                  for k in sorted({2, n})}
+        report.update(compare_runs(mods, cs.port_clis(), transfer, mesh,
+                                   geno, pops, args.sites, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     cs.reset(mods)

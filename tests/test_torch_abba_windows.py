@@ -89,11 +89,13 @@ def test_jackknife_kernel_and_host_routes_agree(tmp_path):
                                  {"GGT_PACKED_TRANSFER": "0"}],
                          ids=["multi_process", "raw_upload"])
 def test_port_out_of_slice_raises(env, tmp_path):
-    """Multi-process runs raise.  GGT_PACKED_TRANSFER=0 writes the packed
+    """GGT_NUM_PROCS=2 without a coordinator raises, naming the missing
+    variable.  GGT_PACKED_TRANSFER=0 writes the packed
     run's bytes (the kernel route ships its flush buffer either way)."""
     golden, module, args = CONFIGS[0]
     if "GGT_NUM_PROCS" in env:
-        with pytest.raises(AssertionError, match="NotImplementedError"):
+        with pytest.raises(AssertionError,
+                           match="ValueError: .*GGT_COORDINATOR"):
             run_cli(PORT[module], args + ["-o", str(tmp_path / "o.csv")],
                     env_extra={**CPU, **env})
         return

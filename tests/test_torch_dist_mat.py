@@ -117,5 +117,5 @@ def test_port_multi_process_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("GGT_DEVICE", "cpu")
     monkeypatch.setenv("GGT_NUM_PROCS", "2")
     from genomics_general_tpu_torch.cli import dist_mat
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(ValueError, match="GGT_COORDINATOR"):
         dist_mat.main(WIND + ["-o", str(tmp_path / "o.phy")])

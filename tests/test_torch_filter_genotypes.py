@@ -78,5 +78,5 @@ def test_port_bytes_equal_jax_cli(port_cpu, tmp_path, extra, route):
 
 def test_port_multi_process_raises(port_cpu, tmp_path):
     port_cpu.setenv("GGT_NUM_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(ValueError, match="GGT_COORDINATOR"):
         port_filter.main(SIM1 + ["-o", str(tmp_path / "o.geno")])

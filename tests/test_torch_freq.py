@@ -121,5 +121,5 @@ def test_port_routes_bytes_equal_default(port_cpu, tmp_path, env, nine):
 
 def test_port_multi_process_raises(port_cpu, tmp_path):
     port_cpu.setenv("GGT_NUM_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(ValueError, match="GGT_COORDINATOR"):
         port_freq.main(SIM1 + POPS4 + ["-o", str(tmp_path / "o.tsv")])

@@ -21,6 +21,8 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.testing",
     "genomics_general_tpu_torch.io",
     "genomics_general_tpu_torch.io.native",
+    "genomics_general_tpu_torch.io.bam",
+    "genomics_general_tpu_torch.io.tabix",
     "genomics_general_tpu_torch.io.geno",
     "genomics_general_tpu_torch.io.writers",
     "genomics_general_tpu_torch.stats",
@@ -37,6 +39,7 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.parallel.mesh",
     "genomics_general_tpu_torch.parallel.dispatch",
     "genomics_general_tpu_torch.parallel.hostpool",
+    "genomics_general_tpu_torch.parallel.launch",
     "genomics_general_tpu_torch.kernels",
     "genomics_general_tpu_torch.kernels._build",
     "genomics_general_tpu_torch.kernels.transfer",

@@ -157,9 +157,10 @@ def test_raxml_stand_in_binary_matches_jax(port_cpu, tmp_path):
 @pytest.mark.parametrize("main", [port_phyml.main, port_raxml.main],
                          ids=["phyml", "raxml"])
 def test_multi_process_runs_raise(port_cpu, monkeypatch, tmp_path, main):
-    """GGT_NUM_PROCS=2 raises, naming the roadmap item that ports it."""
+    """GGT_NUM_PROCS=2 without a coordinator raises, naming the missing
+    variable, instead of running one process."""
     monkeypatch.setenv("GGT_NUM_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="GGT_COORDINATOR"):
         main(["-g", str(SIM1), "-w", "50000", "-p", str(tmp_path / "x"),
               "--phyml" if main is port_phyml.main else "--raxml",
               "builtin-nj"])

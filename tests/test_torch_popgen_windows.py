@@ -218,7 +218,8 @@ def test_port_whh_cap_bounds_hapstats_flushes(tmp_path, monkeypatch):
     (["--analysis", "popFreq"], {"GGT_PACKED_TRANSFER": "0"}),
 ], ids=["multi_process", "wire_v2", "raw_upload"])
 def test_port_out_of_slice_raises(tmp_path, monkeypatch, extra, env):
-    """Multi-process runs raise, naming their ROADMAP item.  GGT_WIRE=2
+    """GGT_NUM_PROCS=2 without a coordinator raises, naming the missing
+    variable, instead of running one process.  GGT_WIRE=2
     (K13) and GGT_PACKED_TRANSFER=0 (K9, K12) write the default route's
     bytes."""
     monkeypatch.setenv("GGT_DEVICE", "cpu")
@@ -231,7 +232,7 @@ def test_port_out_of_slice_raises(tmp_path, monkeypatch, extra, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if "GGT_NUM_PROCS" in env:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="GGT_COORDINATOR"):
             popgen_windows.main(args + ["-o", str(tmp_path / "o.csv")])
         return
     assert popgen_windows.main(args + ["-o", str(tmp_path / "o.csv")]) == 0

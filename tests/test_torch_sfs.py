@@ -115,5 +115,5 @@ def test_port_target_counts_bytes_equal_jax_cli(port_cpu, tmp_path):
 
 def test_port_multi_process_raises(port_cpu, tmp_path):
     port_cpu.setenv("GGT_NUM_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(ValueError, match="GGT_COORDINATOR"):
         _run(port_sfs.main, GENO + ["-p", "pop1"], tmp_path / "sfs_")
