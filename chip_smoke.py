@@ -198,7 +198,20 @@ not build, launch or agree, or an output is wrong):
    within one quantum (at tol 0 under GGT_ABBA_HOST=1), the five
    distMat / distPaint goldens at tol 0, the popgen goldens again under
    GGT_WIRE=2 (byte-identical), and the freq (2), sfs (9) and
-   filterGenotypes (5) goldens at tol 0.
+   filterGenotypes (5) goldens at tol 0; then run T, the twenty host-only
+   CLIs, with every launch count reset just before and 0 just after:
+   (a) the 47 goldens of these CLIs (HOST_GOLDENS, the JAX tests'
+   arguments) through ``python -X importtime -m
+   genomics_general_tpu_torch.cli.<name>``, four processes at a time,
+   each output byte-equal to its golden and no process importing a kernel
+   module; (b) meanwhile, in this process, cohort_b's first 50,000 sites
+   (H = 512, its first two scaffolds; cut because geno_to_vcf renders
+   each genotype in Python) through geno_to_vcf and back through
+   parse_vcf, byte-equal to the input; parse_vcfs -t 4 of the VCF split
+   into its two scaffolds (equal to parse_vcf's rows with N/N for the
+   other file's samples) and into two halves of its samples (byte-equal
+   to parse_vcf's output); geno_to_plink and geno_to_eigenstrat run to
+   the end with one row an individual and a site.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -378,6 +391,226 @@ ABBA_GOLDENS = {
                                   "--minData", "0.3",
                                   "--writeFailedWindows"]),
 }
+# run T: the twenty host-only CLIs.  The 40 runs that write the 47 goldens
+# of the host-only CLIs, each with its JAX test's arguments
+# (tests/test_count_patterns.py, test_plink_eigenstrat.py,
+# test_seq_converters.py, test_geno_to_vcf.py, test_maf_to_geno.py,
+# test_merge_geno.py, test_sequence.py, test_liftover.py,
+# test_window_stats.py, test_cds_tools.py, test_parse_vcf.py): name ->
+# (CLI, arguments, the file on stdin, {golden: output}).  "{D}" is
+# tests/data, "{G}" tests/golden, "{o}" the run's output prefix; a run
+# with a file on stdin writes its one output to stdout.
+HOST_GOLDENS = {
+    "countpat_phased": (
+        "count_genotype_patterns",
+        ["-i", "{D}/sim1.geno.gz", "-f", "phased",
+         "-s", "pop1_ind1,pop2_ind1,pop3_ind1,pop4_ind1", "-o", "{o}.csv"],
+        None, {"countpat_phased.csv": "{o}.csv"}),
+    "countpat_max3": (
+        "count_genotype_patterns",
+        ["-i", "{D}/sim1.geno.gz", "-f", "phased",
+         "-s", "pop1_ind1,pop2_ind1,pop3_ind1", "--maxAlleles", "3",
+         "--includeNull", "--maxSites", "2000", "-o", "{o}.csv"],
+        None, {"countpat_max3.csv": "{o}.csv"}),
+    "countpat_diplo": (
+        "count_genotype_patterns",
+        ["-i", "{D}/sim_diplo.geno.gz", "-f", "diplo",
+         "-s", "pop1_ind1,pop1_ind2,pop2_ind1", "-o", "{o}.csv"],
+        None, {"countpat_diplo.csv": "{o}.csv"}),
+    "eig_sim1": (
+        "geno_to_eigenstrat",
+        ["-g", "{D}/sim1.geno.gz", "-f", "phased", "--genoOutFile",
+         "{o}.geno", "--snpOutFile", "{o}.snp", "--indOutFile", "{o}.ind",
+         "--chromFile", "{D}/sim.chroms.txt"],
+        None, {f"eig_sim1.{x}": f"{{o}}.{x}" for x in ("geno", "snp", "ind")}),
+    "eig_cum": (
+        "geno_to_eigenstrat",
+        ["-g", "{D}/sim1.geno.gz", "-f", "phased",
+         "-s", "pop1_ind1,pop2_ind1,pop3_ind1", "--genoOutFile", "{o}.geno",
+         "--snpOutFile", "{o}.snp", "--indOutFile", "{o}.ind",
+         "--chromFile", "{D}/sim.chroms_id.txt", "--cumulativePos"],
+        None, {f"eig_cum.{x}": f"{{o}}.{x}" for x in ("geno", "snp", "ind")}),
+    "plink_sim1": (
+        "geno_to_plink",
+        ["-g", "{D}/sim1.geno.gz", "-f", "phased", "--prefix", "{o}",
+         "--makeFAM"],
+        None,
+        {f"plink_sim1.{x}": f"{{o}}.{x}" for x in ("ped", "map", "fam")}),
+    "g2s_cat_split": (
+        "geno_to_seq",
+        ["-g", "{D}/sim1.geno.gz", "-f", "fasta", "-M", "cat",
+         "--splitPhased", "-s", "{o}.fa"],
+        None, {"g2s_cat_split.fa": "{o}.fa"}),
+    "g2s_contigs": (
+        "geno_to_seq",
+        ["-g", "{D}/sim_paint.geno.gz", "-f", "phylip", "-M", "contigs",
+         "--NtoGap", "--ploidy", "1", "-s", "{o}.phy"],
+        None, {"g2s_contigs.phy": "{o}.phy"}),
+    "g2s_wind": (
+        "geno_to_seq",
+        ["-g", "{D}/sim_paint.geno.gz", "-f", "fasta", "-M", "windows",
+         "--windType", "sites", "--windSize", "100", "--minSites", "100",
+         "--maxDist", "1000000", "--overlap", "0", "--ploidy", "1",
+         "-s", "{o}.fa"],
+        None, {"g2s_wind.fa": "{o}.fa"}),
+    "s2g_fused": (
+        "seq_to_geno",
+        ["-s", "{G}/g2s_cat_split.fa", "-f", "fasta", "-M", "samples",
+         "-C", "chrA", "-P", *["2"] * 20, "-g", "{o}.geno"],
+        None, {"s2g_fused.geno": "{o}.geno"}),
+    "s2g_contigs": (
+        "seq_to_geno",
+        ["-s", "{G}/g2s_contigs.phy", "-f", "phylip", "-M", "contigs",
+         "-N", "samp1", "-g", "{o}.geno"],
+        None, {"s2g_contigs.geno": "{o}.geno"}),
+    "g2v_basic": (
+        "geno_to_vcf", ["-g", "{D}/sim1.geno.gz", "-f", "phased",
+                        "-o", "{o}.vcf"],
+        None, {"g2v_basic.vcf": "{o}.vcf"}),
+    "g2v_ref": (
+        "geno_to_vcf",
+        ["-g", "{D}/sim1.geno.gz", "-f", "phased", "-r", "{D}/sim_ref.fa",
+         "-s", "pop1_ind1,pop2_ind1,pop3_ind1", "-o", "{o}.vcf"],
+        None, {"g2v_ref.vcf": "{o}.vcf"}),
+    "g2v_diplo": (
+        "geno_to_vcf", ["-g", "{D}/sim_diplo.geno.gz", "-f", "diplo",
+                        "-o", "{o}.vcf"],
+        None, {"g2v_diplo.vcf": "{o}.vcf"}),
+    "maf_all": (
+        "maf_to_geno",
+        ["-m", "{D}/sim1.maf", "--ref", "hg.chr1", "--seqNames", "hg.chr1",
+         "pan.chr3", "gor.chr2", "pon.chr5", "--minSeqsRequired", "4",
+         "-g", "{o}.geno"],
+        None, {"maf_all.geno": "{o}.geno"}),
+    "maf_sub": (
+        "maf_to_geno",
+        ["-m", "{D}/sim1.maf", "--ref", "hg.chr1", "--seqNames", "hg.chr1",
+         "pan.chr3", "gor.chr2", "--renameSeqsAs", "hg", "pan", "gor",
+         "--renameChromAs", "chr1", "--lowercaseToN", "--minSize", "25",
+         "-g", "{o}.geno"],
+        None, {"maf_sub.geno": "{o}.geno"}),
+    "merge_intersect": (
+        "merge_geno",
+        ["-i", "{D}/sim1.geno.gz", "-i", "{D}/sim_hap.geno.gz",
+         "-f", "{D}/sim.fai", "--method", "intersect", "-o", "{o}.geno"],
+        None, {"merge_intersect.geno": "{o}.geno"}),
+    "merge_union": (
+        "merge_geno",
+        ["-i", "{D}/sim1.geno.gz", "-i", "{D}/sim_hap.geno.gz",
+         "-f", "{D}/sim.fai", "--method", "union", "--unionMin", "1",
+         "--mustIncludeFirst", "1", "--missing", "NN", "-o", "{o}.geno"],
+        None, {"merge_union.geno": "{o}.geno"}),
+    "merge_all": (
+        "merge_geno",
+        ["-i", "{D}/sim1.geno.gz", "-i", "{D}/sim_hap.geno.gz",
+         "-f", "{D}/sim_small.fai", "--method", "all", "--outputOnly", "2",
+         "-o", "{o}.geno"],
+        None, {"merge_all.geno": "{o}.geno"}),
+    "seq_regions": (
+        "sequence", ["-r", "scaf1:101-200", "scaf2:50-10", "--extendLeft",
+                     "5", "--extendRight", "5"],
+        "{D}/sim_ref.fa", {"seq_regions.fa": "{o}.fa"}),
+    "seq_regfile": (
+        "sequence", ["-P", "-f", "{D}/sim.regions.txt", "--preserveNames",
+                     "-l", "60"],
+        "{D}/sim_ref.fa", {"seq_regfile.phy": "{o}.phy"}),
+    "seq_phy2fa": (
+        "sequence", ["-p", "-r", "scaf2:1-100:-", "--truncateNames"],
+        "{D}/sim_single.phy", {"seq_phy2fa.fa": "{o}.fa"}),
+    "transfer_freq": (
+        "transfer_scaf_pos",
+        ["-i", "{G}/freq_derived.tsv", "-t", "{D}/sim.transfers.txt",
+         "--header", "--keepFails", "-f", "{o}.fails.tsv", "-o", "{o}.tsv"],
+        None, {"transfer_freq.tsv": "{o}.tsv",
+               "transfer_freq.fails.tsv": "{o}.fails.tsv"}),
+    "transfer_ref": (
+        "fasta_transfer", ["-i", "{D}/sim_ref.fa", "-t",
+                           "{D}/sim.transfers.txt", "-o", "{o}.fa"],
+        None, {"transfer_ref.fa": "{o}.fa"}),
+    "windowstats_coord": (
+        "window_stats", ["-i", "{G}/freq_derived.tsv", "-w", "20000",
+                         "-s", "10000", "-m", "5", "-o", "{o}.csv"],
+        None, {"windowstats_coord.csv": "{o}.csv"}),
+    "windowstats_sites": (
+        "window_stats",
+        ["-i", "{G}/freq_derived.tsv", "--windType", "sites", "-w", "50",
+         "-O", "10", "-m", "10", "--stats", "mean", "median", "min", "max",
+         "sd", "sum", "q5", "q25", "q75", "q95", "-o", "{o}.csv"],
+        None, {"windowstats_sites.csv": "{o}.csv"}),
+    "windowstats_predef": (
+        "window_stats",
+        ["-i", "{G}/freq_derived.tsv", "--windType", "predefined",
+         "--windCoords", "{D}/sim1.windCoords.txt", "--columns", "pop2",
+         "pop3", "-o", "{o}.csv"],
+        None, {"windowstats_predef.csv": "{o}.csv"}),
+    "cst_basic": (
+        "coding_site_types",
+        ["-a", "{D}/sim.gff3", "-f", "gff3", "-r", "{D}/sim_ref.fa",
+         "-o", "{o}.tsv", "--ignoreConflicts"],
+        None, {"cst_basic.tsv": "{o}.tsv"}),
+    "cst_vcf": (
+        "coding_site_types",
+        ["-a", "{D}/sim.gff3", "-f", "gff3", "-r", "{D}/sim_ref.fa",
+         "-v", "{D}/sim_scaf.vcf.gz", "-o", "{o}.tsv", "--ignoreConflicts"],
+        None, {"cst_vcf.tsv": "{o}.tsv"}),
+    "cst_gtf": (
+        "coding_site_types",
+        ["-a", "{D}/sim.gtf", "-f", "gtf", "-r", "{D}/sim_ref.fa",
+         "-o", "{o}.tsv", "--noheader"],
+        None, {"cst_gtf.tsv": "{o}.tsv"}),
+    "cds_aln": (
+        "extract_cds_alignments",
+        ["--annotation", "{D}/sim.gff3", "-g", "{D}/sim1.geno.gz",
+         "-o", "{o}.phy"],
+        None, {"cds_aln.phy": "{o}.phy"}),
+    "cds_aln_nosplit": (
+        "extract_cds_alignments",
+        ["--annotation", "{D}/sim.gff3", "-g", "{D}/sim1.geno.gz",
+         "--no-split", "--outFormat", "fasta", "--includeCoordinates",
+         "-o", "{o}.fa"],
+        None, {"cds_aln_nosplit.fa": "{o}.fa"}),
+    "cds_aln_targets": (
+        "extract_cds_alignments",
+        ["--annotation", "{D}/sim.gff3", "-g", "{D}/sim1.geno.gz",
+         "-t", "mRNA03", "mRNA08", "-o", "{o}.phy"],
+        None, {"cds_aln_targets.phy": "{o}.phy"}),
+    "vcfs_union": (
+        "parse_vcfs",
+        ["-i", "{D}/sim1.vcf.gz", "-i", "{D}/sim2.vcf.gz", "-M", "union",
+         "--excludeDuplicates", "-o", "{o}.geno"],
+        None, {"vcfs_union.geno": "{o}.geno"}),
+    "vcfs_intersect": (
+        "parse_vcfs",
+        ["-i", "{D}/sim1.vcf.gz", "-i", "{D}/sim2.vcf.gz",
+         "-M", "intersect", "--excludeDuplicates", "-o", "{o}.geno"],
+        None, {"vcfs_intersect.geno": "{o}.geno"}),
+    "vcf_basic": (
+        "parse_vcf", ["-i", "{D}/sim1.vcf.gz", "-o", "{o}.geno"],
+        None, {"vcf_basic.geno": "{o}.geno"}),
+    "vcf_snp_qual": (
+        "parse_vcf", ["-i", "{D}/sim1.vcf.gz", "--skipIndels", "--minQual",
+                      "30", "-o", "{o}.geno"],
+        None, {"vcf_snp_qual.geno": "{o}.geno"}),
+    "vcf_gtf": (
+        "parse_vcf",
+        ["-i", "{D}/sim1.vcf.gz", "--gtf", "flag=DP", "min=5", "max=50",
+         "--gtf", "flag=GQ", "min=30", "gtTypes=Het", "-o", "{o}.geno"],
+        None, {"vcf_gtf.geno": "{o}.geno"}),
+    "vcf_field_dp": (
+        "parse_vcf", ["-i", "{D}/sim1.vcf.gz", "--field", "DP",
+                      "-o", "{o}.tsv"],
+        None, {"vcf_field_dp.tsv": "{o}.tsv"}),
+    "vcf_dedup_ref": (
+        "parse_vcf", ["-i", "{D}/sim1.vcf.gz", "--excludeDuplicates",
+                      "--addRefTrack", "-s", "s1,s3,s5", "-o", "{o}.geno"],
+        None, {"vcf_dedup_ref.geno": "{o}.geno"}),
+}
+# run T's full width: cohort_b's first 50,000 sites (its first two
+# scaffolds, 25,000 sites each, so the VCF splits by scaffold).  Cut from
+# the 100,000 because geno_to_vcf renders every genotype in Python (~30 s
+# for 50,000 sites at H = 512 on a CPU core)
+N_SITES_T = 50_000
+PORT_CLI = "genomics_general_tpu_torch.cli"
 
 
 def log(*a):
@@ -4675,6 +4908,240 @@ def count_goldens(clis, counts, work: Path):
     return n_files
 
 
+def host_cli(cli: str, argv, env: dict, stdin=None, stdout=None,
+             timeout: float = 600) -> tuple[float, set]:
+    """``python -X importtime -m genomics_general_tpu_torch.cli.<cli> argv``
+    from the repository root, ``env`` over this process's environment;
+    returns its wall and the modules it imported (-X importtime's report
+    on stderr).  Raises if it fails or imports a kernel module, JAX or the
+    JAX package."""
+    with contextlib.ExitStack() as files:
+        fin = files.enter_context(open(stdin, "rb")) if stdin \
+            else subprocess.DEVNULL
+        fout = files.enter_context(open(stdout, "wb")) if stdout \
+            else subprocess.DEVNULL
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", f"{PORT_CLI}.{cli}",
+             *argv], stdin=fin, stdout=fout, stderr=subprocess.PIPE,
+            text=True, cwd=REPO, timeout=timeout,
+            env={**os.environ, "PYTHONPATH": str(REPO), **env})
+        wall = time.perf_counter() - t0
+    report = [ln for ln in r.stderr.splitlines()
+              if ln.startswith("import time:")]
+    if r.returncode != 0:
+        rest = [ln for ln in r.stderr.splitlines()
+                if not ln.startswith("import time:")]
+        raise AssertionError(f"{cli} exited {r.returncode}: "
+                             + "\n".join(rest)[-3000:])
+    imported = {ln.rsplit("|", 1)[1].strip() for ln in report[1:]}
+    barred = sorted(m for m in imported
+                    if m.startswith("genomics_general_tpu_torch.kernels")
+                    or m.split(".")[0] in ("jax", "genomics_general_tpu"))
+    if barred:
+        raise AssertionError(f"{cli} imported {barred}")
+    return wall, imported
+
+
+def host_golden_runs(out: Path) -> dict:
+    """HOST_GOLDENS with their paths filled in, each run's outputs under
+    ``out``: name -> (CLI, arguments, stdin, {golden path: output path})."""
+    D, G = REPO / "tests" / "data", REPO / "tests" / "golden"
+    runs = {}
+    for name, (cli, args, stdin, outs) in HOST_GOLDENS.items():
+        def fill(s, o=out / name):
+            return s.format(D=D, G=G, o=o)
+        runs[name] = (cli, [fill(a) for a in args],
+                      fill(stdin) if stdin else None,
+                      {G / g: Path(fill(o)) for g, o in outs.items()})
+    return runs
+
+
+def run_host_golden(run, env: dict) -> tuple[float, list]:
+    """One run of :func:`host_golden_runs` through :func:`host_cli`: its
+    wall and the goldens its outputs differ from."""
+    cli, argv, stdin, outs = run
+    wall, _ = host_cli(cli, argv, env, stdin,
+                       next(iter(outs.values())) if stdin else None)
+    return wall, [g.name for g, o in outs.items()
+                  if o.read_bytes() != g.read_bytes()]
+
+
+def split_vcf(vcf: Path, work: Path) -> dict:
+    """The VCF as two files by scaffold (its first two) and as two by
+    samples (the first half and the rest), and a .fai of its scaffolds'
+    last positions: name -> path."""
+    meta, cols, rows = [], None, []
+    with open(vcf, "rb") as f:
+        for line in f:
+            if line.startswith(b"##"):
+                meta.append(line)
+            elif line.startswith(b"#"):
+                cols = line.rstrip(b"\n").split(b"\t")
+            else:
+                rows.append(line)
+    half = 9 + (len(cols) - 9) // 2
+    last = {}
+    for r in rows:
+        chrom, pos, _ = r.split(b"\t", 2)
+        last[chrom] = pos
+    scafs = list(last)
+    out = {"fai": work / "run_T.fai"}
+    out["fai"].write_bytes(b"".join(s + b"\t" + p + b"\n"
+                                    for s, p in last.items()))
+    for k, scaf in enumerate(scafs[:2]):
+        out[f"scaf{k}"] = work / f"run_T.scaf{k}.vcf"
+        with open(out[f"scaf{k}"], "wb") as f:
+            f.writelines(meta)
+            f.write(b"\t".join(cols) + b"\n")
+            f.writelines(r for r in rows if r.startswith(scaf + b"\t"))
+    for side, pick in (("left", slice(9, half)), ("right", slice(half, None))):
+        out[side] = work / f"run_T.{side}.vcf"
+        with open(out[side], "wb") as f:
+            f.writelines(meta)
+            for r in [b"\t".join(cols) + b"\n"] + rows:
+                fields = r.rstrip(b"\n").split(b"\t")
+                f.write(b"\t".join(fields[:9] + fields[pick]) + b"\n")
+    return out
+
+
+def scaffold_merge_oracle(geno: Path, n_scaffolds: int) -> bytes:
+    """What parse_vcfs -M union writes for the scaffold-disjoint files of
+    :func:`split_vcf`, from ``geno``, the whole VCF's parse: every sample
+    once for each file, a row's own file's genotypes and "N/N" for the
+    other file's samples."""
+    lines = geno.read_bytes().splitlines()
+    head = lines[0].split(b"\t")
+    n = len(head) - 2
+    out = [b"\t".join(head[:2] + head[2:] * n_scaffolds)]
+    miss = b"\t".join([b"N/N"] * n)
+    order = {}
+    for line in lines[1:]:
+        chrom, pos, gts = line.split(b"\t", 2)
+        k = order.setdefault(chrom, len(order))
+        out.append(b"\t".join([chrom, pos] + [gts if j == k else miss
+                                              for j in range(n_scaffolds)]))
+    return b"\n".join(out) + b"\n"
+
+
+def host_full_width(geno_gz: Path, work: Path) -> dict:
+    """Run T (b): the cohort's first N_SITES_T sites through geno_to_vcf,
+    parse_vcf (the geno's bytes back), parse_vcfs of two scaffold-disjoint
+    files (== the oracle from parse_vcf) and of two sample-disjoint files
+    (== the geno's bytes), geno_to_plink and geno_to_eigenstrat, in this
+    process through each CLI's ``main``: the walls."""
+    import gzip
+    import itertools
+    from genomics_general_tpu_torch.cli import (geno_to_eigenstrat,
+                                                geno_to_plink, geno_to_vcf,
+                                                parse_vcf, parse_vcfs)
+    geno = work / "run_T.geno"
+    with gzip.open(geno_gz, "rb") as src, open(geno, "wb") as dst:
+        dst.writelines(itertools.islice(src, N_SITES_T + 1))
+    with open(geno) as f:
+        n_ind = len(f.readline().split()) - 2
+    walls = {}
+
+    def call(name, main, argv):
+        walls[name], _ = run_cli(lambda a: main(a) or 0,
+                                 [str(a) for a in argv])
+
+    vcf = work / "run_T.vcf"
+    call("geno_to_vcf", geno_to_vcf.main,
+         ["-g", geno, "-f", "phased", "-o", vcf])
+    back = work / "run_T.back.geno"
+    call("parse_vcf", parse_vcf.main, ["-i", vcf, "-o", back])
+    same_bytes([geno, back], "run_T geno -> VCF -> geno")
+    t0 = time.perf_counter()
+    part = split_vcf(vcf, work)
+    walls["split"] = time.perf_counter() - t0
+    by_scaf = work / "run_T.by_scaffold.geno"
+    call("parse_vcfs_scaffolds", parse_vcfs.main,
+         ["-i", part["scaf0"], "-i", part["scaf1"], "-f", part["fai"],
+          "-M", "union", "-t", "4", "-o", by_scaf])
+    if by_scaf.read_bytes() != scaffold_merge_oracle(back, 2):
+        raise AssertionError("run_T parse_vcfs of the two scaffolds differs "
+                             "from parse_vcf's rows with N/N for the other "
+                             "file's samples")
+    by_samples = work / "run_T.by_samples.geno"
+    call("parse_vcfs_samples", parse_vcfs.main,
+         ["-i", part["left"], "-i", part["right"], "-f", part["fai"],
+          "-M", "union", "-t", "4", "-o", by_samples])
+    same_bytes([back, by_samples], "run_T parse_vcfs of the two sample "
+               "halves vs parse_vcf of the whole")
+    plink = work / "run_T.plink"
+    call("geno_to_plink", geno_to_plink.main,
+         ["-g", geno, "-f", "phased", "--prefix", plink, "--makeFAM"])
+    eig = {x: work / f"run_T.eig.{x}" for x in ("geno", "snp", "ind")}
+    call("geno_to_eigenstrat", geno_to_eigenstrat.main,
+         ["-g", geno, "-f", "phased", "--genoOutFile", eig["geno"],
+          "--snpOutFile", eig["snp"], "--indOutFile", eig["ind"]])
+    ped = Path(f"{plink}.ped").read_text().splitlines()
+    n_map = len(Path(f"{plink}.map").read_text().splitlines())
+    eig_rows = eig["geno"].read_text().splitlines()
+    n_snp = len(eig["snp"].read_text().splitlines())
+    n_eig_ind = len(eig["ind"].read_text().splitlines())
+    if len(ped) != n_ind or not 0 < n_map <= N_SITES_T or \
+            any(len(r.split()) != 6 + 2 * n_map for r in ped) or \
+            n_eig_ind != n_ind or not 0 < n_snp == len(eig_rows) or \
+            any(len(r) != n_ind for r in eig_rows):
+        raise AssertionError(f"run_T plink / eigenstrat: {len(ped)} ped "
+                             f"rows, {n_map} map rows, {n_snp} snp rows, "
+                             f"{len(eig_rows)} geno rows, {n_eig_ind} "
+                             f"individuals of {n_ind}")
+    return {"sites": N_SITES_T, "individuals": n_ind, "plink_sites": n_map,
+            "eigenstrat_sites": n_snp, **{f"{k}_s": v
+                                          for k, v in walls.items()}}
+
+
+def run_t(mods, cohort_b: Path, work: Path, card: str) -> dict:
+    """Run T: the twenty host-only CLIs on the card's machine, the launch
+    counts reset just before and all zero just after.  (a) The 40 runs of
+    HOST_GOLDENS through ``python -m`` (four at a time), each output equal
+    to its golden byte for byte, no run importing a kernel module; (b)
+    meanwhile, :func:`host_full_width` in this process.  The walls are
+    logged beside ``card``, the card's name and power limit."""
+    reset(mods)
+    t0 = time.perf_counter()
+    out = work / "run_T"
+    out.mkdir()
+    runs = host_golden_runs(out)
+    done = {}
+
+    def golden(name, run):
+        res = run_host_golden(run, {"GGT_DEVICE": "cuda"})
+        done[name] = time.perf_counter() - t0
+        return res
+    with ThreadPoolExecutor(4) as pool:
+        futs = {name: pool.submit(golden, name, run)
+                for name, run in runs.items()}
+        report = host_full_width(cohort_b, work)
+        walls = {name: f.result() for name, f in futs.items()}
+    report["goldens_s"] = max(done.values())
+    differ = {name: d for name, (_, d) in walls.items() if d}
+    if differ:
+        raise AssertionError(f"run_T goldens differ: {differ}")
+    n_files = sum(len(r[3]) for r in runs.values())
+    launched = {k: v for k, v in launches_of(mods).items() if v}
+    if launched:
+        raise AssertionError(f"run_T launched kernels: {launched}")
+    report["wall_s"] = time.perf_counter() - t0
+    slowest = max(walls, key=lambda n: walls[n][0])
+    log(f"[golden] run_T: {n_files} goldens of the host-only CLIs from "
+        f"{len(runs)} runs of python -m {PORT_CLI}.<name>, equal byte for "
+        f"byte, no kernel module imported; slowest {slowest} "
+        f"{walls[slowest][0]:.3f}s")
+    log(f"[e2e] run_T on {card} (H = {2 * report['individuals']}, "
+        f"{N_SITES_T} sites): "
+        + ", ".join(f"{k} {v:.3f}s" for k, v in report.items()
+                    if k.endswith("_s"))
+        + f"; geno -> VCF -> geno, parse_vcfs by scaffold and by samples "
+        f"byte-equal; plink {report['plink_sites']} sites, eigenstrat "
+        f"{report['eigenstrat_sites']}; all {len(launches_of(mods))} "
+        "launch counts 0")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5112,6 +5579,10 @@ def main() -> int:
         n_files = count_goldens(clis, counts, work)
         log(f"[golden] freq, sfs and filterGenotypes: {n_files} goldens "
             "equal at tol 0")
+        runs["run_T"] = (None, None, run_t((pair, counts, abba, ws, ldk),
+                                           cohorts["cohort_b"][0], work,
+                                           card))
+        log(f"[time] phase 4 done at {time.perf_counter() - t_start:.1f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -25,6 +25,11 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.io.tabix",
     "genomics_general_tpu_torch.io.geno",
     "genomics_general_tpu_torch.io.writers",
+    "genomics_general_tpu_torch.io.seqio",
+    "genomics_general_tpu_torch.io.table",
+    "genomics_general_tpu_torch.io.vcf",
+    "genomics_general_tpu_torch.io.vcf_fast",
+    "genomics_general_tpu_torch.cds",
     "genomics_general_tpu_torch.stats",
     "genomics_general_tpu_torch.stats.popgen",
     "genomics_general_tpu_torch.stats.abbababa",
@@ -61,6 +66,26 @@ PORT_MODULES = [
     "genomics_general_tpu_torch.cli.filter_genotypes",
     "genomics_general_tpu_torch.cli.phyml_sliding_windows",
     "genomics_general_tpu_torch.cli.raxml_sliding_windows",
+    "genomics_general_tpu_torch.cli.count_genotype_patterns",
+    "genomics_general_tpu_torch.cli.fasta_transfer",
+    "genomics_general_tpu_torch.cli.geno_to_eigenstrat",
+    "genomics_general_tpu_torch.cli.geno_to_plink",
+    "genomics_general_tpu_torch.cli.geno_to_seq",
+    "genomics_general_tpu_torch.cli.geno_to_vcf",
+    "genomics_general_tpu_torch.cli.jackknife",
+    "genomics_general_tpu_torch.cli.maf_to_geno",
+    "genomics_general_tpu_torch.cli.merge_geno",
+    "genomics_general_tpu_torch.cli.seq_to_geno",
+    "genomics_general_tpu_torch.cli.sequence",
+    "genomics_general_tpu_torch.cli.transfer_scaf_pos",
+    "genomics_general_tpu_torch.cli.window_stats",
+    "genomics_general_tpu_torch.cli.parse_vcf",
+    "genomics_general_tpu_torch.cli.parse_vcfs",
+    "genomics_general_tpu_torch.cli.tabix_index",
+    "genomics_general_tpu_torch.cli.vcf_chrom_transfer",
+    "genomics_general_tpu_torch.cli.coding_site_types",
+    "genomics_general_tpu_torch.cli.extract_cds_alignments",
+    "genomics_general_tpu_torch.cli.filter_sam_by_target_base",
 ]
 
 _PROBE = """
