@@ -28,6 +28,7 @@ import argparse
 import itertools
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -70,6 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    t_entry = time.perf_counter_ns()        # cli.setup's start (--profile)
     from ..parallel import multihost
     multihost.maybe_initialize()
     args = build_parser().parse_args(argv)
@@ -129,7 +131,7 @@ def main(argv=None) -> int:
 
     # ---- runtime setup
     mesh = common.get_mesh()
-    timer = engine.StageTimer(args.profile)
+    timer = engine.StageTimer(args.profile, start_ns=t_entry)
     progress = engine.Progress(args.verbose)
 
     head = "windowID,scaffold,start,end,mid,sites," if args.addWindowID \
@@ -257,25 +259,26 @@ def main(argv=None) -> int:
         handles = {}
         dev = None
         if share_upload and span.shape[1]:
-            with timer.stage("h2d"):
+            with timer.stage("h2d", flush=batch.flush):
                 dev = transfer.upload_span(span, mesh=mesh)
-        with timer.stage("kernel"):
+        with timer.stage("kernel", flush=batch.flush):
             if use_blocks and blocks_ind:
                 handles["indblocks"] = pair_k.window_pair_ind_blocks_dispatch(
                     span, plan.first.astype(np.int32),
                     plan.n_sites.astype(np.int32), ind_mask, het_rows,
-                    ms_gate)
+                    ms_gate, timer=timer)
             elif use_blocks and need_het:
                 # pop-level blocks + per-individual own-pair raw counts in
                 # one fetch; no [W, I, I] matrices come back
                 handles["pophet"] = pair_k.window_pair_ind_blocks_dispatch(
                     span, plan.first.astype(np.int32),
                     plan.n_sites.astype(np.int32), dist_mask, het_rows,
-                    ms_gate)
+                    ms_gate, timer=timer)
             elif use_blocks:
                 handles["pairblocks"] = pair_k.window_pair_block_stats_dispatch(
                     span, plan.first.astype(np.int32),
-                    plan.n_sites.astype(np.int32), dist_mask, min_sites)
+                    plan.n_sites.astype(np.int32), dist_mask, min_sites,
+                    timer=timer)
             elif need_dist:
                 handles["pair"] = pair_k.window_pair_counts_dispatch(
                     dev if dev is not None else span,
@@ -296,9 +299,9 @@ def main(argv=None) -> int:
         values: dict[str, np.ndarray] = {}
 
         if use_blocks and blocks_ind:
-            with timer.stage("d2h"):
+            with timer.stage("d2h", flush=batch.flush):
                 isums, icnts, het_m, het_s = handles["indblocks"].collect()
-            with timer.stage("finalize"):
+            with timer.stage("finalize", flush=batch.flush):
                 if "popDist" in analysis or "popPairDist" in analysis:
                     psums = np.einsum("pi,wij,qj->wpq", pop_agg, isums,
                                       pop_agg)
@@ -320,9 +323,9 @@ def main(argv=None) -> int:
                     for key, v in het.items():
                         values["het_" + key] = v
         elif use_blocks and need_het:
-            with timer.stage("d2h"):
+            with timer.stage("d2h", flush=batch.flush):
                 psums, pcnts, het_m, het_s = handles["pophet"].collect()
-            with timer.stage("finalize"):
+            with timer.stage("finalize", flush=batch.flush):
                 if "popDist" in analysis or "popPairDist" in analysis:
                     values.update(popgen.group_dist_stats_from_blocks(
                         psums, pcnts, dist_pops, dist_sizes,
@@ -333,17 +336,17 @@ def main(argv=None) -> int:
                 for key, v in het.items():
                     values["het_" + key] = v
         elif use_blocks:
-            with timer.stage("d2h"):
+            with timer.stage("d2h", flush=batch.flush):
                 bsums, bcnts = handles["pairblocks"].collect()
-            with timer.stage("finalize"):
+            with timer.stage("finalize", flush=batch.flush):
                 values.update(popgen.group_dist_stats_from_blocks(
                     bsums, bcnts, dist_pops, dist_sizes,
                     do_pairs="popPairDist" in analysis,
                     min_data=args.minData))
         elif need_dist:
-            with timer.stage("d2h"):
+            with timer.stage("d2h", flush=batch.flush):
                 mism, shar = handles["pair"].collect()
-            with timer.stage("finalize"):
+            with timer.stage("finalize", flush=batch.flush):
                 ctx = popgen.DistStatsContext(mism, shar)
                 # analysis order matters: the reference mutates the cached
                 # matrix (popgenWindows.py:51-64)
@@ -371,10 +374,10 @@ def main(argv=None) -> int:
 
         if need_freq or need_wc:
             needed = batch.needed_end
-            with timer.stage("d2h"):
+            with timer.stage("d2h", flush=batch.flush):
                 counts = handles["counts"].collect() if "counts" in handles \
                     else np.zeros((0, len(freq_groups), 4), np.int32)  # [S, G, 4]
-            with timer.stage("finalize"):
+            with timer.stage("finalize", flush=batch.flush):
                 if need_freq:
                     complete = (batch.alleles[:, :needed] >= 0).all(axis=0)
                     group_counts = {g: counts[:, gi, :]
@@ -389,7 +392,7 @@ def main(argv=None) -> int:
                             counts[:, gidx[x], :], counts[:, gidx[y], :],
                             zip(plan.first, plan.last))
 
-        with timer.stage("write"):
+        with timer.stage("write", flush=batch.flush):
             if c_out is not None and n_w:
                 # whole-batch C row emitter (io/native.format_window_csv):
                 # replaces ~n_w * n_stats round()+str() Python calls with one
@@ -473,17 +476,19 @@ def main(argv=None) -> int:
         dispatch, finalize,
         # resume: skip batches already fully written
         skip=lambda b: (b.plan.n_windows == 0
-                        or b.window_offset + b.plan.n_windows <= skip_windows))
+                        or b.window_offset + b.plan.n_windows <= skip_windows),
+        timer=timer)
 
-    if mh_writer is not None:
-        out = writers.open_out(args.outFile) \
-            if multihost.process_index() == 0 else None
-        mh_writer.finish(out, header_line, reader.scaffold_names)
-    elif cursor is not None:
-        cursor.clear()
-    if args.outFile and out is not None:
-        out.close()
-    progress.close()
+    with timer.span("cli.close"):
+        if mh_writer is not None:
+            out = writers.open_out(args.outFile) \
+                if multihost.process_index() == 0 else None
+            mh_writer.finish(out, header_line, reader.scaffold_names)
+        elif cursor is not None:
+            cursor.clear()
+        if args.outFile and out is not None:
+            out.close()
+        progress.close()
     timer.report()
     return 0
 

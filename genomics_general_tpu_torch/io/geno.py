@@ -34,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import encoding
+from ..engine import NO_TIMER
 from ..samples import HaplotypeModel, SampleData
 
 _POW10 = 10 ** np.arange(19, dtype=np.int64)[::-1]
@@ -622,7 +623,7 @@ class GenoReader:
 
     # -------------------------------------------------------- entry points
 
-    def _iter_chunks_fused(self, threads: int):
+    def _iter_chunks_fused(self, threads: int, timer):
         """Fused decompress+tokenize over gzip member segments.
 
         The sequential gz session decompresses on one thread while the
@@ -657,6 +658,7 @@ class GenoReader:
         # decompressed offset `skip`
         self._sess_leftover = None
         self._gz_sess = None
+        timer.count("text_bytes", arr0.size)
 
         def gen():
             from collections import deque
@@ -673,7 +675,7 @@ class GenoReader:
                 arr = decompress_gz_segment(blob, a, b)
                 head, body, tail = split3(arr)
                 raw = self.parse_blob_raw(body) if body.size else None
-                return head, raw, tail
+                return head, raw, tail, arr.size
 
             def emit(raw):
                 if raw is None:
@@ -696,7 +698,8 @@ class GenoReader:
                         idx += 1
                     (a, b), fut = pending.popleft()
                     try:
-                        head, raw, tail = fut.result()
+                        with timer.span("parse.wait_tokenize"):
+                            head, raw, tail, n_text = fut.result()
                     except RuntimeError:
                         # false member boundary: merge with the successor
                         # and retry — nothing of this segment was yielded
@@ -707,6 +710,7 @@ class GenoReader:
                                 ((a, b2), pool.submit(job, a, b2)))
                             continue
                         raise
+                    timer.count("text_bytes", n_text)
                     boundary = np.concatenate([prev_tail, head]) \
                         if prev_tail.size else head
                     if boundary.size and boundary[-1] != ord("\n"):
@@ -728,27 +732,41 @@ class GenoReader:
 
         return gen()
 
-    def iter_chunks(self, threads: int | None = None):
+    def iter_chunks(self, threads: int | None = None, timer=None):
         """Yield parsed chunks in order.
 
         With ``threads`` > 1 (default: min(4, cpu count) when the native
         tokenizer is active), blob parses run on a thread pool — the ctypes
         tokenizer releases the GIL, so chunk parses genuinely overlap.  Blob
         slicing and scaffold-id assignment stay on the consumer thread, so
-        ordering and id stability are preserved by construction."""
+        ordering and id stability are preserved by construction.
+
+        ``timer`` (engine.StageTimer) spans each read of text
+        (``parse.inflate``) and each wait on the pool
+        (``parse.wait_tokenize``), and counts the text's bytes
+        (``text_bytes``)."""
+        timer = timer or NO_TIMER
         if threads is None:
             threads = min(4, os.cpu_count() or 1)
         if threads > 1 and self._gz_segs is not None \
                 and self._gz_sess is not None:
-            gen = self._iter_chunks_fused(threads)
+            gen = self._iter_chunks_fused(threads, timer)
             if gen is not None:
                 yield from gen
                 return
+
+        def read():
+            with timer.span("parse.inflate"):
+                blob = self._read_chunk_lines()
+            if blob is not None:
+                timer.count("text_bytes", len(blob))
+            return blob
+
         # the first blob must be parsed serially: it establishes the
         # genotype-block layout the workers depend on
-        blob = self._read_chunk_lines()
+        blob = read()
         while blob is not None and not self._ensure_parser(blob):
-            blob = self._read_chunk_lines()
+            blob = read()
         if blob is None:
             return
         if threads <= 1:
@@ -756,7 +774,7 @@ class GenoReader:
                 chunk = self._raw_to_chunk(self.parse_blob_raw(blob))
                 if chunk.positions.size:
                     yield chunk
-                blob = self._read_chunk_lines()
+                blob = read()
             return
         from concurrent.futures import ThreadPoolExecutor
         from collections import deque
@@ -766,12 +784,14 @@ class GenoReader:
             exhausted = False
             while futs:
                 while not exhausted and len(futs) < threads + 1:
-                    nxt = self._read_chunk_lines()
+                    nxt = read()
                     if nxt is None:
                         exhausted = True
                         break
                     futs.append(ex.submit(self.parse_blob_raw, nxt))
-                chunk = self._raw_to_chunk(futs.popleft().result())
+                with timer.span("parse.wait_tokenize"):
+                    raw = futs.popleft().result()
+                chunk = self._raw_to_chunk(raw)
                 if chunk.positions.size:
                     yield chunk
 

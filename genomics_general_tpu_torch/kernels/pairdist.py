@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..device import get_device
+from ..engine import NO_TIMER
 from . import _build
 from . import transfer
 
@@ -1064,7 +1065,8 @@ class PairBlockStatsHandle:
 def window_pair_block_stats_dispatch(alleles: np.ndarray, first: np.ndarray,
                                      n_sites: np.ndarray,
                                      pop_mask: np.ndarray,
-                                     min_sites: int) -> PairBlockStatsHandle:
+                                     min_sites: int,
+                                     timer=None) -> PairBlockStatsHandle:
     """Dispatch the fused popDist/popPairDist flush: pair counts AND the
     float64 per-pop-block reductions run on the device; only [W, 2, P, P]
     floats come back (vs [W, H, H] count matrices).
@@ -1072,7 +1074,9 @@ def window_pair_block_stats_dispatch(alleles: np.ndarray, first: np.ndarray,
     ``pop_mask``: float [P, H] 0/1 row membership per population (np.unique
     group order), every row in exactly one group.  The host finalize
     (stats/popgen.group_dist_stats_from_blocks) reproduces the reference's
-    nanmean_min/Fst arithmetic exactly."""
+    nanmean_min/Fst arithmetic exactly.  ``timer`` (engine.StageTimer)
+    spans the wire's pack (``dispatch.pack``), then the staging and the
+    launches (:func:`transfer.run_on_device`)."""
     W = first.shape[0]
     P = pop_mask.shape[0]
     if W == 0:
@@ -1081,11 +1085,13 @@ def window_pair_block_stats_dispatch(alleles: np.ndarray, first: np.ndarray,
         return _ReadyHandle(lambda: _host_blocks(
             alleles, first, n_sites, pop_mask, min_sites))
     dev = get_device()
-    fl = _flush_args(alleles, first, n_sites)
+    timer = timer or NO_TIMER
+    with timer.span("dispatch.pack"):
+        fl = _flush_args(alleles, first, n_sites)
     groups = _pop_groups(pop_mask, dev)
     return PairBlockStatsHandle(W, P, transfer.run_on_device(
         fl.buf, dev, lambda buf: flush_blocks(
-            fl.wire(buf), W, fl.chunk, groups, min_sites)))
+            fl.wire(buf), W, fl.chunk, groups, min_sites), timer=timer))
 
 
 class PairBlocksHetHandle:
@@ -1118,7 +1124,8 @@ def window_pair_ind_blocks_dispatch(alleles: np.ndarray, first: np.ndarray,
                                     n_sites: np.ndarray,
                                     ind_mask: np.ndarray,
                                     het_rows: np.ndarray,
-                                    min_sites: int) -> PairBlocksHetHandle:
+                                    min_sites: int,
+                                    timer=None) -> PairBlocksHetHandle:
     """Fused popDist/popPairDist/indPairDist/indHet flush: per-block sums
     and counts (K3) plus each individual's own-pair raw (mismatch, shared)
     (K5) come back in one transfer, never [W, H, H] matrices.
@@ -1127,7 +1134,7 @@ def window_pair_ind_blocks_dispatch(alleles: np.ndarray, first: np.ndarray,
     or populations for indHet without indPairDist), every row in exactly
     one block; ``het_rows``: int32 [2, I] the two haplotype rows of each
     individual (any pair for non-diploids — the host overwrites their het
-    with NaN)."""
+    with NaN).  ``timer``: as :func:`window_pair_block_stats_dispatch`."""
     W = first.shape[0]
     P, n_ind = ind_mask.shape[0], het_rows.shape[1]
     if W == 0:
@@ -1136,12 +1143,15 @@ def window_pair_ind_blocks_dispatch(alleles: np.ndarray, first: np.ndarray,
         return _ReadyHandle(lambda: _host_blocks_het(
             alleles, first, n_sites, ind_mask, het_rows, min_sites))
     dev = get_device()
-    fl = _flush_args(alleles, first, n_sites)
+    timer = timer or NO_TIMER
+    with timer.span("dispatch.pack"):
+        fl = _flush_args(alleles, first, n_sites)
     groups = _pop_groups(ind_mask, dev)
     rows = _het_rows(het_rows, alleles.shape[0], dev)
     return PairBlocksHetHandle(W, P, n_ind, transfer.run_on_device(
         fl.buf, dev, lambda buf: flush_blocks_het(
-            fl.wire(buf), W, fl.chunk, groups, rows, min_sites)))
+            fl.wire(buf), W, fl.chunk, groups, rows, min_sites),
+        timer=timer))
 
 
 class PairCountsHandle:

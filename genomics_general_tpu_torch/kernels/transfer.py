@@ -46,6 +46,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..engine import NO_TIMER
+
 
 def _bucket_sites(S: int, min_bucket: int = 1 << 16) -> int:
     """Round S up to a small closed set of site-axis lengths so jitted
@@ -313,7 +315,8 @@ def fetch_on(dev: torch.device, run, keep=()) -> Pending:
         return fetch(run(), keep=keep)
 
 
-def run_on_device(buf: np.ndarray, dev: torch.device, run) -> Pending:
+def run_on_device(buf: np.ndarray, dev: torch.device, run,
+                  timer=None) -> Pending:
     """Upload one uint8 wire buffer and call ``run(device_buf)``, which
     launches the flush's kernels and returns its result tensor.
 
@@ -321,13 +324,19 @@ def run_on_device(buf: np.ndarray, dev: torch.device, run) -> Pending:
     ``non_blocking``, the kernels go on ``dev``'s current stream (``dev``
     is made the current device meanwhile), and the result is copied back
     into pinned memory asynchronously: nothing here waits for the device.
-    On the CPU ``run`` computes at once."""
+    On the CPU ``run`` computes at once.  ``timer`` (engine.StageTimer)
+    spans the staging (``dispatch.stage``) and the rest
+    (``dispatch.launch``)."""
+    timer = timer or NO_TIMER
     if dev.type != "cuda":
-        return Pending(run(torch.from_numpy(buf)))
-    staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
-    staged.numpy()[:] = buf
-    return fetch_on(dev, lambda: run(staged.to(dev, non_blocking=True)),
-                    keep=(staged,))
+        with timer.span("dispatch.launch"):
+            return Pending(run(torch.from_numpy(buf)))
+    with timer.span("dispatch.stage"):
+        staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
+        staged.numpy()[:] = buf
+    with timer.span("dispatch.launch"):
+        return fetch_on(dev, lambda: run(staged.to(dev, non_blocking=True)),
+                        keep=(staged,))
 
 
 def unpack_span(buf, sp: int, h: int) -> torch.Tensor:
