@@ -17,6 +17,7 @@ import sys
 from collections import defaultdict
 
 from ..io import vcf as V
+from ..io.writers import open_gz_out
 
 
 def add_args(parser: argparse.ArgumentParser):
@@ -111,7 +112,7 @@ def _fast_path(args, samples, include, exclude, gt_filters) -> bool:
                               samples, ploidy_dict)
 
     if args.outFile:
-        out_bin = gzip.open(args.outFile, "wb") \
+        out_bin = open_gz_out(args.outFile, "wb") \
             if args.outFile.endswith(".gz") else open(args.outFile, "wb")
     else:
         out_bin = sys.stdout.buffer
@@ -194,7 +195,8 @@ def main(argv=None):
     else:
         in_file = sys.stdin
     if args.outFile:
-        out_file = gzip.open(args.outFile, "wt") if args.outFile.endswith(".gz") \
+        out_file = open_gz_out(args.outFile) \
+            if args.outFile.endswith(".gz") \
             else open(args.outFile, "wt")
     else:
         out_file = sys.stdout

@@ -33,7 +33,7 @@ from collections import defaultdict
 
 from ..io import vcf as V
 from ..io.geno import open_maybe_gz
-from ..io.writers import open_out
+from ..io.writers import open_gz_out, open_out
 from .parse_vcf import add_args, parse_include_exclude
 
 INF = float("inf")
@@ -72,8 +72,7 @@ def _fast_single(args, head_data, samples_per_file, ploidy_dict, gt_filters,
     opts.drop_dups = False
 
     if args.outFile:
-        import gzip as _gzip
-        out_bin = _gzip.open(args.outFile, "wb") \
+        out_bin = open_gz_out(args.outFile, "wb") \
             if args.outFile.endswith(".gz") else open(args.outFile, "wb")
     else:
         out_bin = sys.stdout.buffer
@@ -253,8 +252,7 @@ def _fast_multi(args, head_data, samples_per_file, ploidy_dict, gt_filters,
                for x in range(n)]
 
     if args.outFile:
-        import gzip as _gzip
-        out_bin = _gzip.open(args.outFile, "wb") \
+        out_bin = open_gz_out(args.outFile, "wb") \
             if args.outFile.endswith(".gz") else open(args.outFile, "wb")
     else:
         out_bin = sys.stdout.buffer

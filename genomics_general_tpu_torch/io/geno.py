@@ -104,6 +104,19 @@ def first_data_line(blob) -> bytes | None:
     return None
 
 
+def _newline(arr: np.ndarray, last: bool = False, step: int = 1 << 16) -> int:
+    """Index of the first (or last) newline of a uint8 array, or -1,
+    scanning ``step`` bytes at a time from that end (a line is a few kB;
+    the text tens of MB)."""
+    n = arr.size
+    for k in range(0, n, step):
+        lo, hi = (max(n - k - step, 0), n - k) if last else (k, k + step)
+        hits = np.flatnonzero(arr[lo:hi] == ord("\n"))
+        if hits.size:
+            return lo + int(hits[-1] if last else hits[0])
+    return -1
+
+
 class _ZlibStreamFile:
     """File-like zlib streaming decompressor over an in-memory gzip blob.
 
@@ -175,7 +188,7 @@ class GenoReader:
         self._whole: np.ndarray | None = None
         self._gz_sess = None             # native streaming gz chunker
         self._gz_data: bytes | None = None
-        self._gz_segs = None             # member segments (fused gz path)
+        self._gz_split = None            # segments that inflate apart
         self._gz_served = 0              # decompressed bytes already handed out
         self._sess_leftover: np.ndarray | None = None
         if isinstance(fileobj, str):
@@ -210,8 +223,8 @@ class GenoReader:
                         self._gz_sess = GzChunkStream(data, chunk_bytes)
                     self._gz_data = data
                     if os.environ.get("GGT_FUSED_GZ", "1") != "0":
-                        from .native import scan_gz_members
-                        self._gz_segs = scan_gz_members(data)
+                        from .native import scan_gz_split
+                        self._gz_split = scan_gz_split(data)
                     fileobj = None
                 except Exception:
                     self._gz_sess = None
@@ -624,95 +637,163 @@ class GenoReader:
     # -------------------------------------------------------- entry points
 
     def _iter_chunks_fused(self, threads: int, timer):
-        """Fused decompress+tokenize over gzip member segments.
+        """Fused inflate+tokenize over segments of the gzip blob that
+        inflate apart (``native.scan_gz_split``): whole members, or one
+        member's flush points.
 
-        The sequential gz session decompresses on one thread while the
-        tokenizer pool waits; here each worker decompresses ITS segment and
-        tokenizes it immediately while the text is cache-hot — decompress
-        parallelizes without the cold-buffer handoff that made a separate
-        parallel-decompress stage slower.  Segment boundaries come from a
-        magic-byte scan, so a candidate can be false: a segment that fails
-        to decode is MERGED with its successor and retried (nothing has
-        been yielded for it yet), which recovers exactly; true corruption
-        still raises like the sequential path.  Returns None to decline
-        (caller uses the sequential session)."""
-        from .native import decompress_gz_segment
-        segs = list(self._gz_segs)
-        blob = self._gz_data
+        The sequential gz session inflates on one thread while the
+        tokenizer pool waits; here each worker inflates ITS segment and
+        tokenizes it at once, so the inflate runs in parallel.  Segment
+        boundaries are candidates from a byte scan, so one can be false:
+        a segment that fails to inflate from a true start is MERGED with
+        its successor and retried (nothing of it has been yielded), which
+        recovers exactly.  A segment of a flush-split member that reaches
+        back before its start (a dictionary-primed stream) is inflated in
+        order, primed with the text before it; true corruption, or a CRC
+        or length that the member's trailer does not hold, raises
+        RuntimeError like the sequential path.  Returns None to decline
+        (the caller uses the sequential session): when the text of the
+        segments inflated here ends before the first data line, or when
+        the first segment handed to the pool reaches back (pigz's default
+        output, whose every segment would)."""
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+        from .native import GZ_BAD, GZ_NEEDS_WINDOW, GZ_OK, _WINDOW
+        split = self._gz_split
+        segs = deque(split.segments)
         lo = self._sess_leftover
         # decompressed bytes the header reader already consumed
         skip = self._gz_served - (int(lo.size) if lo is not None else 0)
-        try:
-            arr0 = decompress_gz_segment(blob, *segs[0])
-        except RuntimeError:
-            return None
-        arr0 = arr0[skip:]
-        nl0 = np.flatnonzero(arr0 == ord("\n"))
-        if nl0.size == 0:
-            return None                   # header-sized first segment: rare
-        body0 = arr0[:int(nl0[-1]) + 1]
-        tail0 = arr0[int(nl0[-1]) + 1:]
-        if not self._ensure_parser(body0):
-            return None                   # no data line yet: keep it simple
+        crc, size, texts = 0, 0, []
+        a, b = segs.popleft()
+        while True:                       # until the text holds a data line
+            with timer.span("parse.inflate"):
+                piece = split.inflate(a, b)
+            if piece.status != GZ_OK:
+                if piece.status == GZ_NEEDS_WINDOW or len(segs) < 2:
+                    return None
+                b = segs.popleft()[1]     # a false boundary: merge
+                continue
+            crc = split.accept(crc, piece)
+            size += piece.text.size
+            texts.append(piece.text)
+            full = np.concatenate(texts) if len(texts) > 1 else piece.text
+            text = full[skip:]
+            cut = _newline(text, last=True) + 1
+            if cut and self._ensure_parser(text[:cut]):
+                break
+            if len(segs) < 2:
+                return None               # nearly all header: keep it simple
+            a, b = segs.popleft()
+        body0, tail0 = text[:cut], text[cut:]
+        window = full[-_WINDOW:].copy()
+
+        def split3(arr):
+            f = _newline(arr)
+            if f < 0:
+                return arr, arr[:0], arr[:0]
+            last = _newline(arr, last=True)
+            return arr[:f + 1], arr[f + 1:last + 1], arr[last + 1:]
+
+        def tokenize(piece):
+            head, body, tail = split3(piece.text)
+            raw = self.parse_blob_raw(body) if body.size else None
+            return piece, head, raw, tail
+
+        def job(a, b):
+            with timer.span("parse.segment.inflate"):
+                piece = split.inflate(a, b)
+            if piece.status != GZ_OK:
+                return piece, None, None, None
+            with timer.span("parse.segment.tokenize"):
+                return tokenize(piece)
+
+        pool = ThreadPoolExecutor(max_workers=threads)
+        pending: deque = deque()          # ((a, b), merged, future)
+
+        def fill():
+            while segs and len(pending) < threads + 1:
+                a, b = segs.popleft()
+                pending.append(((a, b), False, pool.submit(job, a, b)))
+
+        def pop_next():
+            """The end of the next segment, its pending work dropped."""
+            if pending:
+                (_, b), _, fut = pending.popleft()
+                fut.cancel()
+                return b
+            return segs.popleft()[1] if segs else None
+
+        fill()
+        # this thread tokenizes the text it inflated while the pool starts
+        # on the segments after it
+        with timer.span("parse.segment.tokenize"):
+            raw0 = self.parse_blob_raw(body0)
+        if pending:
+            # the first segment the pool inflates decides: a stream whose
+            # segments reach back would be inflated in order, one by one
+            with timer.span("parse.wait_tokenize"):
+                if pending[0][2].result()[0].status == GZ_NEEDS_WINDOW:
+                    pool.shutdown(wait=False, cancel_futures=True)
+                    return None
         # committed: the session's remaining state is re-served from the
         # decompressed offset `skip`
         self._sess_leftover = None
         self._gz_sess = None
-        timer.count("text_bytes", arr0.size)
+        timer.count("text_bytes", text.size)
+
+        def emit(raw):
+            if raw is None:
+                return
+            chunk = self._raw_to_chunk(raw)
+            if chunk.positions.size:
+                yield chunk
+
+        def in_order(a, b):
+            """Inflate [a, b) primed with the text before it, merging
+            successors until a boundary holds (the consumer's thread)."""
+            while True:
+                with timer.span("parse.inflate"):
+                    piece = split.inflate(a, b, window.tobytes())
+                if piece.status == GZ_OK:
+                    return tokenize(piece)
+                b = pop_next()
+                if b is None:
+                    raise RuntimeError(
+                        f"gzip stream does not inflate from byte {a}")
 
         def gen():
-            from collections import deque
-            from concurrent.futures import ThreadPoolExecutor
-
-            def split3(arr):
-                nl = np.flatnonzero(arr == ord("\n"))
-                if nl.size == 0:
-                    return arr, arr[:0], arr[:0]
-                f, last = int(nl[0]), int(nl[-1])
-                return arr[:f + 1], arr[f + 1:last + 1], arr[last + 1:]
-
-            def job(a, b):
-                arr = decompress_gz_segment(blob, a, b)
-                head, body, tail = split3(arr)
-                raw = self.parse_blob_raw(body) if body.size else None
-                return head, raw, tail, arr.size
-
-            def emit(raw):
-                if raw is None:
-                    return
-                chunk = self._raw_to_chunk(raw)
-                if chunk.positions.size:
-                    yield chunk
-
-            pool = ThreadPoolExecutor(max_workers=threads)
+            nonlocal crc, size, window
             try:
-                yield from emit(self.parse_blob_raw(body0))
+                yield from emit(raw0)
                 prev_tail = tail0
-                pending: deque = deque()
-                idx = 1
-                while pending or idx < len(segs):
-                    while idx < len(segs) and len(pending) < threads + 1:
-                        bounds = segs[idx]
-                        pending.append(
-                            (bounds, pool.submit(job, *bounds)))
-                        idx += 1
-                    (a, b), fut = pending.popleft()
-                    try:
-                        with timer.span("parse.wait_tokenize"):
-                            head, raw, tail, n_text = fut.result()
-                    except RuntimeError:
-                        # false member boundary: merge with the successor
-                        # and retry — nothing of this segment was yielded
-                        if pending:
-                            (a2, b2), fut2 = pending.popleft()
-                            fut2.cancel()
-                            pending.appendleft(
-                                ((a, b2), pool.submit(job, a, b2)))
-                            continue
-                        raise
-                    timer.count("text_bytes", n_text)
-                    boundary = np.concatenate([prev_tail, head]) \
-                        if prev_tail.size else head
+                while pending or segs:
+                    fill()
+                    (a, b), merged, fut = pending.popleft()
+                    with timer.span("parse.wait_tokenize"):
+                        piece, head, raw, tail = fut.result()
+                    if piece.status == GZ_BAD and (pending or segs):
+                        # a false boundary: merge with the successor and
+                        # retry; nothing of this segment was yielded
+                        b = pop_next()
+                        pending.appendleft(
+                            ((a, b), True, pool.submit(job, a, b)))
+                        continue
+                    if piece.status != GZ_OK:
+                        piece, head, raw, tail = in_order(a, b)
+                        merged = True
+                    if split.flushes:
+                        timer.count("gz_segments_serial" if merged
+                                    else "gz_segments")
+                    crc = split.accept(crc, piece)
+                    size += piece.text.size
+                    window = np.concatenate([window, piece.text[-_WINDOW:]]
+                                            )[-_WINDOW:]
+                    timer.count("text_bytes", piece.text.size)
+                    # copies: the piece's buffer goes back for reuse
+                    boundary = np.concatenate([prev_tail, head])
+                    prev_tail = tail.copy()
+                    split.release(piece)
                     if boundary.size and boundary[-1] != ord("\n"):
                         # the whole segment lacked a newline: keep carrying
                         prev_tail = boundary
@@ -720,7 +801,10 @@ class GenoReader:
                     if boundary.size:
                         yield from emit(self.parse_blob_raw(boundary))
                     yield from emit(raw)
-                    prev_tail = tail
+                rest = split.finish(piece, crc, size)
+                if rest is not None and rest.size:
+                    timer.count("text_bytes", rest.size)
+                    prev_tail = np.concatenate([prev_tail, rest])
                 if prev_tail.size:
                     t = prev_tail
                     if t[-1] != ord("\n"):
@@ -748,7 +832,7 @@ class GenoReader:
         timer = timer or NO_TIMER
         if threads is None:
             threads = min(4, os.cpu_count() or 1)
-        if threads > 1 and self._gz_segs is not None \
+        if threads > 1 and self._gz_split is not None \
                 and self._gz_sess is not None:
             gen = self._iter_chunks_fused(threads, timer)
             if gen is not None:
@@ -841,7 +925,7 @@ def rebind_reader(probe: GenoReader, sample_data: SampleData) -> GenoReader:
     r._whole_off = getattr(probe, "_whole_off", 0)
     r._gz_sess = probe._gz_sess
     r._gz_data = probe._gz_data
-    r._gz_segs = probe._gz_segs
+    r._gz_split = probe._gz_split
     r._gz_served = probe._gz_served
     r._sess_leftover = probe._sess_leftover
     return r

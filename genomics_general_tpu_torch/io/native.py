@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -247,20 +248,12 @@ def scan_gz_members(data: bytes, seg_min: int = 1 << 20):
     Returns a list of (start, end) segment bounds, or None when the blob
     is not multi-member enough to be worth splitting.  Candidates can be
     false positives — consumers must be prepared for a segment to fail
-    decoding and merge it with its successor."""
-    d = np.frombuffer(data, dtype=np.uint8)
-    if d.size < 20 or d[0] != 0x1F or d[1] != 0x8B or d[2] != 0x08:
+    decoding and merge it with its successor.  The scan is
+    ``gzsplit.cpp``'s; None where that does not build."""
+    if len(data) < 20 or data[:3] != b"\x1f\x8b\x08" \
+            or get_gzsplit() is None:
         return None
-    hits = np.flatnonzero((d[:-3] == 0x1F) & (d[1:-2] == 0x8B)
-                          & (d[2:-1] == 0x08) & (d[3:] < 0x20))
-    bounds = [0]
-    for h in hits[1:]:
-        if h - bounds[-1] >= seg_min:
-            bounds.append(int(h))
-    if len(bounds) < 3:
-        return None
-    bounds.append(len(data))
-    return [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+    return _scan(data, 0, seg_min, 0)
 
 
 def decompress_gz_segment(data: bytes, a: int, b: int) -> np.ndarray:
@@ -396,6 +389,222 @@ class ParallelGzChunks:
                 cut = blob.size - int(nl[0])
                 self._carry = blob[cut:]
                 return blob[:cut]
+
+
+GZ_OK, GZ_BAD, GZ_NEEDS_WINDOW = 0, -2, -3
+_WINDOW = 1 << 15                  # deflate's reach back, in bytes of text
+
+_gzs = None
+_gzs_tried = False
+
+
+def get_gzsplit():
+    """The flush-point splitter (``io/csrc/gzsplit.cpp``), built (cached)
+    and loaded; None without zlib or a compiler."""
+    global _gzs, _gzs_tried
+    if _gzs is not None or _gzs_tried:
+        return _gzs
+    _gzs_tried = True
+    src = Path(__file__).resolve().parent / "csrc" / "gzsplit.cpp"
+    try:
+        path = cached_build(
+            "libgzsplit", [src],
+            lambda out: ["g++", "-O2", "-shared", "-fPIC", "-o", str(out),
+                         str(src), "-lz"], timeout=120)
+        lib = ctypes.CDLL(str(path))
+    except (OSError, subprocess.SubprocessError):
+        return None
+    i64, p = ctypes.c_int64, ctypes.c_void_p
+    lib.gzs_scan.restype = i64
+    lib.gzs_scan.argtypes = [p, i64, i64, i64, ctypes.c_int32,
+                             np.ctypeslib.ndpointer(np.int64, flags="C"), i64]
+    lib.gzs_inflate.restype = i64
+    lib.gzs_inflate.argtypes = [
+        p, i64, ctypes.c_int32, p, i64,
+        np.ctypeslib.ndpointer(np.uint8, flags="C"), i64,
+        ctypes.POINTER(i64), ctypes.POINTER(i64),
+        ctypes.POINTER(ctypes.c_uint32)]
+    lib.gzs_crc32_combine.restype = ctypes.c_uint32
+    lib.gzs_crc32_combine.argtypes = [ctypes.c_uint32, ctypes.c_uint32, i64]
+    _gzs = lib
+    return _gzs
+
+
+@dataclass
+class GzPiece:
+    """One inflated segment [start, ...): its text, the text's CRC-32
+    (None for whole members, which carry their own), a ``GZ_*`` status and
+    the offset of the compressed byte where the inflate stopped."""
+    text: np.ndarray | None
+    crc: int | None
+    status: int
+    start: int
+    end: int
+
+
+class GzMembers:
+    """Segments of whole gzip members (bgzip-style files), found by
+    :func:`scan_gz_members`; each inflates alone and checks its own CRC."""
+
+    flushes = False
+
+    def __init__(self, data: bytes, segments: list):
+        self.data = data
+        self.segments = segments
+
+    def inflate(self, a: int, b: int, window: bytes = b"") -> GzPiece:
+        try:
+            return GzPiece(decompress_gz_segment(self.data, a, b), None,
+                           GZ_OK, a, b)
+        except RuntimeError:
+            return GzPiece(None, None, GZ_BAD, a, a)
+
+    def accept(self, crc, piece: GzPiece):
+        return crc
+
+    def release(self, piece: GzPiece):
+        pass
+
+    def finish(self, last: GzPiece, crc, size: int):
+        return None
+
+
+class GzFlushes:
+    """Segments of one gzip member split at its flush points
+    (``gzsplit.cpp``).  A segment inflates alone when it reaches back into
+    no earlier one; the caller proves each boundary by inflating, from a
+    true start, the segment before it, primes a segment that reaches back
+    with the text before it, folds the segments' CRC-32s and holds them
+    and the length to the member's trailer (:meth:`finish`)."""
+
+    flushes = True
+
+    def __init__(self, data: bytes, segments: list, lib):
+        self.data = data
+        self.segments = segments
+        self.lib = lib
+        self._base = np.frombuffer(data, dtype=np.uint8).ctypes.data
+        self.ratio = 64.0      # text bytes a compressed byte, for buffers
+        self._spare: list = []  # buffers of consumed pieces, for reuse
+
+    def _buffer(self, cap: int) -> np.ndarray:
+        """A spare buffer of at least ``cap`` bytes (its pages written
+        already), else a new one rounded up to a power of two."""
+        try:
+            buf = self._spare.pop()
+        except IndexError:
+            buf = None
+        if buf is None or buf.size < cap:
+            buf = np.empty(1 << (cap - 1).bit_length(), dtype=np.uint8)
+        return buf
+
+    def release(self, piece: GzPiece):
+        """Take back the buffer of a piece whose text nobody reads now."""
+        self._spare.append(piece.text.base if piece.text.base is not None
+                           else piece.text)
+
+    def inflate(self, a: int, b: int, window: bytes = b"") -> GzPiece:
+        """Inflate [a, b) (the last segment through its final block),
+        primed with ``window``, the text before it, when given."""
+        last = b == len(self.data)
+        cap = int((b - a) * self.ratio * 1.25) + (1 << 20)
+        out_len, in_used = ctypes.c_int64(), ctypes.c_int64()
+        crc = ctypes.c_uint32()
+        for _ in range(6):
+            out = self._buffer(cap)
+            r = self.lib.gzs_inflate(
+                self._base + a, b - a, int(last), window, len(window), out,
+                out.size, ctypes.byref(out_len), ctypes.byref(in_used),
+                ctypes.byref(crc))
+            if r != -1:
+                break
+            cap = 4 * out.size                # output too small
+        if r != GZ_OK:
+            return GzPiece(None, None, int(r), a, a)
+        return GzPiece(out[:out_len.value], crc.value, GZ_OK, a,
+                       a + in_used.value)
+
+    def accept(self, crc: int, piece: GzPiece) -> int:
+        """``crc`` with the piece's text folded in (the consumer calls it
+        in order, so it alone sizes later buffers from the pieces seen)."""
+        self.ratio = max(self.ratio,
+                         piece.text.size / max(piece.end - piece.start, 1))
+        return self.lib.gzs_crc32_combine(crc, piece.crc, piece.text.size)
+
+    def finish(self, last: GzPiece, crc: int, size: int):
+        """Hold the text's CRC-32 and length to the trailer after the final
+        block; return the text of any members after it (or None)."""
+        import gzip
+        import struct
+        import zlib
+        trailer = self.data[last.end:last.end + 8]
+        if len(trailer) < 8 or struct.unpack("<II", trailer) != \
+                (crc, size & 0xFFFFFFFF):
+            raise RuntimeError("gzip trailer does not match the text")
+        if last.end + 8 == len(self.data):
+            return None
+        try:
+            return np.frombuffer(gzip.decompress(self.data[last.end + 8:]),
+                                 dtype=np.uint8)
+        except (OSError, EOFError, zlib.error) as e:
+            raise RuntimeError(
+                f"gzip members after byte {last.end + 8}: {e}") from None
+
+
+def _deflate_start(data: bytes) -> int | None:
+    """Offset of the deflate data after a gzip member's header."""
+    if len(data) < 18 or data[:3] != b"\x1f\x8b\x08" or data[3] & 0xE0:
+        return None
+    flg, p = data[3], 10
+    if flg & 4:                                   # FEXTRA
+        p += 2 + int.from_bytes(data[p:p + 2], "little")
+    for bit in (8, 16):                           # FNAME, FCOMMENT
+        if flg & bit:
+            p = data.find(b"\0", p) + 1
+            if p == 0:
+                return None
+    if flg & 2:                                   # FHCRC
+        p += 2
+    return p if p < len(data) else None
+
+
+def scan_gz_flushes(data: bytes, seg_min: int) -> GzFlushes | None:
+    """Split one gzip member at its candidate flush points (the offset
+    after each byte-aligned ``00 00 FF FF``) into segments of >= ``seg_min``
+    compressed bytes, the last running to the end of ``data``; None when
+    that gives fewer than three (plain ``gzip`` output has no such
+    points)."""
+    lib = get_gzsplit()
+    start = _deflate_start(data)
+    if lib is None or start is None:
+        return None
+    segs = _scan(data, start, seg_min, 1)
+    return GzFlushes(data, segs, lib) if segs is not None else None
+
+
+def _scan(data: bytes, start: int, seg_min: int, kind: int):
+    """``gzs_scan``'s segments of data[start:] (kind 0: members, 1: flush
+    points) as (a, b) pairs, or None when there are fewer than three."""
+    cap = (len(data) - start) // max(seg_min, 1) + 2
+    bounds = np.empty(cap, dtype=np.int64)
+    base = np.frombuffer(data, dtype=np.uint8).ctypes.data
+    n = get_gzsplit().gzs_scan(base, start, len(data), seg_min, kind,
+                               bounds, cap)
+    if n < 4:
+        return None
+    b = bounds[:n].tolist()
+    return list(zip(b[:-1], b[1:]))
+
+
+def scan_gz_split(data: bytes):
+    """The segments of a .gz blob that inflate apart: its members when it
+    has enough (:func:`scan_gz_members`), else the flush points of its one
+    member; None when it has neither."""
+    seg_min = ParallelGzChunks.SEG_MIN
+    segs = scan_gz_members(data, seg_min)
+    if segs is not None:
+        return GzMembers(data, segs)
+    return scan_gz_flushes(data, seg_min)
 
 
 def gzip_decompress_array(data: bytes):

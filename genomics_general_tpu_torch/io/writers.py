@@ -9,16 +9,51 @@ columns (sites, l_, S_, sitesUsed, mid) print without a decimal point.
 from __future__ import annotations
 
 import gzip
+import io
 import sys
+import zlib
 
 import numpy as np
+
+
+class PiecedGzipFile(gzip.GzipFile):
+    """One gzip member whose text is deflated in pieces of ``PIECE`` bytes,
+    each ended by a full flush (an empty stored block, ``00 00 FF FF``,
+    and a fresh dictionary).  Any gzip reader reads it as one member; the
+    port's reader inflates the pieces in parallel (``io/native.GzFlushes``),
+    as it does ``pigz -i`` output."""
+
+    PIECE = 8 << 20
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._piece = 0
+
+    def write(self, data):
+        data = memoryview(data).cast("B")
+        n = len(data)
+        while len(data) >= self.PIECE - self._piece:
+            k = self.PIECE - self._piece
+            super().write(data[:k])
+            self.flush(zlib.Z_FULL_FLUSH)
+            self._piece, data = 0, data[k:]
+        super().write(data)
+        self._piece += len(data)
+        return n
+
+
+def open_gz_out(path: str, mode: str = "wt"):
+    """``gzip.open(path, mode)`` for writing, in :class:`PiecedGzipFile`
+    pieces."""
+    f = PiecedGzipFile(path, "wb")
+    return io.TextIOWrapper(f, io.text_encoding(None)) if "t" in mode else f
 
 
 def open_out(path: str | None):
     if path is None:
         return sys.stdout
     if path.endswith(".gz"):
-        return gzip.open(path, "wt")
+        return open_gz_out(path)
     return open(path, "wt")
 
 
