@@ -245,6 +245,9 @@ def main(argv=None) -> int:
     share_upload = (need_dist and not use_blocks and (need_freq or need_wc)
                     and not transfer.packed_enabled()
                     and pair_k._exec_choice() != "host")
+    # on a mesh the tri route's span is replicated to every card before
+    # the launch, as the stage ``replicate`` (``h2d`` on one card)
+    mesh_tri = mesh is not None and need_dist and not use_blocks
 
     def dispatch(batch):
         """Pack the flush span and launch all device work asynchronously;
@@ -258,8 +261,9 @@ def main(argv=None) -> int:
         span = batch.alleles[:, :batch.needed_end]
         handles = {}
         dev = None
-        if share_upload and span.shape[1]:
-            with timer.stage("h2d", flush=batch.flush):
+        if (share_upload or mesh_tri) and span.shape[1]:
+            with timer.stage("h2d" if mesh is None else "replicate",
+                             flush=batch.flush):
                 dev = transfer.upload_span(span, mesh=mesh)
         with timer.stage("kernel", flush=batch.flush):
             if use_blocks and blocks_ind:
@@ -286,7 +290,7 @@ def main(argv=None) -> int:
                     plan.n_sites.astype(np.int32), mesh=mesh)
             if (need_freq or need_wc) and span.shape[1]:
                 handles["counts"] = counts_k.site_pop_counts_dispatch(
-                    dev[:, :span.shape[1]] if dev is not None else span,
+                    dev[:, :span.shape[1]] if share_upload else span,
                     fmask, mesh=mesh)
         return batch, handles
 
@@ -344,9 +348,10 @@ def main(argv=None) -> int:
                     do_pairs="popPairDist" in analysis,
                     min_data=args.minData))
         elif need_dist:
-            with timer.stage("d2h", flush=batch.flush):
-                mism, shar = handles["pair"].collect()
-            with timer.stage("finalize", flush=batch.flush):
+            # the handle times its wait (d2h or gather) and its mirror
+            mism, shar = handles["pair"].collect(timer=timer,
+                                                 flush=batch.flush)
+            with timer.stage("dist_stats", flush=batch.flush):
                 ctx = popgen.DistStatsContext(mism, shar)
                 # analysis order matters: the reference mutates the cached
                 # matrix (popgenWindows.py:51-64)

@@ -137,7 +137,12 @@ class StageTimer:
     within one lane stages are disjoint, so per-lane busy time is bounded
     by wall.  Note "d2h" is the collect thread's *blocking wait* on device
     results — with async dispatch it includes device compute time, not
-    just the transfer.
+    just the transfer.  The tri route (``[W, H, H]`` pair counts) splits
+    its own stages out: on a mesh ``replicate`` (the flush span's upload
+    to every device) opens before ``kernel`` and ``gather`` (the wait for
+    every device's slab) takes the place of ``d2h``; on every tri route
+    ``mirror`` unpacks the triangles into ``[W, H, H]`` and
+    ``dist_stats`` reduces them, apart from ``d2h`` and ``finalize``.
 
     **Spans** (:meth:`span`, and every stage too) are kept in ``spans``
     with their thread, ``perf_counter_ns`` start and end, flush id and
@@ -153,8 +158,10 @@ class StageTimer:
     :meth:`report` writes the ``[profile]`` line on stderr."""
 
     LANES = {"parse": "parse",
-             "h2d": "dispatch", "kernel": "dispatch",
-             "d2h": "collect", "finalize": "collect", "write": "collect"}
+             "h2d": "dispatch", "replicate": "dispatch", "kernel": "dispatch",
+             "d2h": "collect", "gather": "collect", "mirror": "collect",
+             "dist_stats": "collect", "finalize": "collect",
+             "write": "collect"}
 
     def __init__(self, enabled: bool = False, start_ns: int | None = None):
         self.enabled = enabled

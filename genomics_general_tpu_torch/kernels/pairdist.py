@@ -1033,8 +1033,11 @@ class _ReadyHandle:
     def __init__(self, thunk):
         self._thunk = thunk
 
-    def collect(self):
-        return self._thunk()
+    def collect(self, timer=None, flush=None):
+        """The thunk's result; ``timer`` (engine.StageTimer) times it as
+        ``d2h``, the stage of the wait it stands in for."""
+        with (timer or NO_TIMER).stage("d2h", flush=flush):
+            return self._thunk()
 
 
 # ------------------------------------------------------------ dispatch
@@ -1158,18 +1161,30 @@ class PairCountsHandle:
     """In-flight pair counts of one flush (the ``tri`` output).
     ``collect()`` waits for the fetch and returns numpy (mismatch
     [W, H, H], shared [W, H, H]) int32 in window order: the only [W, H, H]
-    arrays of the flush on the host, made at collect time."""
+    arrays of the flush on the host, made at collect time.  ``timer``
+    (engine.StageTimer) times the wait for the packed triangles as
+    ``gather`` when they come from a mesh's slabs (and counts the slabs,
+    ``mesh_slabs``, and their bytes, ``gather_bytes``), as ``d2h``
+    otherwise, and their unpacking as ``mirror``."""
 
     def __init__(self, W: int, H: int, pending=None):
         self.W, self.H, self._pending = W, H, pending
 
-    def collect(self):
+    def collect(self, timer=None, flush=None):
         if self._pending is None:
             z = np.zeros((self.W, self.H, self.H), dtype=np.int32)
             return z, z.copy()
-        host = self._pending.wait()
+        timer = timer or NO_TIMER
+        gathered = isinstance(self._pending, transfer.Gathered)
+        if gathered:
+            timer.count("mesh_slabs", self._pending.n_parts)
+        with timer.stage("gather" if gathered else "d2h", flush=flush):
+            host = self._pending.wait()
         self._pending = None
-        return _tri_unpack(host, self.W, self.H)
+        if gathered:
+            timer.count("gather_bytes", host.nbytes)
+        with timer.stage("mirror", flush=flush):
+            return _tri_unpack(host, self.W, self.H)
 
 
 def _check_windows(first: np.ndarray, n_sites: np.ndarray, S: int) -> None:
@@ -1234,7 +1249,8 @@ def _mesh_pair_counts(alleles, first: np.ndarray, n_sites: np.ndarray,
     the window batch, padded to ``n_dev * 2^k``, is cut into one contiguous
     slab per device.  The span is replicated over the mesh (a host span as
     the raw bucket-padded upload, the int8 array of the JAX mesh route: no
-    wire v3, no host executor), and each device runs K9 + K4 on its slab's
+    wire v3, no host executor; a :class:`transfer.Replicated` span is
+    counted where it lies), and each device runs K9 + K4 on its slab's
     windows.  The slabs come back in window order."""
     W = first.shape[0]
     H, S = alleles.shape

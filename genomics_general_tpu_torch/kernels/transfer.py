@@ -280,10 +280,11 @@ class Pending:
 class Gathered:
     """The shards of one result on their way to the host: ``wait()``
     joins their arrays along axis 0 in shard order (window or site
-    order)."""
+    order).  ``n_parts``: the shards it joins."""
 
     def __init__(self, parts):
         self._parts = list(parts)
+        self.n_parts = len(self._parts)
 
     def wait(self) -> np.ndarray:
         host = np.concatenate([p.wait() for p in self._parts])

@@ -170,8 +170,10 @@ def test_stages_keep_their_names_and_sums(traced_run):
     timer = traced_run[0]
     assert set(timer.t) == STAGES
     assert engine.StageTimer.LANES == {
-        "parse": "parse", "h2d": "dispatch", "kernel": "dispatch",
-        "d2h": "collect", "finalize": "collect", "write": "collect"}
+        "parse": "parse", "h2d": "dispatch", "replicate": "dispatch",
+        "kernel": "dispatch", "d2h": "collect", "gather": "collect",
+        "mirror": "collect", "dist_stats": "collect", "finalize": "collect",
+        "write": "collect"}
     for name in STAGES:
         spans = [s for s in timer.spans if s.name == name]
         assert timer.t[name] == pytest.approx(
