@@ -135,8 +135,8 @@ not build, launch or agree, or an output is wrong):
    each site slab, no K1; N: K6 + K7 on each replica, K8 on each window
    slab), every launch inside a shard's call and every shard launching,
    each byte-identical to its meshless run; run O reruns popDist on that
-   mesh, which takes it off the blocks route (K9 + K4, the host's tri
-   finalize), within one rounding quantum of its blocks run; then the
+   mesh, its blocks route on each shard's window slab (K1 + K2 + K3 on
+   the slab's own wire), byte-identical to its meshless run; then the
    port's dryrun_multichip over every card (K14, K15, K16 launched).
    Run P: stats.ld.ld_matrix(r2, use_device=True) over the popDist
    cohort's first 32 windows (K17 once a window), each window's tables
@@ -3227,14 +3227,13 @@ def mesh_runs(mods, clis, transfer, mesh, geno, pops, n_sites, work):
     """Runs M, N and O: run A's, run C's and popDist's CLI flags with
     cli.common.get_mesh patched to ``mesh``.  Each resets the launch
     counts just before and reads them just after; it must launch exactly
-    its mesh route's kernels (runs M and O: K9 + K4 on each window slab,
-    M also K6 on each site slab, no K1; run N: K6 + K7 on each replica and
-    K8 on each window slab), every launch inside a shard's call, every
-    shard's call launching, a dispatch split over the mesh, every device
-    of the mesh called, and write the bytes of its meshless run
-    (``{base}.gpu.csv`` in ``work``); run O, where the mesh takes
-    popDist off the blocks route, its rows within one rounding quantum.
-    Returns ({run: launches}, report)."""
+    its mesh route's kernels (run M: K9 + K4 on each window slab and K6 on
+    each site slab, no K1; run N: K6 + K7 on each replica and K8 on each
+    window slab; run O: popDist's blocks route, K1 + K2 + K3, on each
+    window slab), every launch inside a shard's call, every shard's call
+    launching, a dispatch split over the mesh, every device of the mesh
+    called, and write the bytes of its meshless run (``{base}.gpu.csv``
+    in ``work``).  Returns ({run: launches}, report)."""
     from genomics_general_tpu_torch.cli import common
     pair, counts, abba = mods
     cases = (("run_M", "run_A", ("pair_counts_4state", "tri_pack",
@@ -3243,8 +3242,8 @@ def mesh_runs(mods, clis, transfer, mesh, geno, pops, n_sites, work):
                (counts, "site_pop_counts_dispatch")]),
              ("run_N", "run_C", ABBA_KERNELS,
               [(abba, "window_abba_sums_dispatch")]),
-             ("run_O", "popDist", ("pair_counts_4state", "tri_pack"),
-              [(pair, "window_pair_counts_dispatch")]))
+             ("run_O", "popDist", RUNS["popDist"][2],
+              [(pair, "window_pair_block_stats_dispatch")]))
     launches, report = {}, {}
     real_mesh = common.get_mesh
     common.get_mesh = lambda: mesh
@@ -3277,29 +3276,21 @@ def mesh_runs(mods, clis, transfer, mesh, geno, pops, n_sites, work):
                     f"device {per_device}: a shard call without a launch, a "
                     "launch outside the shards, no dispatch split or a "
                     "device never called")
-            if base == "popDist":
-                # its blocks route against the mesh's tri route: one
-                # rounding quantum, as against the host executor
-                moved = rows_within_quantum(work / f"{base}.gpu.csv", out,
-                                            f"{name} on the mesh vs {base}")
-                same = f"within {QUANTUM} of {base} ({moved} cells moved)"
-            else:
-                same_bytes([work / f"{base}.gpu.csv", out],
-                           f"{name} on the mesh vs {base}")
-                moved, same = 0, f"byte-identical to {base}"
+            same_bytes([work / f"{base}.gpu.csv", out],
+                       f"{name} on the mesh vs {base}")
             launches[name] = got
             report[name] = {"wall_s": wall, "sites_per_s": n_sites / wall,
                             "mesh": str(mesh), "dispatches": len(groups),
                             "shard_calls": len(calls),
                             "calls_per_device": per_device,
                             "dispatches_split": split,
-                            "cells_moved_vs_meshless": moved,
                             "profile": profile_line(err)}
             log(f"[e2e] {name} ({base}'s flags on {mesh}): wall {wall:.3f}s, "
                 f"{n_sites / wall:.0f} sites/s, launches "
                 f"{ {k: v for k, v in got.items() if v} }; {len(calls)} "
                 f"shard calls over {len(groups)} dispatches ({split} split), "
-                f"calls per device {per_device}, each launching; {same}")
+                f"calls per device {per_device}, each launching; "
+                f"byte-identical to {base}")
             log(f"[e2e] {name} {profile_line(err)}")
     finally:
         common.get_mesh = real_mesh

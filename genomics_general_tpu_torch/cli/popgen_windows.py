@@ -172,11 +172,12 @@ def main(argv=None) -> int:
     # paths: pair counts AND the per-block float64 reductions stay on the
     # device, so only [W, 2, P, P] floats (plus each individual's own-pair
     # counts) come back (kernels/pairdist.window_pair_block_stats_dispatch,
-    # window_pair_ind_blocks_dispatch).  hapStats, popFreq and WC use the
+    # window_pair_ind_blocks_dispatch; on a device mesh each card runs them
+    # on its slab of the windows).  hapStats, popFreq and WC use the
     # general path: the packed [W, H, H] counts (window_pair_counts_dispatch)
-    # and the per-site counts kernel, as does every run on a device mesh.
+    # and the per-site counts kernel.
     fast_dist = ("popDist", "popPairDist", "indPairDist", "indHet")
-    use_blocks = (need_dist and mesh is None
+    use_blocks = (need_dist
                   and not (need_freq or need_wc)
                   and all(a in fast_dist for a in analysis)
                   and os.environ.get("GGT_HOST_DIST_FINALIZE") != "1")
@@ -245,9 +246,12 @@ def main(argv=None) -> int:
     share_upload = (need_dist and not use_blocks and (need_freq or need_wc)
                     and not transfer.packed_enabled()
                     and pair_k._exec_choice() != "host")
-    # on a mesh the tri route's span is replicated to every card before
-    # the launch, as the stage ``replicate`` (``h2d`` on one card)
+    # on a mesh each card gets its input before the launch, as the stage
+    # ``replicate`` (``h2d`` on one card): the tri route's span replicated
+    # to every card, the blocks route's window slabs each packed and sent
+    # to its own (pairdist.upload_slabs)
     mesh_tri = mesh is not None and need_dist and not use_blocks
+    mesh_blocks = mesh is not None and use_blocks
 
     def dispatch(batch):
         """Pack the flush span and launch all device work asynchronously;
@@ -259,35 +263,37 @@ def main(argv=None) -> int:
         K12)."""
         plan = batch.plan
         span = batch.alleles[:, :batch.needed_end]
+        first = plan.first.astype(np.int32)
+        n_sites = plan.n_sites.astype(np.int32)
         handles = {}
         dev = None
         if (share_upload or mesh_tri) and span.shape[1]:
             with timer.stage("h2d" if mesh is None else "replicate",
                              flush=batch.flush):
                 dev = transfer.upload_span(span, mesh=mesh)
+        elif mesh_blocks:
+            with timer.stage("replicate", flush=batch.flush):
+                dev = pair_k.upload_slabs(span, first, n_sites, mesh,
+                                          timer=timer)
+        src = dev if dev is not None else span
         with timer.stage("kernel", flush=batch.flush):
             if use_blocks and blocks_ind:
                 handles["indblocks"] = pair_k.window_pair_ind_blocks_dispatch(
-                    span, plan.first.astype(np.int32),
-                    plan.n_sites.astype(np.int32), ind_mask, het_rows,
-                    ms_gate, timer=timer)
+                    src, first, n_sites, ind_mask, het_rows, ms_gate,
+                    timer=timer, mesh=mesh)
             elif use_blocks and need_het:
                 # pop-level blocks + per-individual own-pair raw counts in
                 # one fetch; no [W, I, I] matrices come back
                 handles["pophet"] = pair_k.window_pair_ind_blocks_dispatch(
-                    span, plan.first.astype(np.int32),
-                    plan.n_sites.astype(np.int32), dist_mask, het_rows,
-                    ms_gate, timer=timer)
+                    src, first, n_sites, dist_mask, het_rows, ms_gate,
+                    timer=timer, mesh=mesh)
             elif use_blocks:
                 handles["pairblocks"] = pair_k.window_pair_block_stats_dispatch(
-                    span, plan.first.astype(np.int32),
-                    plan.n_sites.astype(np.int32), dist_mask, min_sites,
-                    timer=timer)
+                    src, first, n_sites, dist_mask, min_sites, timer=timer,
+                    mesh=mesh)
             elif need_dist:
                 handles["pair"] = pair_k.window_pair_counts_dispatch(
-                    dev if dev is not None else span,
-                    plan.first.astype(np.int32),
-                    plan.n_sites.astype(np.int32), mesh=mesh)
+                    src, first, n_sites, mesh=mesh)
             if (need_freq or need_wc) and span.shape[1]:
                 handles["counts"] = counts_k.site_pop_counts_dispatch(
                     dev[:, :span.shape[1]] if share_upload else span,
@@ -302,10 +308,20 @@ def main(argv=None) -> int:
         mid = plan.mid(batch.positions)
         values: dict[str, np.ndarray] = {}
 
-        if use_blocks and blocks_ind:
+        def fetch(name):
+            """A blocks handle's results: on a mesh it times its own
+            ``gather`` and ``mirror``, on one card both are ``d2h``."""
+            if mesh is not None:
+                return handles[name].collect(timer=timer, flush=batch.flush)
             with timer.stage("d2h", flush=batch.flush):
-                isums, icnts, het_m, het_s = handles["indblocks"].collect()
-            with timer.stage("finalize", flush=batch.flush):
+                return handles[name].collect()
+        # the blocks routes' host distance stats: ``dist_stats`` on a mesh,
+        # as on the tri route, ``finalize`` on one card
+        blocks_stats = "finalize" if mesh is None else "dist_stats"
+
+        if use_blocks and blocks_ind:
+            isums, icnts, het_m, het_s = fetch("indblocks")
+            with timer.stage(blocks_stats, flush=batch.flush):
                 if "popDist" in analysis or "popPairDist" in analysis:
                     psums = np.einsum("pi,wij,qj->wpq", pop_agg, isums,
                                       pop_agg)
@@ -327,9 +343,8 @@ def main(argv=None) -> int:
                     for key, v in het.items():
                         values["het_" + key] = v
         elif use_blocks and need_het:
-            with timer.stage("d2h", flush=batch.flush):
-                psums, pcnts, het_m, het_s = handles["pophet"].collect()
-            with timer.stage("finalize", flush=batch.flush):
+            psums, pcnts, het_m, het_s = fetch("pophet")
+            with timer.stage(blocks_stats, flush=batch.flush):
                 if "popDist" in analysis or "popPairDist" in analysis:
                     values.update(popgen.group_dist_stats_from_blocks(
                         psums, pcnts, dist_pops, dist_sizes,
@@ -340,9 +355,8 @@ def main(argv=None) -> int:
                 for key, v in het.items():
                     values["het_" + key] = v
         elif use_blocks:
-            with timer.stage("d2h", flush=batch.flush):
-                bsums, bcnts = handles["pairblocks"].collect()
-            with timer.stage("finalize", flush=batch.flush):
+            bsums, bcnts = fetch("pairblocks")
+            with timer.stage(blocks_stats, flush=batch.flush):
                 values.update(popgen.group_dist_stats_from_blocks(
                     bsums, bcnts, dist_pops, dist_sizes,
                     do_pairs="popPairDist" in analysis,

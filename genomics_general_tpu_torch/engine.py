@@ -137,12 +137,20 @@ class StageTimer:
     within one lane stages are disjoint, so per-lane busy time is bounded
     by wall.  Note "d2h" is the collect thread's *blocking wait* on device
     results — with async dispatch it includes device compute time, not
-    just the transfer.  The tri route (``[W, H, H]`` pair counts) splits
-    its own stages out: on a mesh ``replicate`` (the flush span's upload
-    to every device) opens before ``kernel`` and ``gather`` (the wait for
-    every device's slab) takes the place of ``d2h``; on every tri route
+    just the transfer.  The pair-count routes split their own stages out.
+    On a device mesh, on both routes, ``replicate`` (getting each device
+    its input) opens before ``kernel`` (the launches) and ``gather`` (the
+    wait for every device's slab and their join) takes the place of
+    ``d2h``.  On the tri route (``[W, H, H]`` pair counts) ``replicate``
+    is the flush span's upload to every device, and on every tri route
     ``mirror`` unpacks the triangles into ``[W, H, H]`` and
-    ``dist_stats`` reduces them, apart from ``d2h`` and ``finalize``.
+    ``dist_stats`` reduces them, apart from ``d2h`` and ``finalize``.  On
+    the blocks route on a mesh (``[W, 2, P, P]`` block sums) ``replicate``
+    is each window slab's own wire, packed, staged and uploaded to its
+    device, ``mirror`` splits the joined blocks into the sums and counts
+    arrays, and ``dist_stats`` is the host distance stats on them, in
+    place of ``finalize``; the counter ``blocks_slabs`` counts the slabs
+    it ran.
 
     **Spans** (:meth:`span`, and every stage too) are kept in ``spans``
     with their thread, ``perf_counter_ns`` start and end, flush id and
@@ -157,6 +165,8 @@ class StageTimer:
     is recorded (``stage`` and ``span`` return one shared no-op context).
     :meth:`report` writes the ``[profile]`` line on stderr."""
 
+    # each stage's lane; replicate, gather, mirror and dist_stats hold
+    # what the class docstring says on each pair-count route
     LANES = {"parse": "parse",
              "h2d": "dispatch", "replicate": "dispatch", "kernel": "dispatch",
              "d2h": "collect", "gather": "collect", "mirror": "collect",

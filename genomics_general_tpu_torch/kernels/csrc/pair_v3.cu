@@ -770,6 +770,21 @@ unsigned pair_blocks(int h, int nwin) {
   const long long T = (h + kPairTile - 1) / kPairTile;
   return (unsigned)(T * (T + 1) / 2 * nwin);
 }
+
+// K1's or K13's shared-memory limit, raised once per device (the attribute
+// is a device's, so a process that launches on several cards raises it on
+// each; not at every launch, so launches can be captured in a CUDA graph).
+template <typename Kernel>
+cudaError_t raise_pair_smem(Kernel kernel, bool (&raised)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && raised[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kPairSmem);
+  if (e == cudaSuccess && dev < 64) raised[dev] = true;
+  return e;
+}
 }  // namespace
 
 extern "C" {
@@ -778,9 +793,8 @@ extern "C" {
 int ggt_pair_counts_v3(const void* planes, const void* meta, int h, int wb,
                        int wc, int wd, int wp, int w0, int nwin, void* m_out,
                        void* s_out, void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      pair_counts_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kPairSmem);
+  static bool raised[64];
+  const cudaError_t attr = raise_pair_smem(pair_counts_v3_kernel, raised);
   if (attr != cudaSuccess) return (int)attr;
   pair_counts_v3_kernel<<<pair_blocks(h, nwin), kPairThreads, kPairSmem,
                           (cudaStream_t)stream>>>(
@@ -794,9 +808,8 @@ int ggt_pair_counts_v3(const void* planes, const void* meta, int h, int wb,
 int ggt_pair_counts_v2(const void* called, const void* alt, const void* first,
                        const void* n_sites, int h, int words, int w0,
                        int nwin, void* m_out, void* s_out, void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      pair_counts_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kPairSmem);
+  static bool raised[64];
+  const cudaError_t attr = raise_pair_smem(pair_counts_v2_kernel, raised);
   if (attr != cudaSuccess) return (int)attr;
   pair_counts_v2_kernel<<<pair_blocks(h, nwin), kPairThreads, kPairSmem,
                           (cudaStream_t)stream>>>(

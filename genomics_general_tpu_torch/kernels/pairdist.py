@@ -29,6 +29,11 @@ then one of three epilogues, the modes of the JAX ``_modes_tail``:
   matrices, which the host mirrors back to [W, H, H]
   (:func:`window_pair_counts_dispatch`).
 
+On a device mesh the blocks dispatches cut the flush's windows into one
+slab a device and send each slab its own wire of the sites its windows
+cover (:func:`upload_slabs`); each device runs the same kernels on its
+slab (:func:`_slab_dispatch`).
+
 The general 4-state counts, :func:`pair_counts_4state` (K9,
 kernels/csrc/pair4.cu), count windows straight from an int8 [H, S] allele
 matrix on the device: the ``tri`` route of a device-array span or of the
@@ -1042,6 +1047,87 @@ class _ReadyHandle:
 
 # ------------------------------------------------------------ dispatch
 
+def _wait(pending, timer, flush) -> np.ndarray:
+    """A flush's result on the host.  ``timer`` (engine.StageTimer) times
+    the wait as ``gather`` when the result comes from a mesh's slabs (a
+    :class:`transfer.Gathered`; it counts the slabs, ``mesh_slabs``, and
+    the joined bytes, ``gather_bytes``), as ``d2h`` otherwise."""
+    gathered = isinstance(pending, transfer.Gathered)
+    if gathered:
+        timer.count("mesh_slabs", pending.n_parts)
+    with timer.stage("gather" if gathered else "d2h", flush=flush):
+        host = pending.wait()
+    if gathered:
+        timer.count("gather_bytes", host.nbytes)
+    return host
+
+
+class Slab(NamedTuple):
+    """One device's slab of a flush's windows on a mesh
+    (:func:`upload_slabs`): its ``k`` windows' wire, packed from the sites
+    they cover (``fl``), as ``buf`` on ``device``, and the pinned staging
+    to keep alive until the copy is done."""
+    device: torch.device
+    k: int
+    fl: V3Flush | V2Flush
+    buf: torch.Tensor
+    keep: tuple
+
+
+class Slabs(tuple):
+    """A flush's :class:`Slab` s in window order, as the blocks dispatches
+    take them on a mesh."""
+
+
+def upload_slabs(alleles: np.ndarray, first: np.ndarray,
+                 n_sites: np.ndarray, mesh, timer=None) -> Slabs:
+    """Cut a flush's windows into one contiguous slab per device of
+    ``mesh``, padded and cut as :func:`_mesh_pair_counts` cuts them
+    (:func:`transfer.mesh_batch`, :func:`transfer.slabs`), and send each
+    non-empty slab to its device as a wire of its own (v3, or v2 under
+    ``GGT_WIRE=2``) of only the sites its windows cover: packed
+    (``dispatch.pack``), staged and uploaded (:func:`transfer.upload`).
+    Nothing is replicated and nothing is padded to a site bucket beyond
+    the wire's own."""
+    W = first.shape[0]
+    _check_windows(first, n_sites, alleles.shape[1])
+    timer = timer or NO_TIMER
+    parts = []
+    for dev, (lo, hi) in zip(mesh.devices, transfer.slabs(
+            transfer.mesh_batch(W, mesh.size), mesh.size, W)):
+        if hi == lo:
+            continue
+        f, n = first[lo:hi], n_sites[lo:hi]
+        live = n > 0
+        s0, s1 = (int(f[live].min()), int((f + n)[live].max())) \
+            if live.any() else (0, 0)
+        with timer.span("dispatch.pack"):
+            fl = _flush_args(alleles[:, s0:s1],
+                             np.clip(f - s0, 0, s1 - s0).astype(np.int32), n)
+        buf, keep = transfer.upload(fl.buf, dev, timer=timer)
+        parts.append(Slab(dev, hi - lo, fl, buf, keep))
+    return Slabs(parts)
+
+
+def _slab_dispatch(alleles, first: np.ndarray, n_sites: np.ndarray, mesh,
+                   timer, flush, join=np.concatenate) -> transfer.Gathered:
+    """The blocks routes on a mesh: each device runs ``flush(wire, k,
+    chunk, device)`` (K1 or K13, K2, K3, and K5 for ``blocks_het``) on its
+    slab of :func:`upload_slabs` (``alleles`` is their result, or the host
+    span they are made from), its launches inside
+    :func:`transfer.fetch_on`; the results come back joined by ``join`` in
+    window order.  ``timer`` spans the launches (``dispatch.launch``) and
+    counts the slabs, ``blocks_slabs``."""
+    timer = timer or NO_TIMER
+    slabs = alleles if isinstance(alleles, Slabs) else upload_slabs(
+        alleles, first, n_sites, mesh, timer)
+    timer.count("blocks_slabs", len(slabs))
+    with timer.span("dispatch.launch"):
+        return transfer.Gathered(
+            [transfer.fetch_on(s.device, lambda s=s: flush(
+                s.fl.wire(s.buf), s.k, s.fl.chunk, s.device), keep=s.keep)
+             for s in slabs], join)
+
 
 class PairBlockStatsHandle:
     """In-flight per-window pop-block distance sums.
@@ -1051,25 +1137,29 @@ class PairBlockStatsHandle:
     mismatch/shared; counts = number of valid pairs.  Valid = off-diagonal
     and shared >= max(min_sites, 1) — exactly the non-NaN entries of the
     reference's per-window distance matrix after ``apply_min_sites``
-    (stats/popgen.DistStatsContext)."""
+    (stats/popgen.DistStatsContext).  ``timer`` (engine.StageTimer; the
+    CLI gives it on a mesh) times the wait as :func:`_wait` does and the
+    split into the two arrays as ``mirror``."""
 
     def __init__(self, W: int, P: int, pending=None):
         self.W, self.P, self._pending = W, P, pending
 
-    def collect(self):
+    def collect(self, timer=None, flush=None):
         if self._pending is None:
             z = np.zeros((self.W, self.P, self.P), dtype=np.float64)
             return z, z.copy()
-        host = self._pending.wait()
+        timer = timer or NO_TIMER
+        host = _wait(self._pending, timer, flush)
         self._pending = None
-        return host[:, 0].copy(), host[:, 1].copy()
+        with timer.stage("mirror", flush=flush):
+            return host[:, 0].copy(), host[:, 1].copy()
 
 
-def window_pair_block_stats_dispatch(alleles: np.ndarray, first: np.ndarray,
+def window_pair_block_stats_dispatch(alleles, first: np.ndarray,
                                      n_sites: np.ndarray,
                                      pop_mask: np.ndarray,
-                                     min_sites: int,
-                                     timer=None) -> PairBlockStatsHandle:
+                                     min_sites: int, timer=None,
+                                     mesh=None) -> PairBlockStatsHandle:
     """Dispatch the fused popDist/popPairDist flush: pair counts AND the
     float64 per-pop-block reductions run on the device; only [W, 2, P, P]
     floats come back (vs [W, H, H] count matrices).
@@ -1079,11 +1169,18 @@ def window_pair_block_stats_dispatch(alleles: np.ndarray, first: np.ndarray,
     (stats/popgen.group_dist_stats_from_blocks) reproduces the reference's
     nanmean_min/Fst arithmetic exactly.  ``timer`` (engine.StageTimer)
     spans the wire's pack (``dispatch.pack``), then the staging and the
-    launches (:func:`transfer.run_on_device`)."""
+    launches (:func:`transfer.run_on_device`).  With a ``mesh`` each
+    device counts its slab of the windows (:func:`_slab_dispatch`;
+    ``alleles`` may be their :func:`upload_slabs`)."""
     W = first.shape[0]
     P = pop_mask.shape[0]
     if W == 0:
         return PairBlockStatsHandle(W, P)
+    if mesh is not None:
+        return PairBlockStatsHandle(W, P, _slab_dispatch(
+            alleles, first, n_sites, mesh, timer,
+            lambda wire, k, chunk, dev: flush_blocks(
+                wire, k, chunk, _pop_groups(pop_mask, dev), min_sites)))
     if _exec_choice() == "host":
         return _ReadyHandle(lambda: _host_blocks(
             alleles, first, n_sites, pop_mask, min_sites))
@@ -1104,31 +1201,35 @@ class PairBlocksHetHandle:
     ``collect()`` -> (sums f64 [W, P, P], cnts f64 [W, P, P],
     het_m int64 [W, I], het_s int64 [W, I]); P is the mask's block count
     (populations, or individuals for the indPairDist path — pop blocks are
-    exact aggregations of individual blocks)."""
+    exact aggregations of individual blocks).  ``timer``: as
+    :meth:`PairBlockStatsHandle.collect`."""
 
     def __init__(self, W: int, P: int, n_ind: int, pending=None):
         self.W, self.P, self.n_ind, self._pending = W, P, n_ind, pending
 
-    def collect(self):
+    def collect(self, timer=None, flush=None):
         W, P = self.W, self.P
         if self._pending is None:
             z = np.zeros((W, P, P), dtype=np.float64)
             e = np.zeros((W, self.n_ind), dtype=np.int64)
             return z, z.copy(), e, e.copy()
-        host = self._pending.wait()
+        timer = timer or NO_TIMER
+        host = _wait(self._pending, timer, flush)
         self._pending = None
-        blocks = host[:W * 2 * P * P].reshape(W, 2, P, P)
-        het = host[W * 2 * P * P:].reshape(W, self.n_ind, 2)
-        return (blocks[:, 0].copy(), blocks[:, 1].copy(),
-                het[..., 0].astype(np.int64), het[..., 1].astype(np.int64))
+        with timer.stage("mirror", flush=flush):
+            blocks = host[:W * 2 * P * P].reshape(W, 2, P, P)
+            het = host[W * 2 * P * P:].reshape(W, self.n_ind, 2)
+            return (blocks[:, 0].copy(), blocks[:, 1].copy(),
+                    het[..., 0].astype(np.int64),
+                    het[..., 1].astype(np.int64))
 
 
-def window_pair_ind_blocks_dispatch(alleles: np.ndarray, first: np.ndarray,
+def window_pair_ind_blocks_dispatch(alleles, first: np.ndarray,
                                     n_sites: np.ndarray,
                                     ind_mask: np.ndarray,
                                     het_rows: np.ndarray,
-                                    min_sites: int,
-                                    timer=None) -> PairBlocksHetHandle:
+                                    min_sites: int, timer=None,
+                                    mesh=None) -> PairBlocksHetHandle:
     """Fused popDist/popPairDist/indPairDist/indHet flush: per-block sums
     and counts (K3) plus each individual's own-pair raw (mismatch, shared)
     (K5) come back in one transfer, never [W, H, H] matrices.
@@ -1137,11 +1238,25 @@ def window_pair_ind_blocks_dispatch(alleles: np.ndarray, first: np.ndarray,
     or populations for indHet without indPairDist), every row in exactly
     one block; ``het_rows``: int32 [2, I] the two haplotype rows of each
     individual (any pair for non-diploids — the host overwrites their het
-    with NaN).  ``timer``: as :func:`window_pair_block_stats_dispatch`."""
+    with NaN).  ``timer`` and ``mesh``: as
+    :func:`window_pair_block_stats_dispatch`; the slabs' (blocks | het)
+    buffers are joined into one such buffer of the whole flush."""
     W = first.shape[0]
     P, n_ind = ind_mask.shape[0], het_rows.shape[1]
     if W == 0:
         return PairBlocksHetHandle(W, P, n_ind)
+    if mesh is not None:
+        nb = 2 * P * P
+
+        def join(parts):
+            cut = [p.size // (nb + 2 * n_ind) * nb for p in parts]
+            return np.concatenate([p[:c] for p, c in zip(parts, cut)]
+                                  + [p[c:] for p, c in zip(parts, cut)])
+        return PairBlocksHetHandle(W, P, n_ind, _slab_dispatch(
+            alleles, first, n_sites, mesh, timer,
+            lambda wire, k, chunk, dev: flush_blocks_het(
+                wire, k, chunk, _pop_groups(ind_mask, dev),
+                _het_rows(het_rows, wire.h, dev), min_sites), join))
     if _exec_choice() == "host":
         return _ReadyHandle(lambda: _host_blocks_het(
             alleles, first, n_sites, ind_mask, het_rows, min_sites))
@@ -1163,9 +1278,7 @@ class PairCountsHandle:
     [W, H, H], shared [W, H, H]) int32 in window order: the only [W, H, H]
     arrays of the flush on the host, made at collect time.  ``timer``
     (engine.StageTimer) times the wait for the packed triangles as
-    ``gather`` when they come from a mesh's slabs (and counts the slabs,
-    ``mesh_slabs``, and their bytes, ``gather_bytes``), as ``d2h``
-    otherwise, and their unpacking as ``mirror``."""
+    :func:`_wait` does and their unpacking as ``mirror``."""
 
     def __init__(self, W: int, H: int, pending=None):
         self.W, self.H, self._pending = W, H, pending
@@ -1175,14 +1288,8 @@ class PairCountsHandle:
             z = np.zeros((self.W, self.H, self.H), dtype=np.int32)
             return z, z.copy()
         timer = timer or NO_TIMER
-        gathered = isinstance(self._pending, transfer.Gathered)
-        if gathered:
-            timer.count("mesh_slabs", self._pending.n_parts)
-        with timer.stage("gather" if gathered else "d2h", flush=flush):
-            host = self._pending.wait()
+        host = _wait(self._pending, timer, flush)
         self._pending = None
-        if gathered:
-            timer.count("gather_bytes", host.nbytes)
         with timer.stage("mirror", flush=flush):
             return _tri_unpack(host, self.W, self.H)
 

@@ -279,15 +279,17 @@ class Pending:
 
 class Gathered:
     """The shards of one result on their way to the host: ``wait()``
-    joins their arrays along axis 0 in shard order (window or site
-    order).  ``n_parts``: the shards it joins."""
+    joins their arrays in shard order (window or site order) with
+    ``join``, by default along axis 0.  ``n_parts``: the shards it
+    joins."""
 
-    def __init__(self, parts):
+    def __init__(self, parts, join=np.concatenate):
         self._parts = list(parts)
+        self._join = join
         self.n_parts = len(self._parts)
 
     def wait(self) -> np.ndarray:
-        host = np.concatenate([p.wait() for p in self._parts])
+        host = self._join([p.wait() for p in self._parts])
         self._parts = []
         return host
 
@@ -333,11 +335,33 @@ def run_on_device(buf: np.ndarray, dev: torch.device, run,
         with timer.span("dispatch.launch"):
             return Pending(run(torch.from_numpy(buf)))
     with timer.span("dispatch.stage"):
-        staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
-        staged.numpy()[:] = buf
+        staged = _pinned(buf)
     with timer.span("dispatch.launch"):
         return fetch_on(dev, lambda: run(staged.to(dev, non_blocking=True)),
                         keep=(staged,))
+
+
+def _pinned(buf: np.ndarray) -> torch.Tensor:
+    """A copy of the uint8 ``buf`` in pinned host memory."""
+    staged = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
+    staged.numpy()[:] = buf
+    return staged
+
+
+def upload(buf: np.ndarray, dev: torch.device, timer=None):
+    """Start the upload of one uint8 wire buffer to ``dev`` without
+    launching anything: (the uint8 tensor on ``dev``, what to keep alive
+    until its copy is done).  On CUDA the buffer is staged in pinned
+    memory (``dispatch.stage``) and copied with ``non_blocking`` on
+    ``dev``'s current stream, where :func:`fetch_on` later launches on
+    it; on the CPU the tensor is the host buffer itself."""
+    if dev.type != "cuda":
+        return torch.from_numpy(buf), ()
+    from ..device import device_scope
+    with (timer or NO_TIMER).span("dispatch.stage"):
+        staged = _pinned(buf)
+    with device_scope(dev):
+        return staged.to(dev, non_blocking=True), (staged,)
 
 
 def unpack_span(buf, sp: int, h: int) -> torch.Tensor:

@@ -7,8 +7,9 @@ The JAX package places arrays over its ``jax.sharding.Mesh`` with
 
 * the window batch is sharded data-parallel: padded to ``n_dev * 2^k``,
   one contiguous slab of windows per device, the allele matrix
-  replicated (the ``mesh=`` dispatches of kernels/pairdist.py and
-  kernels/abba.py);
+  replicated (the ``mesh=`` dispatches of the pair counts and of
+  kernels/abba.py), or each slab sent the wire of only the sites its
+  windows cover (pairdist's blocks dispatches, ``pairdist.upload_slabs``);
 * the site axis is sharded sequence-parallel: padded with missing sites
   to a multiple of the mesh size, one contiguous slab of sites per device
   (``counts.site_pop_counts_dispatch(mesh=)``, :func:`sharded_global_sfs`);

@@ -43,7 +43,7 @@ import chip_smoke as cs
 
 # each run: its mesh route's kernels and the dispatches that split
 MESH_ROUTES = {
-    "popDist": ("pair_counts_4state", "tri_pack"),
+    "popDist": cs.RUNS["popDist"][2],
     "run_A": ("pair_counts_4state", "tri_pack", "site_pop_counts"),
     "run_C": cs.ABBA_KERNELS,
 }
@@ -58,6 +58,7 @@ def compare_runs(mods, clis, transfer, mesh, geno, pops, n_sites,
     import torch
     pair, counts, abba = mods
     dispatches = [(pair, "window_pair_counts_dispatch"),
+                  (pair, "window_pair_block_stats_dispatch"),
                   (counts, "site_pop_counts_dispatch"),
                   (abba, "window_abba_sums_dispatch")]
     cards = list(dict.fromkeys(mesh.devices))

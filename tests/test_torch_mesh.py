@@ -353,6 +353,11 @@ CLIS = {
                                   *RUN_A]),
     "popgen_raw": ("popgen_windows", ["-w", "50000", "-m", "100", *POPS,
                                       *RUN_A]),
+    # the blocks route on the mesh's window slabs: overlapping windows,
+    # empty ones written too
+    "popgen_blocks": ("popgen_windows", [
+        "-w", "50000", "-s", "20000", "-m", "50", *POPS, "--analysis",
+        "popDist", "popPairDist", "indHet", "--writeFailedWindows"]),
     "abba": ("abba_windows", ["-w", "50000", "-s", "25000", "-m", "50",
                               *ABBA]),
     "fourpop": ("four_pop_windows", ["-w", "50000", "-m", "50", *ABBA]),
@@ -362,7 +367,8 @@ CLIS = {
 @pytest.mark.parametrize("name", sorted(CLIS))
 def test_mesh_cli_bytes_equal_meshless_and_jax(tmp_path, monkeypatch, name):
     """popgenWindows (run A's analyses; again under GGT_PACKED_TRANSFER=0,
-    one replicated raw upload per flush), ABBABABAwindows and
+    one replicated raw upload per flush; popDist popPairDist indHet on
+    the blocks route, each window slab its own wire), ABBABABAwindows and
     fourPopWindows on sim1 with cli.common.get_mesh patched to a 3-device
     CPU mesh: byte-equal to the meshless port and to the JAX CLI (which
     runs on its 8-device mesh)."""
@@ -380,7 +386,8 @@ def test_mesh_cli_bytes_equal_meshless_and_jax(tmp_path, monkeypatch, name):
     seen = []
     real = port_pair.window_pair_counts_dispatch, \
         port_counts.site_pop_counts_dispatch, \
-        port_abba.window_abba_sums_dispatch
+        port_abba.window_abba_sums_dispatch, \
+        port_pair.window_pair_ind_blocks_dispatch
 
     def spy(real_fn):
         def call(*a, mesh=None, **kw):
@@ -392,6 +399,8 @@ def test_mesh_cli_bytes_equal_meshless_and_jax(tmp_path, monkeypatch, name):
     monkeypatch.setattr(port_counts, "site_pop_counts_dispatch",
                         spy(real[1]))
     monkeypatch.setattr(port_abba, "window_abba_sums_dispatch", spy(real[2]))
+    monkeypatch.setattr(port_pair, "window_pair_ind_blocks_dispatch",
+                        spy(real[3]))
     mesh = _mesh(3)
     monkeypatch.setattr(common, "get_mesh", lambda: mesh)
     assert main(args + ["-o", str(meshed)]) == 0
