@@ -131,9 +131,10 @@ not build, launch or agree, or an output is wrong):
    per flush) and C (kernel route K6-K8; GGT_ABBA_HOST=1 through K12)
    under GGT_PACKED_TRANSFER=0: each byte-identical to its first run.
    Runs M and N rerun A and C with cli.common.get_mesh patched to a mesh
-   of two shards of the card (M: K9 + K4 on each window slab and K6 on
-   each site slab, no K1; N: K6 + K7 on each replica, K8 on each window
-   slab), every launch inside a shard's call and every shard launching,
+   of two shards of the card (M: K1 + K2 + K4 on each window slab's own
+   wire, as on one card, and K6 on each site slab; N: K6 + K7 on each
+   replica, K8 on each window slab), every launch inside a shard's call
+   and every shard launching,
    each byte-identical to its meshless run; run O reruns popDist on that
    mesh, its blocks route on each shard's window slab (K1 + K2 + K3 on
    the slab's own wire), byte-identical to its meshless run; then the
@@ -2608,19 +2609,23 @@ def shard_mesh(pmesh, dev):
 def mesh_parity(pair, pmesh, mesh, a, first, n, m, s) -> None:
     """The mesh's pair counts on ``mesh`` against K9's counts ``m``, ``s``
     of the same windows: data-parallel over the first four windows (0, 1,
-    777 and 66,000 sites: on two shards each shard's two windows take K9's
-    split, atomic path) and over all of them, and tensor-parallel (K14 on
-    each row shard) over all of them."""
+    777 and 66,000 sites) and over all of them, from the host span (each
+    shard's own wire: K1, K2, K4) and from the span on the card (K9 + K4;
+    on two shards each shard's two windows take K9's split, atomic path),
+    and tensor-parallel (K14 on each row shard) over all of them."""
     import torch
     s_max = int(n.max())
     if pair._k9_grid(a.shape[0], 2, s_max, mesh.devices[0])[1] <= 1:
         raise AssertionError("two-window shards should split K9's sites")
     want = torch.stack([m, s]).cpu()
-    for w in (4, first.shape[0]):
-        got = pmesh.sharded_window_pair_counts(a, first[:w], n[:w], mesh,
-                                               s_max=s_max)
-        check_equal(f"sharded_window_pair_counts ({w} windows) vs K9",
-                    torch.from_numpy(np.stack(got)), want[:, :w])
+    for src, kind in ((a, "host span"),
+                      (torch.from_numpy(a).to(mesh.devices[0]), "on card")):
+        for w in (4, first.shape[0]):
+            got = pmesh.sharded_window_pair_counts(src, first[:w], n[:w],
+                                                   mesh, s_max=s_max)
+            check_equal(f"sharded_window_pair_counts ({w} windows, {kind}) "
+                        "vs K9", torch.from_numpy(np.stack(got)),
+                        want[:, :w])
     got = pmesh.sharded_pair_counts_tp(a, first, n, mesh, s_max=s_max)
     check_equal("sharded_pair_counts_tp vs K9",
                 torch.from_numpy(np.stack(got)), want)
@@ -3184,9 +3189,8 @@ def k16_call_breakdown(counts, stack, reps: int = 500) -> dict:
 def shard_calls(transfer, mods, dispatches):
     """While open, each call of a dispatch in ``dispatches`` (module,
     attribute) opens a group in the list yielded, and each per-shard call
-    of the mesh routes (transfer.fetch_on, transfer.run_on_device; one a
-    shard, in device order) adds to the open group its device and the
-    launches it made."""
+    of the mesh routes (transfer.fetch_on; one a shard, in device order)
+    adds to the open group its device and the launches it made."""
     import torch
     groups, depth, saved = [], [0], []
 
@@ -3211,8 +3215,7 @@ def shard_calls(transfer, mods, dispatches):
             groups.append([])
             return real(*a, **kw)
         return call
-    for mod, attr, wrap in [(transfer, "fetch_on", shard),
-                            (transfer, "run_on_device", shard)] + \
+    for mod, attr, wrap in [(transfer, "fetch_on", shard)] + \
             [(m, at, dispatch) for m, at in dispatches]:
         saved.append((mod, attr, getattr(mod, attr)))
         setattr(mod, attr, wrap(getattr(mod, attr)))
@@ -3227,17 +3230,16 @@ def mesh_runs(mods, clis, transfer, mesh, geno, pops, n_sites, work):
     """Runs M, N and O: run A's, run C's and popDist's CLI flags with
     cli.common.get_mesh patched to ``mesh``.  Each resets the launch
     counts just before and reads them just after; it must launch exactly
-    its mesh route's kernels (run M: K9 + K4 on each window slab and K6 on
-    each site slab, no K1; run N: K6 + K7 on each replica and K8 on each
-    window slab; run O: popDist's blocks route, K1 + K2 + K3, on each
-    window slab), every launch inside a shard's call, every shard's call
+    its mesh route's kernels (run M: run A's, K1 + K2 + K4 on each window
+    slab and K6 on each site slab; run N: K6 + K7 on each replica and K8
+    on each window slab; run O: popDist's blocks route, K1 + K2 + K3, on
+    each window slab), every launch inside a shard's call, every shard's call
     launching, a dispatch split over the mesh, every device of the mesh
     called, and write the bytes of its meshless run (``{base}.gpu.csv``
     in ``work``).  Returns ({run: launches}, report)."""
     from genomics_general_tpu_torch.cli import common
     pair, counts, abba = mods
-    cases = (("run_M", "run_A", ("pair_counts_4state", "tri_pack",
-                                 "site_pop_counts"),
+    cases = (("run_M", "run_A", RUNS["run_A"][2],
               [(pair, "window_pair_counts_dispatch"),
                (counts, "site_pop_counts_dispatch")]),
              ("run_N", "run_C", ABBA_KERNELS,

@@ -246,12 +246,16 @@ def main(argv=None) -> int:
     share_upload = (need_dist and not use_blocks and (need_freq or need_wc)
                     and not transfer.packed_enabled()
                     and pair_k._exec_choice() != "host")
-    # on a mesh each card gets its input before the launch, as the stage
-    # ``replicate`` (``h2d`` on one card): the tri route's span replicated
-    # to every card, the blocks route's window slabs each packed and sent
-    # to its own (pairdist.upload_slabs)
-    mesh_tri = mesh is not None and need_dist and not use_blocks
-    mesh_blocks = mesh is not None and use_blocks
+    # the stages of the pair counts (engine.StageTimer), decided here
+    # alone.  On a mesh each card gets its input in ``replicate`` before
+    # ``kernel``: its slabs (pairdist.upload_slabs), or the shared upload;
+    # the wait for every card is ``gather`` (counting ``mesh_slabs`` and
+    # ``gather_bytes``), and ``mirror`` and ``dist_stats`` are the host's.
+    # On one card the upload is part of ``kernel`` (``h2d`` when shared)
+    # and the wait is ``d2h``; the blocks route keeps its split in
+    # ``d2h`` and its host stats in ``finalize``.
+    one_card_blocks = mesh is None and use_blocks
+    stats_stage = "finalize" if one_card_blocks else "dist_stats"
 
     def dispatch(batch):
         """Pack the flush span and launch all device work asynchronously;
@@ -266,16 +270,15 @@ def main(argv=None) -> int:
         first = plan.first.astype(np.int32)
         n_sites = plan.n_sites.astype(np.int32)
         handles = {}
-        dev = None
-        if (share_upload or mesh_tri) and span.shape[1]:
+        src = span
+        if share_upload and span.shape[1]:
             with timer.stage("h2d" if mesh is None else "replicate",
                              flush=batch.flush):
-                dev = transfer.upload_span(span, mesh=mesh)
-        elif mesh_blocks:
+                src = transfer.upload_span(span, mesh=mesh)
+        elif mesh is not None and need_dist:
             with timer.stage("replicate", flush=batch.flush):
-                dev = pair_k.upload_slabs(span, first, n_sites, mesh,
-                                          timer=timer)
-        src = dev if dev is not None else span
+                src = pair_k.upload_slabs(span, first, n_sites, mesh,
+                                          not use_blocks, timer=timer)
         with timer.stage("kernel", flush=batch.flush):
             if use_blocks and blocks_ind:
                 handles["indblocks"] = pair_k.window_pair_ind_blocks_dispatch(
@@ -296,7 +299,7 @@ def main(argv=None) -> int:
                     src, first, n_sites, mesh=mesh)
             if (need_freq or need_wc) and span.shape[1]:
                 handles["counts"] = counts_k.site_pop_counts_dispatch(
-                    dev[:, :span.shape[1]] if share_upload else span,
+                    src[:, :span.shape[1]] if share_upload else span,
                     fmask, mesh=mesh)
         return batch, handles
 
@@ -309,19 +312,23 @@ def main(argv=None) -> int:
         values: dict[str, np.ndarray] = {}
 
         def fetch(name):
-            """A blocks handle's results: on a mesh it times its own
-            ``gather`` and ``mirror``, on one card both are ``d2h``."""
+            """A pair handle's results, in the stages said above."""
+            handle = handles[name]
+            if one_card_blocks:
+                with timer.stage("d2h", flush=batch.flush):
+                    return handle.collect()
+            with timer.stage("d2h" if mesh is None else "gather",
+                             flush=batch.flush):
+                host = handle.wait()
             if mesh is not None:
-                return handles[name].collect(timer=timer, flush=batch.flush)
-            with timer.stage("d2h", flush=batch.flush):
-                return handles[name].collect()
-        # the blocks routes' host distance stats: ``dist_stats`` on a mesh,
-        # as on the tri route, ``finalize`` on one card
-        blocks_stats = "finalize" if mesh is None else "dist_stats"
+                timer.count("mesh_slabs", handle.n_parts)
+                timer.count("gather_bytes", host.nbytes)
+            with timer.stage("mirror", flush=batch.flush):
+                return handle.split(host)
 
         if use_blocks and blocks_ind:
             isums, icnts, het_m, het_s = fetch("indblocks")
-            with timer.stage(blocks_stats, flush=batch.flush):
+            with timer.stage(stats_stage, flush=batch.flush):
                 if "popDist" in analysis or "popPairDist" in analysis:
                     psums = np.einsum("pi,wij,qj->wpq", pop_agg, isums,
                                       pop_agg)
@@ -344,7 +351,7 @@ def main(argv=None) -> int:
                         values["het_" + key] = v
         elif use_blocks and need_het:
             psums, pcnts, het_m, het_s = fetch("pophet")
-            with timer.stage(blocks_stats, flush=batch.flush):
+            with timer.stage(stats_stage, flush=batch.flush):
                 if "popDist" in analysis or "popPairDist" in analysis:
                     values.update(popgen.group_dist_stats_from_blocks(
                         psums, pcnts, dist_pops, dist_sizes,
@@ -356,16 +363,14 @@ def main(argv=None) -> int:
                     values["het_" + key] = v
         elif use_blocks:
             bsums, bcnts = fetch("pairblocks")
-            with timer.stage(blocks_stats, flush=batch.flush):
+            with timer.stage(stats_stage, flush=batch.flush):
                 values.update(popgen.group_dist_stats_from_blocks(
                     bsums, bcnts, dist_pops, dist_sizes,
                     do_pairs="popPairDist" in analysis,
                     min_data=args.minData))
         elif need_dist:
-            # the handle times its wait (d2h or gather) and its mirror
-            mism, shar = handles["pair"].collect(timer=timer,
-                                                 flush=batch.flush)
-            with timer.stage("dist_stats", flush=batch.flush):
+            mism, shar = fetch("pair")
+            with timer.stage(stats_stage, flush=batch.flush):
                 ctx = popgen.DistStatsContext(mism, shar)
                 # analysis order matters: the reference mutates the cached
                 # matrix (popgenWindows.py:51-64)

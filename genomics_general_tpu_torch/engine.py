@@ -137,20 +137,17 @@ class StageTimer:
     within one lane stages are disjoint, so per-lane busy time is bounded
     by wall.  Note "d2h" is the collect thread's *blocking wait* on device
     results — with async dispatch it includes device compute time, not
-    just the transfer.  The pair-count routes split their own stages out.
-    On a device mesh, on both routes, ``replicate`` (getting each device
-    its input) opens before ``kernel`` (the launches) and ``gather`` (the
-    wait for every device's slab and their join) takes the place of
-    ``d2h``.  On the tri route (``[W, H, H]`` pair counts) ``replicate``
-    is the flush span's upload to every device, and on every tri route
-    ``mirror`` unpacks the triangles into ``[W, H, H]`` and
-    ``dist_stats`` reduces them, apart from ``d2h`` and ``finalize``.  On
-    the blocks route on a mesh (``[W, 2, P, P]`` block sums) ``replicate``
-    is each window slab's own wire, packed, staged and uploaded to its
-    device, ``mirror`` splits the joined blocks into the sums and counts
-    arrays, and ``dist_stats`` is the host distance stats on them, in
-    place of ``finalize``; the counter ``blocks_slabs`` counts the slabs
-    it ran.
+    just the transfer.  The pair-count routes split their own stages out
+    (cli/popgen_windows.py decides them).  On a device mesh, on both
+    routes, ``replicate`` (each device's slabs of the flush, packed, staged
+    and uploaded) opens before ``kernel`` (the launches), ``gather`` (the
+    wait for every device's slab and their join; the counters
+    ``mesh_slabs`` and ``gather_bytes``) takes the place of ``d2h``,
+    ``mirror`` turns the joined results into the route's arrays (the tri
+    route's triangles into ``[W, H, H]``, the blocks route's ``[W, 2, P,
+    P]`` into sums and counts) and ``dist_stats`` is the host distance
+    stats on them.  On one card the tri route opens ``d2h``, ``mirror``
+    and ``dist_stats``, and the blocks route ``d2h`` and ``finalize``.
 
     **Spans** (:meth:`span`, and every stage too) are kept in ``spans``
     with their thread, ``perf_counter_ns`` start and end, flush id and

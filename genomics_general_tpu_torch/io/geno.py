@@ -203,24 +203,8 @@ class GenoReader:
                 # matters on bandwidth-starved hosts.
                 data = open(fileobj, "rb").read()
                 try:
-                    from .native import GzChunkStream, ParallelGzChunks
-                    self._gz_sess = None
-                    gz_threads = int(os.environ.get("GGT_GZ_THREADS", "1"))
-                    if gz_threads > 1:
-                        # OPT-IN member-parallel decompress (multi-member /
-                        # bgzip-style files).  Measured SLOWER on the 2-core
-                        # dev host (0.53 vs 0.34 s median): the extra
-                        # threads fight the tokenizer pool and the big
-                        # inflated segments lose the sequential session's
-                        # cache-warm chunk->tokenize pattern.  Kept as a
-                        # knob for wider hosts.
-                        try:
-                            self._gz_sess = ParallelGzChunks(
-                                data, chunk_bytes, threads=gz_threads)
-                        except RuntimeError:
-                            self._gz_sess = None
-                    if self._gz_sess is None:
-                        self._gz_sess = GzChunkStream(data, chunk_bytes)
+                    from .native import GzChunkStream
+                    self._gz_sess = GzChunkStream(data, chunk_bytes)
                     self._gz_data = data
                     if os.environ.get("GGT_FUSED_GZ", "1") != "0":
                         from .native import scan_gz_split

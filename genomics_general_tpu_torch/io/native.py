@@ -281,117 +281,9 @@ def decompress_gz_segment(data: bytes, a: int, b: int) -> np.ndarray:
     raise RuntimeError("gz member output growth runaway")
 
 
-class ParallelGzChunks:
-    """Member-parallel decompressor over an in-memory multi-member .gz blob.
-
-    Scans for gzip member headers (magic ``1f 8b 08`` + plausible FLG),
-    groups them into ~4 MB compressed segments at candidate boundaries, and
-    decompresses segments on a small thread pool with a bounded lookahead —
-    segment k+1 inflates while the consumer tokenizes segment k, using the
-    host's second core that the sequential :class:`GzChunkStream` leaves
-    idle during decompress.  Same contract as GzChunkStream:
-    ``next_chunk()`` yields line-aligned uint8 chunks in order, returns
-    None at EOF, and raises RuntimeError on any decode failure (a
-    false-positive boundary fails libdeflate's header/CRC checks; the
-    caller replays through the Python zlib path from the served offset).
-    Missed boundaries are harmless — a segment may hold several members and
-    ``gzip_decompress`` loops them."""
-
-    SEG_MIN = 1 << 20          # compressed bytes per parallel work item
-
-    def __init__(self, data: bytes, chunk_bytes: int, threads: int = 2,
-                 lookahead: int = 3):
-        lib = get_lib()
-        if lib is None or not hasattr(lib, "gzip_decompress"):
-            raise RuntimeError("native gzip_decompress unavailable")
-        if threads < 2:
-            raise RuntimeError("parallel decompress needs >= 2 threads")
-        segs = scan_gz_members(data, self.SEG_MIN)
-        if segs is None:
-            raise RuntimeError("not multi-member enough to parallelize")
-        from concurrent.futures import ThreadPoolExecutor
-        self.lib = lib
-        self.data = data
-        self.chunk_bytes = int(chunk_bytes)
-        self._segs = segs
-        self._pool = ThreadPoolExecutor(max_workers=threads)
-        self._futs: list = []
-        self._next_submit = 0
-        self._lookahead = max(2, lookahead)
-        self._cur: np.ndarray | None = None
-        self._cur_off = 0
-        self._carry: np.ndarray | None = None
-        self._done = False
-        self._fill()
-
-    def _decompress_seg(self, a: int, b: int) -> np.ndarray:
-        return decompress_gz_segment(self.data, a, b)
-
-    def _fill(self):
-        while self._next_submit < len(self._segs) and \
-                len(self._futs) < self._lookahead:
-            a, b = self._segs[self._next_submit]
-            self._futs.append(self._pool.submit(self._decompress_seg, a, b))
-            self._next_submit += 1
-
-    def _advance(self) -> bool:
-        """Install the next decompressed segment as current; False at EOF."""
-        if not self._futs:
-            return False
-        fut = self._futs.pop(0)
-        self._fill()
-        arr = fut.result()                     # may raise RuntimeError
-        self._cur = arr
-        self._cur_off = 0
-        return True
-
-    def close(self):
-        self._pool.shutdown(wait=False, cancel_futures=True)
-
-    def next_chunk(self) -> np.ndarray | None:
-        parts: list[np.ndarray] = []
-        have = 0
-        target = self.chunk_bytes
-        if self._carry is not None:
-            parts.append(self._carry)
-            have = self._carry.size
-            self._carry = None
-        while True:
-            if self._cur is None or self._cur_off >= self._cur.size:
-                try:
-                    ok = self._advance()
-                except RuntimeError:
-                    self.close()
-                    raise
-                if not ok:
-                    self.close()
-                    if not parts:
-                        return None
-                    tail = parts[0] if len(parts) == 1 \
-                        else np.concatenate(parts)
-                    if tail.size and tail[-1] != ord("\n"):
-                        tail = np.concatenate(
-                            [tail, np.array([ord("\n")], np.uint8)])
-                    return tail if tail.size else None
-            take = min(self._cur.size - self._cur_off, target - have)
-            if take > 0:
-                parts.append(self._cur[self._cur_off:self._cur_off + take])
-                self._cur_off += take
-                have += take
-            if have >= target:
-                blob = parts[0] if len(parts) == 1 else np.concatenate(parts)
-                nl = np.flatnonzero(blob[::-1] == ord("\n"))
-                if nl.size == 0:
-                    # no newline yet: keep accumulating (pathological line)
-                    parts = [blob]
-                    target *= 2
-                    continue
-                cut = blob.size - int(nl[0])
-                self._carry = blob[cut:]
-                return blob[:cut]
-
-
 GZ_OK, GZ_BAD, GZ_NEEDS_WINDOW = 0, -2, -3
+# the least compressed bytes of a segment that inflates apart (scan_gz_split)
+SEG_MIN = 1 << 20
 _WINDOW = 1 << 15                  # deflate's reach back, in bytes of text
 
 _gzs = None
@@ -600,11 +492,10 @@ def scan_gz_split(data: bytes):
     """The segments of a .gz blob that inflate apart: its members when it
     has enough (:func:`scan_gz_members`), else the flush points of its one
     member; None when it has neither."""
-    seg_min = ParallelGzChunks.SEG_MIN
-    segs = scan_gz_members(data, seg_min)
+    segs = scan_gz_members(data, SEG_MIN)
     if segs is not None:
         return GzMembers(data, segs)
-    return scan_gz_flushes(data, seg_min)
+    return scan_gz_flushes(data, SEG_MIN)
 
 
 def gzip_decompress_array(data: bytes):

@@ -29,10 +29,11 @@ then one of three epilogues, the modes of the JAX ``_modes_tail``:
   matrices, which the host mirrors back to [W, H, H]
   (:func:`window_pair_counts_dispatch`).
 
-On a device mesh the blocks dispatches cut the flush's windows into one
-slab a device and send each slab its own wire of the sites its windows
-cover (:func:`upload_slabs`); each device runs the same kernels on its
-slab (:func:`_slab_dispatch`).
+Every dispatch spreads its flush the same way, on one card (a mesh of one
+device) as on a mesh: the flush's windows are cut into one slab a device,
+each slab gets its own input (:func:`upload_slabs`: the wire of the sites
+its windows cover) and each device runs its route's kernels on its slab
+(:func:`_slab_dispatch`).
 
 The general 4-state counts, :func:`pair_counts_4state` (K9,
 kernels/csrc/pair4.cu), count windows straight from an int8 [H, S] allele
@@ -1033,206 +1034,222 @@ def _host_blocks_het(alleles, first, n_sites, ind_mask, het_rows,
 class _ReadyHandle:
     """Lazy handle for the host executor: the flush computes at collect()
     time on the single consumer thread, so at most one batch's [W, H, H]
-    matrices are materialized however deep the pipeline is."""
+    matrices are materialized however deep the pipeline is.  ``wait()``
+    computes the results and ``split()`` hands them on, as
+    :class:`PairHandle`'s do."""
 
     def __init__(self, thunk):
         self._thunk = thunk
 
-    def collect(self, timer=None, flush=None):
-        """The thunk's result; ``timer`` (engine.StageTimer) times it as
-        ``d2h``, the stage of the wait it stands in for."""
-        with (timer or NO_TIMER).stage("d2h", flush=flush):
-            return self._thunk()
+    def wait(self):
+        return self._thunk()
+
+    @staticmethod
+    def split(host):
+        return host
+
+    def collect(self):
+        return self._thunk()
 
 
 # ------------------------------------------------------------ dispatch
 
-def _wait(pending, timer, flush) -> np.ndarray:
-    """A flush's result on the host.  ``timer`` (engine.StageTimer) times
-    the wait as ``gather`` when the result comes from a mesh's slabs (a
-    :class:`transfer.Gathered`; it counts the slabs, ``mesh_slabs``, and
-    the joined bytes, ``gather_bytes``), as ``d2h`` otherwise."""
-    gathered = isinstance(pending, transfer.Gathered)
-    if gathered:
-        timer.count("mesh_slabs", pending.n_parts)
-    with timer.stage("gather" if gathered else "d2h", flush=flush):
-        host = pending.wait()
-    if gathered:
-        timer.count("gather_bytes", host.nbytes)
-    return host
+class SpanFlush(NamedTuple):
+    """A slab's windows counted by K9 from an int8 allele matrix on its
+    device: the raw upload (``held`` None; ``buf`` is
+    :func:`transfer.pack_raw_span`'s buffer of ``s`` sites of ``h`` rows
+    and the slab's ``k`` windows), or a device array already there
+    (``held``, its int8 [h, s] shard; ``buf`` is the windows' first and
+    n_sites int32).  ``chunk`` and ``u16`` as the wires', ``s_max`` the
+    longest window."""
+    buf: np.ndarray
+    h: int
+    s: int
+    k: int
+    chunk: int
+    u16: bool
+    s_max: int
+    held: torch.Tensor | None
+
+    def wire(self, buf: torch.Tensor):
+        """(alleles int8 [h, s], first int32 [k], n_sites int32 [k]) on
+        ``buf``'s device, this slab's bytes there."""
+        if self.held is None:
+            return transfer.raw_span_views(buf, self.h, self.s, self.k)
+        fn = buf.view(torch.int32)
+        return self.held, fn[:self.k], fn[self.k:]
 
 
 class Slab(NamedTuple):
-    """One device's slab of a flush's windows on a mesh
-    (:func:`upload_slabs`): its ``k`` windows' wire, packed from the sites
-    they cover (``fl``), as ``buf`` on ``device``, and the pinned staging
-    to keep alive until the copy is done."""
+    """One device's slab of a flush's windows (:func:`upload_slabs`): its
+    ``k`` windows' input, read through ``fl``, as ``buf`` on ``device``,
+    and the pinned staging to keep alive until the copy is done."""
     device: torch.device
     k: int
-    fl: V3Flush | V2Flush
+    fl: V3Flush | V2Flush | SpanFlush
     buf: torch.Tensor
     keep: tuple
 
 
-class Slabs(tuple):
-    """A flush's :class:`Slab` s in window order, as the blocks dispatches
-    take them on a mesh."""
+class Slabs(NamedTuple):
+    """A flush's :class:`Slab` s in window order, of a span of ``h``
+    rows."""
+    h: int
+    parts: tuple
 
 
-def upload_slabs(alleles: np.ndarray, first: np.ndarray,
-                 n_sites: np.ndarray, mesh, timer=None) -> Slabs:
-    """Cut a flush's windows into one contiguous slab per device of
-    ``mesh``, padded and cut as :func:`_mesh_pair_counts` cuts them
-    (:func:`transfer.mesh_batch`, :func:`transfer.slabs`), and send each
-    non-empty slab to its device as a wire of its own (v3, or v2 under
-    ``GGT_WIRE=2``) of only the sites its windows cover: packed
-    (``dispatch.pack``), staged and uploaded (:func:`transfer.upload`).
-    Nothing is replicated and nothing is padded to a site bucket beyond
-    the wire's own."""
+def upload_slabs(alleles, first: np.ndarray, n_sites: np.ndarray, mesh,
+                 tri: bool, timer=None) -> Slabs:
+    """The one place that decides how a flush of pair counts is packed and
+    spread over devices, on one card (a mesh of one device) as on a mesh.
+
+    The flush's windows are cut into one contiguous slab per device of
+    ``mesh``, padded to ``n_dev * 2^k`` and cut as JAX's ``P("data")``
+    places them (:func:`transfer.mesh_batch`, :func:`transfer.slabs`), and
+    each non-empty slab gets its own input.  From a host span that is only
+    the sites its windows cover, as the flush's wire (v3, or v2 under
+    ``GGT_WIRE=2``), or, for the ``tri`` route under
+    ``GGT_PACKED_TRANSFER=0``, as the raw matrix
+    (:func:`transfer.pack_raw_span`): packed (``dispatch.pack``), staged
+    and uploaded (:func:`transfer.upload`).  A device array (a tensor, or
+    a :class:`transfer.Replicated`; the ``tri`` route only) is counted
+    where it lies, placed on every device by :func:`transfer.replicate`,
+    and each slab uploads only its windows."""
     W = first.shape[0]
-    _check_windows(first, n_sites, alleles.shape[1])
+    H, S = alleles.shape
+    first = np.ascontiguousarray(first, dtype=np.int32)
+    n_sites = np.ascontiguousarray(n_sites, dtype=np.int32)
+    _check_windows(first, n_sites, S)
+    on_host = isinstance(alleles, np.ndarray)
+    if not (on_host or tri):
+        raise ValueError("the blocks routes count a host span")
+    held = None if on_host else transfer.replicate(alleles, mesh).shards
+    raw = tri and not transfer.packed_enabled()
     timer = timer or NO_TIMER
     parts = []
-    for dev, (lo, hi) in zip(mesh.devices, transfer.slabs(
-            transfer.mesh_batch(W, mesh.size), mesh.size, W)):
+    for d, (dev, (lo, hi)) in enumerate(zip(mesh.devices, transfer.slabs(
+            transfer.mesh_batch(W, mesh.size), mesh.size, W))):
         if hi == lo:
             continue
-        f, n = first[lo:hi], n_sites[lo:hi]
-        live = n > 0
-        s0, s1 = (int(f[live].min()), int((f + n)[live].max())) \
-            if live.any() else (0, 0)
-        with timer.span("dispatch.pack"):
-            fl = _flush_args(alleles[:, s0:s1],
-                             np.clip(f - s0, 0, s1 - s0).astype(np.int32), n)
+        k, f, n = hi - lo, first[lo:hi], n_sites[lo:hi]
+        chunk, u16, s_max = _window_chunk(k, H), _tri_u16(n), int(n.max())
+        if held is not None:
+            fl = SpanFlush(np.concatenate([f, n]).view(np.uint8), H, S, k,
+                           chunk, u16, s_max, held[d])
+        else:
+            live = n > 0
+            s0, s1 = (int(f[live].min()), int((f + n)[live].max())) \
+                if live.any() else (0, 0)
+            f = np.clip(f - s0, 0, s1 - s0).astype(np.int32)
+            with timer.span("dispatch.pack"):
+                fl = SpanFlush(transfer.pack_raw_span(alleles[:, s0:s1], f,
+                                                      n), H, s1 - s0, k,
+                               chunk, u16, s_max, None) if raw \
+                    else _flush_args(alleles[:, s0:s1], f, n)
         buf, keep = transfer.upload(fl.buf, dev, timer=timer)
-        parts.append(Slab(dev, hi - lo, fl, buf, keep))
-    return Slabs(parts)
+        parts.append(Slab(dev, k, fl, buf, keep))
+    return Slabs(H, tuple(parts))
 
 
 def _slab_dispatch(alleles, first: np.ndarray, n_sites: np.ndarray, mesh,
-                   timer, flush, join=np.concatenate) -> transfer.Gathered:
-    """The blocks routes on a mesh: each device runs ``flush(wire, k,
-    chunk, device)`` (K1 or K13, K2, K3, and K5 for ``blocks_het``) on its
-    slab of :func:`upload_slabs` (``alleles`` is their result, or the host
-    span they are made from), its launches inside
-    :func:`transfer.fetch_on`; the results come back joined by ``join`` in
-    window order.  ``timer`` spans the launches (``dispatch.launch``) and
-    counts the slabs, ``blocks_slabs``."""
+                   tri: bool, timer, run,
+                   join=np.concatenate) -> transfer.Gathered:
+    """Every pair-count route's dispatch: each device runs ``run(slab)``,
+    the route's kernels on its slab of :func:`upload_slabs` (``alleles``
+    is their result, or the span they are made from), returning its
+    result tensor, inside :func:`transfer.fetch_on`; the results come back
+    joined by ``join`` in window order.  Without a ``mesh`` the flush runs
+    on one card, a mesh of one device: the tensor's, or ``get_device()``.
+    ``timer`` spans the launches (``dispatch.launch``)."""
     timer = timer or NO_TIMER
-    slabs = alleles if isinstance(alleles, Slabs) else upload_slabs(
-        alleles, first, n_sites, mesh, timer)
-    timer.count("blocks_slabs", len(slabs))
+    if not isinstance(alleles, Slabs):
+        if mesh is None:
+            from ..parallel.mesh import Mesh
+            mesh = Mesh([alleles.device if isinstance(alleles, torch.Tensor)
+                         else get_device()])
+        alleles = upload_slabs(alleles, first, n_sites, mesh, tri, timer)
     with timer.span("dispatch.launch"):
         return transfer.Gathered(
-            [transfer.fetch_on(s.device, lambda s=s: flush(
-                s.fl.wire(s.buf), s.k, s.fl.chunk, s.device), keep=s.keep)
-             for s in slabs], join)
+            [transfer.fetch_on(s.device, lambda s=s: run(s), keep=s.keep)
+             for s in alleles.parts], join)
 
 
-class PairBlockStatsHandle:
-    """In-flight per-window pop-block distance sums.
+def _host_exec(alleles, mesh) -> bool:
+    """Whether the host C executor counts the flush: ``GGT_EXEC=host``, a
+    host span, and one card."""
+    return mesh is None and isinstance(alleles, np.ndarray) \
+        and _exec_choice() == "host"
 
-    ``collect()`` returns float64 (sums [W, P, P], counts [W, P, P]):
-    sums[w, x, y] = sum over valid (i in pop x, j in pop y) of
-    mismatch/shared; counts = number of valid pairs.  Valid = off-diagonal
-    and shared >= max(min_sites, 1) — exactly the non-NaN entries of the
-    reference's per-window distance matrix after ``apply_min_sites``
-    (stats/popgen.DistStatsContext).  ``timer`` (engine.StageTimer; the
-    CLI gives it on a mesh) times the wait as :func:`_wait` does and the
-    split into the two arrays as ``mirror``."""
 
-    def __init__(self, W: int, P: int, pending=None):
-        self.W, self.P, self._pending = W, P, pending
+class PairHandle:
+    """One flush's pair results on their way to the host.  ``wait()``
+    blocks until every slab's result is back and returns them joined in
+    window order as one host array, ``split(host)`` turns that array into
+    the route's results, and ``collect()`` does both.  ``n_parts``: the
+    slabs it waits for."""
 
-    def collect(self, timer=None, flush=None):
-        if self._pending is None:
-            z = np.zeros((self.W, self.P, self.P), dtype=np.float64)
-            return z, z.copy()
-        timer = timer or NO_TIMER
-        host = _wait(self._pending, timer, flush)
-        self._pending = None
-        with timer.stage("mirror", flush=flush):
-            return host[:, 0].copy(), host[:, 1].copy()
+    def __init__(self, pending: transfer.Gathered, split):
+        self._pending, self._split = pending, split
+        self.n_parts = pending.n_parts
+
+    def wait(self) -> np.ndarray:
+        return self._pending.wait()
+
+    def split(self, host: np.ndarray):
+        return self._split(host)
+
+    def collect(self):
+        return self._split(self._pending.wait())
 
 
 def window_pair_block_stats_dispatch(alleles, first: np.ndarray,
                                      n_sites: np.ndarray,
                                      pop_mask: np.ndarray,
-                                     min_sites: int, timer=None,
-                                     mesh=None) -> PairBlockStatsHandle:
+                                     min_sites: int, timer=None, mesh=None):
     """Dispatch the fused popDist/popPairDist flush: pair counts AND the
     float64 per-pop-block reductions run on the device; only [W, 2, P, P]
-    floats come back (vs [W, H, H] count matrices).
+    floats come back (vs [W, H, H] count matrices).  ``collect()`` returns
+    float64 (sums [W, P, P], counts [W, P, P]): sums[w, x, y] = sum over
+    valid (i in pop x, j in pop y) of mismatch/shared; counts = number of
+    valid pairs.  Valid = off-diagonal and shared >= max(min_sites, 1) —
+    exactly the non-NaN entries of the reference's per-window distance
+    matrix after ``apply_min_sites`` (stats/popgen.DistStatsContext).
 
     ``pop_mask``: float [P, H] 0/1 row membership per population (np.unique
     group order), every row in exactly one group.  The host finalize
     (stats/popgen.group_dist_stats_from_blocks) reproduces the reference's
-    nanmean_min/Fst arithmetic exactly.  ``timer`` (engine.StageTimer)
-    spans the wire's pack (``dispatch.pack``), then the staging and the
-    launches (:func:`transfer.run_on_device`).  With a ``mesh`` each
-    device counts its slab of the windows (:func:`_slab_dispatch`;
-    ``alleles`` may be their :func:`upload_slabs`)."""
+    nanmean_min/Fst arithmetic exactly.  Each device of the ``mesh``
+    (default: one card) runs K1 (or K13), K2 and K3 on its slab of the
+    windows (:func:`_slab_dispatch`; ``alleles`` may be their
+    :func:`upload_slabs`); ``timer`` (engine.StageTimer) spans the pack,
+    the staging and the launches."""
     W = first.shape[0]
     P = pop_mask.shape[0]
     if W == 0:
-        return PairBlockStatsHandle(W, P)
-    if mesh is not None:
-        return PairBlockStatsHandle(W, P, _slab_dispatch(
-            alleles, first, n_sites, mesh, timer,
-            lambda wire, k, chunk, dev: flush_blocks(
-                wire, k, chunk, _pop_groups(pop_mask, dev), min_sites)))
-    if _exec_choice() == "host":
+        z = np.zeros((W, P, P), dtype=np.float64)
+        return _ReadyHandle(lambda: (z, z.copy()))
+    if _host_exec(alleles, mesh):
         return _ReadyHandle(lambda: _host_blocks(
             alleles, first, n_sites, pop_mask, min_sites))
-    dev = get_device()
-    timer = timer or NO_TIMER
-    with timer.span("dispatch.pack"):
-        fl = _flush_args(alleles, first, n_sites)
-    groups = _pop_groups(pop_mask, dev)
-    return PairBlockStatsHandle(W, P, transfer.run_on_device(
-        fl.buf, dev, lambda buf: flush_blocks(
-            fl.wire(buf), W, fl.chunk, groups, min_sites), timer=timer))
-
-
-class PairBlocksHetHandle:
-    """In-flight packed (blocks | het) results of the ``blocks_het`` flush
-    (one float64 buffer per flush, fetched by one copy).
-
-    ``collect()`` -> (sums f64 [W, P, P], cnts f64 [W, P, P],
-    het_m int64 [W, I], het_s int64 [W, I]); P is the mask's block count
-    (populations, or individuals for the indPairDist path — pop blocks are
-    exact aggregations of individual blocks).  ``timer``: as
-    :meth:`PairBlockStatsHandle.collect`."""
-
-    def __init__(self, W: int, P: int, n_ind: int, pending=None):
-        self.W, self.P, self.n_ind, self._pending = W, P, n_ind, pending
-
-    def collect(self, timer=None, flush=None):
-        W, P = self.W, self.P
-        if self._pending is None:
-            z = np.zeros((W, P, P), dtype=np.float64)
-            e = np.zeros((W, self.n_ind), dtype=np.int64)
-            return z, z.copy(), e, e.copy()
-        timer = timer or NO_TIMER
-        host = _wait(self._pending, timer, flush)
-        self._pending = None
-        with timer.stage("mirror", flush=flush):
-            blocks = host[:W * 2 * P * P].reshape(W, 2, P, P)
-            het = host[W * 2 * P * P:].reshape(W, self.n_ind, 2)
-            return (blocks[:, 0].copy(), blocks[:, 1].copy(),
-                    het[..., 0].astype(np.int64),
-                    het[..., 1].astype(np.int64))
+    return PairHandle(_slab_dispatch(
+        alleles, first, n_sites, mesh, False, timer,
+        lambda s: flush_blocks(s.fl.wire(s.buf), s.k, s.fl.chunk,
+                               _pop_groups(pop_mask, s.device), min_sites)),
+        lambda host: (host[:, 0].copy(), host[:, 1].copy()))
 
 
 def window_pair_ind_blocks_dispatch(alleles, first: np.ndarray,
                                     n_sites: np.ndarray,
                                     ind_mask: np.ndarray,
                                     het_rows: np.ndarray,
-                                    min_sites: int, timer=None,
-                                    mesh=None) -> PairBlocksHetHandle:
+                                    min_sites: int, timer=None, mesh=None):
     """Fused popDist/popPairDist/indPairDist/indHet flush: per-block sums
     and counts (K3) plus each individual's own-pair raw (mismatch, shared)
-    (K5) come back in one transfer, never [W, H, H] matrices.
+    (K5) come back in one float64 buffer a slab, never [W, H, H] matrices.
+    ``collect()`` -> (sums f64 [W, P, P], cnts f64 [W, P, P], het_m int64
+    [W, I], het_s int64 [W, I]); P is the mask's block count (populations,
+    or individuals for the indPairDist path — pop blocks are exact
+    aggregations of individual blocks).
 
     ``ind_mask``: float [P, H] 0/1 row membership per block (individuals,
     or populations for indHet without indPairDist), every row in exactly
@@ -1244,54 +1261,30 @@ def window_pair_ind_blocks_dispatch(alleles, first: np.ndarray,
     W = first.shape[0]
     P, n_ind = ind_mask.shape[0], het_rows.shape[1]
     if W == 0:
-        return PairBlocksHetHandle(W, P, n_ind)
-    if mesh is not None:
-        nb = 2 * P * P
-
-        def join(parts):
-            cut = [p.size // (nb + 2 * n_ind) * nb for p in parts]
-            return np.concatenate([p[:c] for p, c in zip(parts, cut)]
-                                  + [p[c:] for p, c in zip(parts, cut)])
-        return PairBlocksHetHandle(W, P, n_ind, _slab_dispatch(
-            alleles, first, n_sites, mesh, timer,
-            lambda wire, k, chunk, dev: flush_blocks_het(
-                wire, k, chunk, _pop_groups(ind_mask, dev),
-                _het_rows(het_rows, wire.h, dev), min_sites), join))
-    if _exec_choice() == "host":
+        z = np.zeros((W, P, P), dtype=np.float64)
+        e = np.zeros((W, n_ind), dtype=np.int64)
+        return _ReadyHandle(lambda: (z, z.copy(), e, e.copy()))
+    if _host_exec(alleles, mesh):
         return _ReadyHandle(lambda: _host_blocks_het(
             alleles, first, n_sites, ind_mask, het_rows, min_sites))
-    dev = get_device()
-    timer = timer or NO_TIMER
-    with timer.span("dispatch.pack"):
-        fl = _flush_args(alleles, first, n_sites)
-    groups = _pop_groups(ind_mask, dev)
-    rows = _het_rows(het_rows, alleles.shape[0], dev)
-    return PairBlocksHetHandle(W, P, n_ind, transfer.run_on_device(
-        fl.buf, dev, lambda buf: flush_blocks_het(
-            fl.wire(buf), W, fl.chunk, groups, rows, min_sites),
-        timer=timer))
+    nb = 2 * P * P
 
+    def join(parts):
+        cut = [p.size // (nb + 2 * n_ind) * nb for p in parts]
+        return np.concatenate([p[:c] for p, c in zip(parts, cut)]
+                              + [p[c:] for p, c in zip(parts, cut)])
 
-class PairCountsHandle:
-    """In-flight pair counts of one flush (the ``tri`` output).
-    ``collect()`` waits for the fetch and returns numpy (mismatch
-    [W, H, H], shared [W, H, H]) int32 in window order: the only [W, H, H]
-    arrays of the flush on the host, made at collect time.  ``timer``
-    (engine.StageTimer) times the wait for the packed triangles as
-    :func:`_wait` does and their unpacking as ``mirror``."""
-
-    def __init__(self, W: int, H: int, pending=None):
-        self.W, self.H, self._pending = W, H, pending
-
-    def collect(self, timer=None, flush=None):
-        if self._pending is None:
-            z = np.zeros((self.W, self.H, self.H), dtype=np.int32)
-            return z, z.copy()
-        timer = timer or NO_TIMER
-        host = _wait(self._pending, timer, flush)
-        self._pending = None
-        with timer.stage("mirror", flush=flush):
-            return _tri_unpack(host, self.W, self.H)
+    def split(host):
+        blocks = host[:W * nb].reshape(W, 2, P, P)
+        het = host[W * nb:].reshape(W, n_ind, 2)
+        return (blocks[:, 0].copy(), blocks[:, 1].copy(),
+                het[..., 0].astype(np.int64), het[..., 1].astype(np.int64))
+    return PairHandle(_slab_dispatch(
+        alleles, first, n_sites, mesh, False, timer,
+        lambda s: flush_blocks_het(
+            s.fl.wire(s.buf), s.k, s.fl.chunk,
+            _pop_groups(ind_mask, s.device),
+            _het_rows(het_rows, s.fl.h, s.device), min_sites), join), split)
 
 
 def _check_windows(first: np.ndarray, n_sites: np.ndarray, S: int) -> None:
@@ -1300,88 +1293,40 @@ def _check_windows(first: np.ndarray, n_sites: np.ndarray, S: int) -> None:
         raise ValueError(f"a window's range leaves the span of {S} sites")
 
 
+def _tri_run(s: Slab) -> torch.Tensor:
+    """The ``tri`` route on one slab: K1 (or K13), K2 and K4 on its wire,
+    or K9 and K4 on its allele matrix."""
+    fl = s.fl
+    if isinstance(fl, SpanFlush):
+        return flush_tri_4state(*fl.wire(s.buf), fl.chunk, fl.u16, fl.s_max)
+    return flush_tri(fl.wire(s.buf), s.k, fl.chunk, fl.u16)
+
+
 def window_pair_counts_dispatch(alleles, first: np.ndarray,
-                                n_sites: np.ndarray,
-                                mesh=None) -> PairCountsHandle:
-    """Dispatch the pair counts of one flush without fetching them.
+                                n_sites: np.ndarray, mesh=None):
+    """Dispatch the pair counts of one flush without fetching them;
+    ``collect()`` returns numpy (mismatch [W, H, H], shared [W, H, H])
+    int32 in window order, the only [W, H, H] arrays of the flush on the
+    host, made at collect time.
 
-    ``alleles`` is the flush's int8 [H, S] span.  A host array ships as one
-    wire-v3 buffer (wire v2 under ``GGT_WIRE=2``): K1 (K13) and K2 count
-    each window chunk and K4 packs the upper triangles (uint16 when every
-    window has fewer than 2^16 sites).
-    Under ``GGT_PACKED_TRANSFER=0`` it ships as the raw int8 matrix with the
-    windows (one upload, :func:`transfer.pack_raw_span`), and a tensor (the
-    JAX device-array route) is counted where it lies; both of those run the
-    general 4-state counts K9, then K4, per window chunk.  ``GGT_EXEC=host``
-    sends a host span to the host C executor.  With a ``mesh`` the window
-    batch is counted data-parallel over its devices
-    (:func:`_mesh_pair_counts`)."""
+    ``alleles`` is the flush's int8 [H, S] span.  Each device of the
+    ``mesh`` (default: one card) counts its slab of the windows
+    (:func:`upload_slabs`): from a host span's wire, K1 (K13) and K2
+    count each window chunk and K4 packs the upper triangles (uint16 when
+    every window of the slab has fewer than 2^16 sites); from the raw
+    upload (``GGT_PACKED_TRANSFER=0``) or a device array (a tensor, or a
+    :class:`transfer.Replicated`) K9 counts, then K4.  ``GGT_EXEC=host``
+    sends a host span on one card to the host C executor."""
     W = first.shape[0]
-    H, S = alleles.shape
+    H = alleles.h if isinstance(alleles, Slabs) else alleles.shape[0]
     if W == 0:
-        return PairCountsHandle(W, H)
-    if mesh is not None:
-        return _mesh_pair_counts(alleles, first, n_sites, mesh)
-    on_host = isinstance(alleles, np.ndarray)
-    if on_host and _exec_choice() == "host":
+        z = np.zeros((W, H, H), dtype=np.int32)
+        return _ReadyHandle(lambda: (z, z.copy()))
+    if _host_exec(alleles, mesh):
         return _ReadyHandle(lambda: _host_counts(alleles, first, n_sites))
-    if on_host and transfer.packed_enabled():
-        dev = get_device()
-        fl = _flush_args(alleles, first, n_sites)
-        return PairCountsHandle(W, H, transfer.run_on_device(
-            fl.buf, dev, lambda buf: flush_tri(
-                fl.wire(buf), W, fl.chunk, fl.u16)))
-    first = np.ascontiguousarray(first, dtype=np.int32)
-    n_sites = np.ascontiguousarray(n_sites, dtype=np.int32)
-    _check_windows(first, n_sites, S)
-    chunk, u16 = _window_chunk(W, H), _tri_u16(n_sites)
-    s_max = int(n_sites.max())
-    if on_host:
-        buf = transfer.pack_raw_span(alleles, first, n_sites)
-        return PairCountsHandle(W, H, transfer.run_on_device(
-            buf, get_device(), lambda b: flush_tri_4state(
-                *transfer.raw_span_views(b, H, S, W), chunk, u16, s_max)))
-    meta = np.concatenate([first, n_sites]).view(np.uint8)
-
-    def run(b):
-        fn = b.view(torch.int32)
-        return flush_tri_4state(alleles, fn[:W], fn[W:], chunk, u16, s_max)
-    return PairCountsHandle(W, H, transfer.run_on_device(
-        meta, alleles.device, run))
-
-
-def _mesh_pair_counts(alleles, first: np.ndarray, n_sites: np.ndarray,
-                      mesh) -> PairCountsHandle:
-    """Data-parallel pair counts (the JAX ``_sharded_gathered_pair_counts``):
-    the window batch, padded to ``n_dev * 2^k``, is cut into one contiguous
-    slab per device.  The span is replicated over the mesh (a host span as
-    the raw bucket-padded upload, the int8 array of the JAX mesh route: no
-    wire v3, no host executor; a :class:`transfer.Replicated` span is
-    counted where it lies), and each device runs K9 + K4 on its slab's
-    windows.  The slabs come back in window order."""
-    W = first.shape[0]
-    H, S = alleles.shape
-    first = np.ascontiguousarray(first, dtype=np.int32)
-    n_sites = np.ascontiguousarray(n_sites, dtype=np.int32)
-    _check_windows(first, n_sites, S)
-    span = transfer.upload_span(alleles, mesh=mesh) \
-        if isinstance(alleles, np.ndarray) else \
-        transfer.replicate(alleles, mesh)
-    u16, s_max = _tri_u16(n_sites), int(n_sites.max())
-    parts = []
-    for d, a, (lo, hi) in zip(mesh.devices, span.shards, transfer.slabs(
-            transfer.mesh_batch(W, mesh.size), mesh.size, W)):
-        if hi == lo:
-            continue
-        k = hi - lo
-        meta = np.concatenate([first[lo:hi], n_sites[lo:hi]]).view(np.uint8)
-
-        def run(b, a=a, k=k):
-            fn = b.view(torch.int32)
-            return flush_tri_4state(a, fn[:k], fn[k:], _window_chunk(k, H),
-                                    u16, s_max)
-        parts.append(transfer.run_on_device(meta, d, run))
-    return PairCountsHandle(W, H, transfer.Gathered(parts))
+    return PairHandle(_slab_dispatch(alleles, first, n_sites, mesh, True,
+                                     None, _tri_run),
+                      lambda host: _tri_unpack(host, W, H))
 
 
 def window_pair_counts(alleles, first: np.ndarray, n_sites: np.ndarray,

@@ -280,8 +280,8 @@ class Pending:
 class Gathered:
     """The shards of one result on their way to the host: ``wait()``
     joins their arrays in shard order (window or site order) with
-    ``join``, by default along axis 0.  ``n_parts``: the shards it
-    joins."""
+    ``join``, by default along axis 0, and hands a single shard's array
+    on as it is.  ``n_parts``: the shards it joins."""
 
     def __init__(self, parts, join=np.concatenate):
         self._parts = list(parts)
@@ -289,7 +289,8 @@ class Gathered:
         self.n_parts = len(self._parts)
 
     def wait(self) -> np.ndarray:
-        host = self._join([p.wait() for p in self._parts])
+        parts = [p.wait() for p in self._parts]
+        host = parts[0] if len(parts) == 1 else self._join(parts)
         self._parts = []
         return host
 
@@ -316,29 +317,6 @@ def fetch_on(dev: torch.device, run, keep=()) -> Pending:
     from ..device import device_scope
     with device_scope(dev):
         return fetch(run(), keep=keep)
-
-
-def run_on_device(buf: np.ndarray, dev: torch.device, run,
-                  timer=None) -> Pending:
-    """Upload one uint8 wire buffer and call ``run(device_buf)``, which
-    launches the flush's kernels and returns its result tensor.
-
-    On CUDA the buffer is staged in pinned memory and copied with
-    ``non_blocking``, the kernels go on ``dev``'s current stream (``dev``
-    is made the current device meanwhile), and the result is copied back
-    into pinned memory asynchronously: nothing here waits for the device.
-    On the CPU ``run`` computes at once.  ``timer`` (engine.StageTimer)
-    spans the staging (``dispatch.stage``) and the rest
-    (``dispatch.launch``)."""
-    timer = timer or NO_TIMER
-    if dev.type != "cuda":
-        with timer.span("dispatch.launch"):
-            return Pending(run(torch.from_numpy(buf)))
-    with timer.span("dispatch.stage"):
-        staged = _pinned(buf)
-    with timer.span("dispatch.launch"):
-        return fetch_on(dev, lambda: run(staged.to(dev, non_blocking=True)),
-                        keep=(staged,))
 
 
 def _pinned(buf: np.ndarray) -> torch.Tensor:

@@ -6,10 +6,10 @@ The JAX package places arrays over its ``jax.sharding.Mesh`` with
 ``NamedSharding``; here the placement is explicit, with JAX's shapes:
 
 * the window batch is sharded data-parallel: padded to ``n_dev * 2^k``,
-  one contiguous slab of windows per device, the allele matrix
-  replicated (the ``mesh=`` dispatches of the pair counts and of
-  kernels/abba.py), or each slab sent the wire of only the sites its
-  windows cover (pairdist's blocks dispatches, ``pairdist.upload_slabs``);
+  one contiguous slab of windows per device, each slab sent the wire of
+  only the sites its windows cover (the pair counts' dispatches,
+  ``pairdist.upload_slabs``, which run one card as a mesh of one device)
+  or the flush buffer replicated (kernels/abba.py);
 * the site axis is sharded sequence-parallel: padded with missing sites
   to a multiple of the mesh size, one contiguous slab of sites per device
   (``counts.site_pop_counts_dispatch(mesh=)``, :func:`sharded_global_sfs`);
@@ -82,8 +82,9 @@ def sharded_window_pair_counts(alleles: np.ndarray, first: np.ndarray,
                                n_sites: np.ndarray, mesh: Mesh,
                                s_max: int | None = None):
     """Data-parallel pair counts: the window batch sharded over the mesh,
-    the allele matrix replicated, K9 + K4 on each device's slab
-    (``pairdist.window_pair_counts(mesh=)``).  Each window reads at most
+    each device counting its slab (``pairdist.window_pair_counts(mesh=)``:
+    K1, K2 and K4 on a host span's wires, K9 and K4 on a device array
+    replicated).  Each window reads at most
     ``s_max`` sites (the JAX gather's width; by default all of its own).
     Returns numpy (mismatch [W, H, H], shared [W, H, H])."""
     if s_max is not None:

@@ -44,7 +44,7 @@ import chip_smoke as cs
 # each run: its mesh route's kernels and the dispatches that split
 MESH_ROUTES = {
     "popDist": cs.RUNS["popDist"][2],
-    "run_A": ("pair_counts_4state", "tri_pack", "site_pop_counts"),
+    "run_A": cs.RUNS["run_A"][2],
     "run_C": cs.ABBA_KERNELS,
 }
 

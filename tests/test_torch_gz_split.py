@@ -33,7 +33,7 @@ def text():
 @pytest.fixture(autouse=True)
 def small_segments(monkeypatch):
     """Segments of 4 kB, and the port's writers' pieces of 16 kB."""
-    monkeypatch.setattr(native.ParallelGzChunks, "SEG_MIN", 4096)
+    monkeypatch.setattr(native, "SEG_MIN", 4096)
     monkeypatch.setattr(writers.PiecedGzipFile, "PIECE", 16384)
 
 
@@ -197,7 +197,7 @@ def test_lines_straddle_segments(tmp_path, monkeypatch, text):
 
 
 def test_header_only_first_segment(tmp_path, monkeypatch, text):
-    monkeypatch.setattr(native.ParallelGzChunks, "SEG_MIN", 64)
+    monkeypatch.setattr(native, "SEG_MIN", 64)
     pieces = line_pieces(text, 300)
     gz = member(pieces)
     first = native.scan_gz_split(gz).segments[0]
@@ -265,7 +265,7 @@ def test_parse_vcf_output_inflates_in_parallel(tmp_path, monkeypatch):
     """parseVCF's ``.geno.gz``: the same text as its plain output, and read
     in parallel segments (pieces and segments cut to the small file)."""
     monkeypatch.setattr(writers.PiecedGzipFile, "PIECE", 2048)
-    monkeypatch.setattr(native.ParallelGzChunks, "SEG_MIN", 1024)
+    monkeypatch.setattr(native, "SEG_MIN", 1024)
     vcf = str(Path(__file__).parent / "data" / "sim1.vcf.gz")
     gz_out, plain_out = tmp_path / "p.geno.gz", tmp_path / "p.geno"
     for out in (gz_out, plain_out):

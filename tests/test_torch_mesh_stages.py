@@ -1,18 +1,21 @@
 """The mesh's own stages (engine.StageTimer under ``--profile``):
 ``replicate``, ``gather``, ``mirror`` and ``dist_stats``, and the counters
-``mesh_slabs``, ``gather_bytes`` and ``blocks_slabs``, on popgenWindows
+``mesh_slabs`` and ``gather_bytes``, on popgenWindows
 runs of a small cohort of the benchmark's four-card configuration
 (``kg3_superpops_node4`` cut to 22 people), with the cell
 ``kg3.popdist.mesh4``'s flags, on the CPU with ``cli.common.get_mesh``
 patched to a mesh of four CPU shards.  On the mesh popDist popPairDist
-takes the blocks route on each shard's window slab and hapStats the tri
-route; both open the four stages.  The mesh's blocks run is held to the
+takes the blocks route and hapStats the tri route, both on each shard's
+window slab through the one slab function (pairdist._slab_dispatch); both
+open the four stages.  The mesh's blocks run is held to the
 benchmark's plain reference under the cell's limits and is byte-equal to
 the one-card blocks run, as are the mesh's individual analyses and its
 hapStats run to theirs; the one-card tri route (hapStats) and the blocks
 route keep their stages; every route's CSV is the same with and without
 ``--profile``."""
 
+import gzip
+import shutil
 import time
 
 import pytest
@@ -45,11 +48,18 @@ def _flags(work, pops, analysis=None):
     return flags
 
 
-# route: (on the mesh, --analysis in place of the cell's); "mesh" is the
-# cell's popDist popPairDist on the mesh (the blocks route on each shard's
-# window slab), "mesh_tri" hapStats on the mesh (the tri route)
-ROUTES = {"mesh": (True, None), "mesh_tri": (True, ["hapStats"]),
-          "tri": (False, ["hapStats"]), "blocks": (False, None)}
+# route: (on the mesh, --analysis in place of the cell's, environment);
+# "mesh" is the cell's popDist popPairDist on the mesh (the blocks route on
+# each shard's window slab), "mesh_tri" hapStats on the mesh (the tri
+# route), and the "_wire2" and "_raw" routes are both under GGT_WIRE=2
+# and GGT_PACKED_TRANSFER=0 (the tri route's raw slabs)
+WIRE2, RAW = {"GGT_WIRE": "2"}, {"GGT_PACKED_TRANSFER": "0"}
+ROUTES = {"mesh": (True, None, {}), "mesh_tri": (True, ["hapStats"], {}),
+          "tri": (False, ["hapStats"], {}), "blocks": (False, None, {}),
+          "mesh_wire2": (True, None, WIRE2),
+          "mesh_tri_wire2": (True, ["hapStats"], WIRE2),
+          "mesh_raw": (True, None, RAW),
+          "mesh_tri_raw": (True, ["hapStats"], RAW)}
 MESH_ROUTES = ("mesh", "mesh_tri")
 # the cell's -p populations, and so the blocks' P
 N_POPS = len(TINY_KG["superpopulations"])
@@ -57,8 +67,7 @@ N_POPS = len(TINY_KG["superpopulations"])
 
 class _Recorder:
     """While in use: every StageTimer made, and the windows of each flush
-    handed to the mesh's pair counts (tri) or to its window slabs
-    (blocks)."""
+    handed to the one slab function of the pair counts, on every route."""
 
     def __init__(self, mp):
         self.made, self.calls = [], []
@@ -75,8 +84,8 @@ class _Recorder:
                 return real(alleles, first, *a, **kw)
             return call
         mp.setattr(engine, "StageTimer", Recording)
-        for name in ("_mesh_pair_counts", "upload_slabs"):
-            mp.setattr(pairdist, name, spy(getattr(pairdist, name)))
+        mp.setattr(pairdist, "_slab_dispatch",
+                   spy(pairdist._slab_dispatch))
 
 
 def _run(tmp, work, name, analysis, mesh, traced):
@@ -121,12 +130,15 @@ def runs(cohort):
     rec, tmp, cfg, work = cohort
     four = port_mesh.make_mesh(N_DEV)
     out = {}
-    for route, (on_mesh, analysis) in ROUTES.items():
+    for route, (on_mesh, analysis, env) in ROUTES.items():
         for traced in (True, False):
             rec.calls.clear()
             t0 = time.perf_counter()
-            got = _run(tmp, work, route, analysis, four if on_mesh else None,
-                       traced)
+            with pytest.MonkeyPatch.context() as mp:
+                for k, v in env.items():
+                    mp.setenv(k, v)
+                got = _run(tmp, work, route, analysis,
+                           four if on_mesh else None, traced)
             out[route, traced] = (rec.made[-1], got,
                                   time.perf_counter() - t0)
             if on_mesh and traced:
@@ -168,18 +180,18 @@ def test_mesh_run_opens_the_four_stages_and_counts_its_slabs(runs, route):
     assert timer.counters["mesh_slabs"] == _slabs(calls)
     if route == "mesh":
         # the blocks route: [W, 2, P, P] float64 back, not triangles
-        assert timer.counters["blocks_slabs"] == timer.counters["mesh_slabs"]
         assert timer.counters["gather_bytes"] == \
             sum(calls) * 2 * N_POPS * N_POPS * 8 > 0
         return
-    assert "blocks_slabs" not in timer.counters
     H = 2 * TINY_KG["n_individuals"]
     # uint16 triangles: every window has fewer than 2^16 sites
     assert timer.counters["gather_bytes"] == sum(calls) * H * (H + 1) * 2 > 0
 
 
-@pytest.mark.parametrize("route,one_card", [("mesh", "blocks"),
-                                            ("mesh_tri", "tri")])
+@pytest.mark.parametrize("route,one_card", [
+    ("mesh", "blocks"), ("mesh_tri", "tri"), ("mesh_wire2", "blocks"),
+    ("mesh_tri_wire2", "tri"), ("mesh_raw", "blocks"),
+    ("mesh_tri_raw", "tri")])
 def test_mesh_csv_is_the_one_card_csv(runs, route, one_card):
     assert runs[route, False][1] == runs[one_card, False][1]
 
@@ -201,22 +213,44 @@ def test_individual_blocks_on_the_mesh_match_one_card(cohort, analysis):
     timer = rec.made[-1]
     assert on_mesh == one and one.count(b"\n") > 1
     assert NEW <= set(timer.t) and not {"d2h", "finalize"} & set(timer.t)
-    assert timer.counters["blocks_slabs"] == timer.counters["mesh_slabs"] \
-        == _slabs(rec.calls) > 0
+    assert len(rec.calls) == timer.counters["flushes"]
+    assert timer.counters["mesh_slabs"] == _slabs(rec.calls) > 0
+
+
+@pytest.mark.parametrize("analysis", [None, ["hapStats"],
+                                      ["popDist", "indHet"]])
+def test_no_windows_on_the_mesh_write_the_one_card_csv(cohort, tmp_path,
+                                                       analysis):
+    """An input of its header alone plans no window: on the mesh as on
+    one card the run writes the header and nothing else, and gathers no
+    slab."""
+    rec, tmp, _, work = cohort
+    with gzip.open(tmp / "input.geno.gz", "rt") as f:
+        header = f.readline()
+    with gzip.open(tmp_path / "input.geno.gz", "wt") as f:
+        f.write(header)
+    shutil.copy(tmp / "pops.txt", tmp_path / "pops.txt")
+    rec.calls.clear()
+    on_mesh = _run(tmp_path, work, "empty", analysis,
+                   port_mesh.make_mesh(N_DEV), True)
+    assert rec.made[-1].counters["windows"] == 0
+    assert "mesh_slabs" not in rec.made[-1].counters
+    one = _run(tmp_path, work, "empty", analysis, None, False)
+    assert on_mesh == one and one.count(b"\n") == 1
 
 
 def test_one_card_tri_run_mirrors_without_a_gather(runs):
     timer = runs["tri", True][0]
     assert {"d2h", "mirror", "dist_stats"} <= set(timer.t)
     assert not {"gather", "replicate"} & set(timer.t)
-    assert not {"mesh_slabs", "gather_bytes", "blocks_slabs"} \
+    assert not {"mesh_slabs", "gather_bytes"} \
         & set(timer.counters)
 
 
 def test_blocks_route_opens_none_of_the_four(runs):
     timer = runs["blocks", True][0]
     assert set(timer.t) == {"parse", "kernel", "d2h", "finalize", "write"}
-    assert not {"mesh_slabs", "gather_bytes", "blocks_slabs"} \
+    assert not {"mesh_slabs", "gather_bytes"} \
         & set(timer.counters)
 
 
